@@ -1,0 +1,146 @@
+"""Device, ``impl=`` and kernel-build shim (the counterpart of ``repro.compat``).
+
+* :func:`resolve_device` — entry points run on the card unless the caller
+  names another device; with no CUDA and no device given they raise rather
+  than quietly running on the host.
+* :func:`resolve_impl` — the port's ``impl=`` convention: ``"torch"`` is the
+  plain tensor-op oracle (the JAX package's ``"xla"``), ``"cuda"`` routes the
+  ``combine="sum"`` sweeps through the hand-written kernels.  A kernel
+  wrapper handed a CPU tensor runs the kernel's plain version (the analogue
+  of Pallas interpret mode); handed a CUDA tensor it launches the kernel.
+* :func:`load_kernels` — builds every ``csrc/*.cu`` with ``nvcc`` into
+  ``build/repro_torch/`` at first use (one ``nvcc`` per source, all started
+  together) and binds the plain C entry points through ``ctypes``.
+* :data:`LAUNCHES` — one integer per kernel, bumped by its wrapper where it
+  launches, so a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+IMPLS = ("torch", "cuda")
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# C signatures of the kernels' entry points: every pointer and the stream
+# are c_void_p (a bare int would be cut to 32 bits), sizes are 64-bit
+_VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "segment_sum": ("segment_sum_f32", (_VP, _VP, _VP, _VP, _I64, _I32, _VP)),
+    "block_gather": ("block_gather_f32", (_VP, _VP, _VP, _I64, _I64, _I64,
+                                          _VP)),
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+_kernels: Dict[str, ctypes._CFuncPtr] = {}
+last_build_seconds: Optional[float] = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` means the card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the host")
+    return torch.device("cuda")
+
+
+def resolve_impl(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_kernels() -> Dict[str, Path]:
+    """Compile every ``csrc/*.cu`` that has no up-to-date library yet.
+
+    The sources are compiled in parallel, each into its own shared library
+    named by the hash of its text, so an edited source is never served a
+    stale build.  Raises with the compiler's output when any build fails.
+    """
+    global last_build_seconds
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, []
+    for src in sorted(CSRC.glob("*.cu")):
+        out = _library_path(src)
+        libs[src.stem] = out
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failures = []
+    for src, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{src.name}:\n{log}")
+        else:
+            tmp.replace(out)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    last_build_seconds = time.perf_counter() - t0
+    return libs
+
+
+def load_kernels() -> Dict[str, ctypes._CFuncPtr]:
+    """Build (if needed) and bind every kernel; cached for the process."""
+    if _kernels:
+        return _kernels
+    libs = build_kernels()
+    for name, (symbol, argtypes) in _SIGNATURES.items():
+        lib = ctypes.CDLL(str(libs[name]))
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _kernels[name] = fn
+    return _kernels
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream; raise on a CUDA error."""
+    fn = load_kernels()[name]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES[name] += 1

@@ -1,0 +1,67 @@
+"""Carry state between the JAX package and the port as numpy arrays.
+
+The JAX package's ``CBList``, ``BlockStore``, ``UpdateLog`` and program
+outputs are NamedTuples of arrays; anything with the same field names whose
+leaves ``np.asarray`` accepts converts here (nothing of the JAX package is
+imported).  Values are copied unchanged — int32 stays int32 — so a layout
+moved across and back compares bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.backend import resolve_device
+from repro_torch.core.blockstore import BlockStore
+from repro_torch.core.cblist import CBList
+from repro_torch.stream.log import UpdateLog
+
+
+def to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def from_numpy(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(np.asarray(x)),
+                           device=resolve_device(device))
+
+
+def _fields(obj, names):
+    if isinstance(obj, dict):
+        return {k: obj[k] for k in names}
+    return {k: getattr(obj, k) for k in names}
+
+
+def store_from_arrays(store, device=None) -> BlockStore:
+    return BlockStore(**{k: from_numpy(v, device) for k, v in
+                         _fields(store, BlockStore._fields).items()})
+
+
+def cbl_from_arrays(cbl, device=None) -> CBList:
+    """A port CBList from a JAX ``CBList`` (or a dict of its fields)."""
+    f = _fields(cbl, CBList._fields)
+    return CBList(store=store_from_arrays(f.pop("store"), device),
+                  **{k: from_numpy(v, device) for k, v in f.items()})
+
+
+def cbl_to_numpy(cbl: CBList) -> Dict[str, Any]:
+    """A port CBList as ``{field: ndarray}`` with ``store`` a nested dict."""
+    out = {k: to_numpy(getattr(cbl, k)) for k in CBList._fields
+           if k != "store"}
+    out["store"] = {k: to_numpy(getattr(cbl.store, k))
+                    for k in BlockStore._fields}
+    return out
+
+
+def log_from_arrays(log, device=None) -> UpdateLog:
+    """A port UpdateLog from a JAX ``UpdateLog`` (or a dict of its fields)."""
+    return UpdateLog(**{k: from_numpy(v, device) for k, v in
+                        _fields(log, UpdateLog._fields).items()})
+
+
+def log_to_numpy(log: UpdateLog) -> Dict[str, np.ndarray]:
+    return {k: to_numpy(getattr(log, k)) for k in UpdateLog._fields}

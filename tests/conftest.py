@@ -15,3 +15,8 @@ def small_graph():
     w = rng.random(len(src)).astype(np.float32)
     adj = {(int(s), int(d)): float(ww) for s, d, ww in zip(src, dst, w)}
     return NV, src, dst, w, adj
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (skips without them)")
