@@ -21,7 +21,19 @@ Phases, one report line each:
    ``apply`` + ``flush`` with point reads of just-inserted and just-deleted
    pairs after each, then the same analytics warm;
 5. checks: ranks sum to 1, PageRank with ``impl="torch"`` agrees with the
-   kernel path, both kernels launched on the main path.
+   kernel path, both kernels launched on the main path;
+6. LM serving, once the graph state is freed: Gemma-2 27B at full width
+   (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
+   layers, bf16 weights from ``--seed``.  With the attention launch counters
+   at 0, ``launch.serve.serve`` takes 8 requests (prompts of 2,048-7,168
+   random tokens, padded to the longest), prefills them through the flash
+   kernel and decodes 64 greedy steps through the paged kernel over a page
+   pool of 128-token pages.  Then each kernel against its plain version at
+   the serve shapes (flash on the first local and global layers' own inputs,
+   batch row 0 and heads 0-3; paged on the serve's caches after prefill,
+   every row), timed beside its plain version, SDPA (flash) and its bound;
+   and 4 teacher-forced decode steps through ``serve_step_paged`` against
+   the dense plain ``serve_step``.
 
 The last two lines are the ``kernels`` JSON object and the device line.  It
 exits non-zero, printing no result, without a CUDA device or without the
@@ -30,6 +42,8 @@ repository's ``src/`` beside it.  Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -40,9 +54,27 @@ ROOT = Path(__file__).resolve().parent
 LJ_VERTICES, LJ_EDGES = 4_847_571, 68_993_773      # SNAP soc-LiveJournal1
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM, 700 W
 FP32_OPS_PER_S = 67e12                             # non-tensor float32 peak
+BF16_TENSOR_OPS_PER_S = 989e12                     # dense bf16 tensor cores
 UPDATES_PER_ROUND, ROUNDS, DELETE_FRAC = 1_000_000, 3, 0.2
 READ_PAIRS = 65_536
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
+# LM serving: Gemma-2 27B at full width, depth cut to 8 layers
+LM_LAYERS, LM_REQUESTS, LM_DECODE, LM_CHECK_STEPS = 8, 8, 64, 4
+LM_PROMPT_MIN, LM_PROMPT_MAX = 2048, 7168
+FLASH_CHECK_HEADS = 4
+GRAPH_KERNELS = ("segment_sum", "block_gather")
+LM_KERNELS = ("flash_attention", "paged_attention")
+# attention kernels against their plain versions, bf16 outputs: both compute
+# in float32 and round once, so they differ by at most one bf16 ulp (2^-7
+# relative) plus a floor for outputs near 0
+ATTN_RTOL, ATTN_ATOL = 2 ** -7, 1e-5
+# paged decode vs the dense plain serve_step, bf16 model: sums taken in
+# another order flip bf16 roundings, which grow through the 8 random layers;
+# the paged route through the plain attention is itself 0.83-0.88 % off the
+# dense decoder (relative L2 of a step's [B, vocab] logits; H100 runs of
+# this script, seeds 0 and 1).  The kernel route must stay within 3 %; a
+# wrong kernel is off by about 100 %
+LOGIT_REL_L2 = 3e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -126,8 +158,9 @@ def profiled(torch, fn, top: int = 15):
                           for k, c, t in dev[:top]])
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+             ) -> tuple:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                           else "operations")
 
@@ -372,30 +405,268 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
     out.update(warm)
     say("service.warm", **{k: f"{v['seconds']:.3f}s/{v['iterations']}it"
                            for k, v in warm.items()})
-    out["launches"] = dict(backend.LAUNCHES)
+    out["launches"] = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
     report["service"] = out
     return ranks, ranks_warm
 
 
-def run(scale: float = 1.0, seed: int = 0, profile: bool = False) -> dict:
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
+# ---------------------------------------------------------------------------
+# LM serving: Gemma-2 27B at full width over the paged KV cache
+# ---------------------------------------------------------------------------
+
+def live_pairs(S: int, window: int) -> int:
+    """Causal (query, key) pairs of one head of S rows, within ``window``."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def time_flash(torch, timer, name, q, k, v, window, softcap, library):
+    """The flash kernel at a prefill layer's shape against its plain version
+    (batch row 0, heads 0-3, every row), timed beside the plain version over
+    the whole shape, the bound and (``library``) SDPA."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    hs = FLASH_CHECK_HEADS
+    kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=softcap)
+    got = flash_attention(q, k, v, **kw)
+    ref = attention_ref(q[:1, :hs], k[:1, :hs // G], v[:1, :hs // G],
+                        **kw).float()
+    err = (got[:1, :hs].float() - ref).abs()
+    check(bool((err <= ATTN_ATOL + ATTN_RTOL * ref.abs()).all()),
+          f"flash_attention {name}: off its plain version by "
+          f"{float(err.max()):.3e}")
+
+    def plain():                     # the plain version over the whole shape
+        for b in range(B):
+            for h in range(0, H, hs):
+                attention_ref(q[b:b + 1, h:h + hs], k[b:b + 1, h // G:
+                                                     (h + hs) // G],
+                              v[b:b + 1, h // G:(h + hs) // G], **kw)
+
+    pairs = B * H * live_pairs(S, window)
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
+        * q.element_size()
+    b_ms, b_by = bound_ms(nbytes, 4 * pairs * D, BF16_TENSOR_OPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(
+        name="flash_attention", shape=name, B=B, H=H, KVH=k.shape[1], S=S,
+        D=D, window=window, softcap=softcap, live_pairs=pairs,
+        max_abs_err=float(err.max()),
+        ms=timer.ms(lambda: flash_attention(q, k, v, **kw)),
+        plain_ms=timer.ms(plain),
+        # SDPA computes the same causal GQA attention without the softcap
+        library_ms=(timer.ms(lambda: sdpa(q, k, v, is_causal=True,
+                                          scale=D ** -0.5, enable_gqa=True))
+                    if library else None),
+        bound_ms=b_ms, bound_by=b_by)
+    say("lm.kernel", **{k_: (f"{v_:.4g}" if isinstance(v_, float) else v_)
+                        for k_, v_ in row.items()})
+    return row
+
+
+def time_paged(torch, timer, name, cache, q, window, softcap):
+    """The paged kernel over a serve cache (every row) against its plain
+    version, timed beside it and the bound."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, KVH, G, D = q.shape
+    args = (q, cache.k_pages, cache.v_pages, cache.block_table.clamp(min=0),
+            cache.lengths)
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    got = paged_attention(*args, **kw)
+    ref = paged_attention_ref(*args, **kw).float()
+    err = (got.float() - ref).abs()
+    check(bool((err <= ATTN_ATOL + ATTN_RTOL * ref.abs()).all()),
+          f"paged_attention {name}: off its plain version by "
+          f"{float(err.max()):.3e}")
+    lens = cache.lengths.long()
+    live = int((lens.clamp(max=window) if window > 0 else lens).sum())
+    # each live key's K and V row once, q read and o written once
+    nbytes = live * KVH * D * 2 * q.element_size() + 2 * q.numel() \
+        * q.element_size()
+    b_ms, b_by = bound_ms(nbytes, 4 * live * KVH * G * D,
+                          BF16_TENSOR_OPS_PER_S)
+    row = dict(
+        name="paged_attention", shape=name, B=B, KVH=KVH, G=G, D=D,
+        page=cache.page_size, window=window, live_keys=live,
+        max_abs_err=float(err.max()),
+        ms=timer.ms(lambda: paged_attention(*args, **kw)),
+        plain_ms=timer.ms(lambda: paged_attention_ref(*args, **kw)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    say("lm.kernel", **{k_: (f"{v_:.4g}" if isinstance(v_, float) else v_)
+                        for k_, v_ in row.items()})
+    return row
+
+
+def lm_phase(torch, timer, dev, seed, report, profile=False) -> None:
+    """Phase 6: serve 8 requests of Gemma-2 27B (full width, 8 layers, bf16)
+    through flash prefill and paged decode; kernels against their plain
+    versions at the serve shapes; paged decode against the dense plain
+    ``serve_step``, teacher-forced."""
     from repro_torch import backend
+    from repro_torch.configs.gemma2_27b import full_config
+    from repro_torch.launch.serve import fill_paged, pages_per_seq, serve
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer.layers import (apply_layer,
+                                                       attention_inputs,
+                                                       rmsnorm)
+    cfg = dataclasses.replace(full_config(), n_layers=LM_LAYERS)
+    params, init_s = timer.wall(lambda: M.init_params(cfg, seed=seed,
+                                                      device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    B = LM_REQUESTS
+    lens = torch.randint(LM_PROMPT_MIN, LM_PROMPT_MAX + 1, (B,),
+                         generator=gen, device=dev, dtype=torch.int32)
+    S = int(lens.max())
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                            dtype=torch.int32)
+    n_params = M.param_count(params)
+    out = report["lm"] = dict(
+        config=cfg.name, layers=cfg.n_layers, params=n_params,
+        weight_bytes=2 * n_params, init_seconds=init_s, requests=B,
+        prompt_lens=lens.tolist(), padded_prompt=S, decode_steps=LM_DECODE,
+        page=cfg.kv_page_size)
+    say("lm.setup", **{k: v for k, v in out.items() if k != "prompt_lens"})
+
+    # the serve path, with the launch counters at 0
+    backend.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res, serve_s = timer.wall(lambda: serve(cfg, params, prompts, lens,
+                                            LM_DECODE, device=dev))
+    launches = {k: backend.LAUNCHES[k] for k in LM_KERNELS}
+    step_s = sorted(res.decode_s)
+    mean_step = sum(step_s) / len(step_s)
+    live_tokens = int(lens.sum())
+    out.update(
+        serve_seconds=serve_s, prefill_s=res.prefill_s,
+        prompt_tokens=live_tokens,
+        prompt_tokens_per_s=live_tokens / res.prefill_s,
+        time_to_first_token_s=res.prefill_s, fill_s=res.fill_s,
+        decode_ms_per_step=1e3 * mean_step,
+        decode_ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+        decode_ms_per_step_max=1e3 * step_s[-1],
+        decode_tokens_per_s=B / mean_step, pages_used=res.pages_used,
+        pool_pages=int(res.caches[0].free_stack.numel()),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches)
+    say("lm.serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                       for k, v in out.items()
+                       if k.startswith(("prefill", "prompt_tokens", "time_",
+                                        "fill", "decode_", "pages", "pool",
+                                        "max_mem", "launches"))})
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on the serve path")
+    check(bool(torch.isfinite(res.prefill_logits).all()),
+          "prefill logits not finite")
+    tokens, first_logits = res.tokens, res.prefill_logits
+    check(tokens.shape == (B, LM_DECODE + 1) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab, "generated tokens malformed")
+    del res
+    torch.cuda.empty_cache()
+
+    # flash against its plain version on the first local and global layers'
+    # own inputs at the prefill shape
+    toks = torch.where(torch.arange(S, device=dev)[None, :] < lens[:, None],
+                       prompts, 0)
+    positions = torch.arange(S, device=dev, dtype=torch.int32)[None] \
+        .expand(B, S)
+    x = M.embed(params, cfg, toks)
+    rows = report["lm_kernels"] = []
+    for li, name in ((0, "local"), (1, "global")):
+        lp, window = params["layers"][li], cfg.layer_windows[li]
+        q, k, v = attention_inputs(lp["attn"], cfg,
+                                   rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                                   positions)
+        rows.append(time_flash(torch, timer, f"{name} w={window}", q, k, v,
+                               window, cfg.attn_softcap, library=window == 0))
+        del q, k, v
+        if li == 0:
+            x = apply_layer(lp, cfg, x, positions, window)[0]
+    del x
+    torch.cuda.empty_cache()
+
+    # the serve's caches after prefill, rebuilt as serve builds them
+    if profile:
+        (logits0, dense), report["profile_prefill"] = profiled(
+            torch, lambda: M.prefill(params, cfg, toks))
+    else:
+        logits0, dense = M.prefill(params, cfg, toks)
+    out["prefill_repeat_bit_identical"] = bool(torch.equal(logits0,
+                                                           first_logits))
+    caches = fill_paged(cfg, dense, lens,
+                        pages_per_seq(S, LM_DECODE, cfg.kv_page_size),
+                        cfg.kv_page_size)
+    qd = torch.randn((B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                      cfg.head_dim), generator=gen, device=dev,
+                     dtype=cfg.dtype)
+    for li, name in ((0, "local"), (1, "global")):
+        window = cfg.layer_windows[li]
+        rows.append(time_paged(torch, timer, f"{name} w={window}",
+                               caches[li], qd, window, cfg.attn_softcap))
+
+    # paged decode against the dense plain serve_step on the same tokens
+    dense_c = M.init_cache(cfg, B, S + LM_CHECK_STEPS, device=dev)
+    live = (torch.arange(S, device=dev)[None, :] < lens[:, None])
+    for name in ("k", "v"):
+        dense_c[name][:, :, :, :S] = dense[name] * live[None, :, None, :,
+                                                          None]
+    dense_c["lengths"] = lens.clone()
+    del dense
+    # the same paged steps through the plain paged attention: how far bf16
+    # rounding alone moves the logits off the dense decoder
+    plain_caches = [c._replace(k_pages=c.k_pages.clone(),
+                               v_pages=c.v_pages.clone()) for c in caches]
+    steps = []
+    for step in range(LM_CHECK_STEPS):
+        tok = tokens[:, step:step + 1]
+        if profile and step == LM_CHECK_STEPS - 1:
+            (paged, caches), report["profile_decode_step"] = profiled(
+                torch, lambda: M.serve_step_paged(params, cfg, caches, tok,
+                                                  inplace=True))
+        else:
+            paged, caches = M.serve_step_paged(params, cfg, caches, tok,
+                                               inplace=True)
+        plain, plain_caches = M.serve_step_paged(
+            params, cfg, plain_caches, tok, impl="torch", inplace=True)
+        ref, dense_c = M.serve_step(params, cfg, dense_c, tok)
+        check(bool(torch.isfinite(paged).all() & torch.isfinite(ref).all()),
+              f"decode step {step}: logits not finite")
+        diff = paged - ref
+        rel = float(diff.norm() / ref.norm())
+        steps.append(dict(step=step, rel_l2=rel,
+                          plain_paged_rel_l2=float((plain - ref).norm()
+                                                   / ref.norm()),
+                          max_abs_diff=float(diff.abs().max()),
+                          mean_abs_diff=float(diff.abs().mean()),
+                          logit_std=float(ref.std()),
+                          max_abs_logit=float(ref.abs().max()),
+                          argmax_agree=float((paged.argmax(-1)
+                                              == ref.argmax(-1)).float()
+                                             .mean()),
+                          greedy_reproduced=bool(torch.equal(
+                              paged.argmax(-1).to(torch.int32),
+                              tokens[:, step + 1]))))
+        check(rel <= LOGIT_REL_L2,
+              f"decode step {step}: paged logits off the dense serve_step "
+              f"by {rel:.4g} relative L2 (> {LOGIT_REL_L2})")
+    out["paged_vs_dense"] = steps
+    say("lm.check", steps=len(steps),
+        rel_l2=f"{max(s['rel_l2'] for s in steps):.4g}",
+        plain_paged_rel_l2=f"{max(s['plain_paged_rel_l2'] for s in steps):.4g}",
+        max_abs_diff=f"{max(s['max_abs_diff'] for s in steps):.4g}",
+        max_abs_logit=f"{max(s['max_abs_logit'] for s in steps):.4g}",
+        argmax_agree=min(s["argmax_agree"] for s in steps),
+        prefill_repeat_bit_identical=out["prefill_repeat_bit_identical"])
+
+
+def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
+    """Phases 1-5: the GraphService at LiveJournal size."""
     from repro_torch.data.synthetic import rmat_edges
     from repro_torch.graph.algorithms import pagerank
     from repro_torch.stream.service import GraphService
-
-    dev = torch.device("cuda")
-    timer = Timer(torch)
-    report = {}
-    card = smi_line()
-    print(card, flush=True)
-    report["card"] = card
-    t0 = time.perf_counter()
-    backend.load_kernels()
-    say("setup.build", seconds=f"{time.perf_counter() - t0:.2f}",
-        nvcc_seconds=f"{backend.last_build_seconds:.2f}")
-    report["build_seconds"] = backend.last_build_seconds
 
     nv, ne = int(LJ_VERTICES * scale), int(LJ_EDGES * scale)
     (src, dst), gen_s = timer.wall(lambda: rmat_edges(nv, ne, seed=seed,
@@ -445,12 +716,41 @@ def run(scale: float = 1.0, seed: int = 0, profile: bool = False) -> dict:
                               for k, v in per_it.items()})
     report["checks"] = dict(ranks_sum=total, torch_vs_cuda_max_rel=rel)
     report["pagerank_routes"] = per_it
-    return report
+
+
+def run(report: dict, scale: float = 1.0, seed: int = 0,
+        profile: bool = False) -> None:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import backend
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    timer = Timer(torch)
+    card = smi_line()
+    print(card, flush=True)
+    report["card"] = card
+    t0 = time.perf_counter()
+    backend.load_kernels()
+    say("setup.build", seconds=f"{time.perf_counter() - t0:.2f}",
+        nvcc_seconds=f"{backend.last_build_seconds:.2f}")
+    report["build_seconds"] = backend.last_build_seconds
+
+    t0 = time.perf_counter()
+    graph_phases(torch, timer, dev, scale, seed, profile, report)
+    report["graph_seconds"] = time.perf_counter() - t0
+    gc.collect()                       # the graph state goes before the LM's
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_phase(torch, timer, dev, seed, report, profile)
+    report["lm_seconds"] = time.perf_counter() - t0
 
 
 def kernels_line(report: dict) -> dict:
-    """The ``kernels`` JSON object: each kernel at the main path's dominant
-    shape (the push sweep), errors over every shape checked."""
+    """The ``kernels`` JSON object: each kernel at its path's dominant shape
+    (the push sweep; the global attention layer), errors over every shape
+    checked, launches on its own path's run."""
     launches = report["service"]["launches"]
     meta = {
         "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
@@ -458,16 +758,26 @@ def kernels_line(report: dict) -> dict:
         "block_gather": ("src/repro_torch/csrc/block_gather.cu",
                          "src/repro/kernels/block_gather/kernel.py:29"),
     }
+    lm_meta = {
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:69"),
+        "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention/kernel.py:72"),
+    }
     out = []
-    for name, (source, replaces) in meta.items():
-        rows = [r for r in report["kernels"] if r["name"] == name]
-        main = next(r for r in rows if r["shape"].startswith("push"))
-        out.append(dict(name=name, route="cuda", source=source,
-                        replaces=replaces, launches=launches[name],
-                        max_abs_err=max(r["max_abs_err"] for r in rows),
-                        ms=main["ms"], plain_ms=main["plain_ms"],
-                        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                        library_ms=main["library_ms"], shape=main["shape"]))
+    for table, rows_key, main_shape, launch_counts in (
+            (meta, "kernels", "push", launches),
+            (lm_meta, "lm_kernels", "global", report["lm"]["launches"])):
+        for name, (source, replaces) in table.items():
+            rows = [r for r in report[rows_key] if r["name"] == name]
+            main = next(r for r in rows if r["shape"].startswith(main_shape))
+            out.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=launch_counts[name],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shape=main["shape"]))
     return {"kernels": out}
 
 
@@ -477,7 +787,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0,
                     help="fraction of the LiveJournal-size graph")
     ap.add_argument("--profile", action="store_true",
-                    help="profile the last flush and the warm PageRank "
+                    help="profile the last flush, the warm PageRank, the "
+                         "LM check's prefill and its last paged decode step "
                          "(their times then include the profiler's cost)")
     args = ap.parse_args(argv)
     import torch
@@ -488,17 +799,22 @@ def main(argv=None) -> int:
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
-    try:
-        report = run(args.scale, args.seed, args.profile)
-    except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        return 1
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    report = {}
+    try:
+        run(report, args.scale, args.seed, args.profile)
+    except SmokeFailure as e:
+        (out_dir / "chip_smoke_failed.json").write_text(
+            json.dumps(report, indent=1))
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
     name = "chip_smoke_profile.json" if args.profile else "chip_smoke.json"
     (out_dir / name).write_text(json.dumps(report, indent=1))
     say("report", max_memory_allocated=report["max_memory_allocated"],
-        file=f"chiprun_out/{name}")
+        lm_max_memory_allocated=report["lm"]["max_memory_allocated"],
+        graph_seconds=f"{report['graph_seconds']:.1f}",
+        lm_seconds=f"{report['lm_seconds']:.1f}", file=f"chiprun_out/{name}")
     print(json.dumps(kernels_line(report)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

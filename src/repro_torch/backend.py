@@ -5,7 +5,8 @@
   than quietly running on the host.
 * :func:`resolve_impl` — the port's ``impl=`` convention: ``"torch"`` is the
   plain tensor-op oracle (the JAX package's ``"xla"``), ``"cuda"`` routes the
-  ``combine="sum"`` sweeps through the hand-written kernels.  A kernel
+  ``combine="sum"`` sweeps and the LM's attention through the hand-written
+  kernels.  A kernel
   wrapper handed a CPU tensor runs the kernel's plain version (the analogue
   of Pallas interpret mode); handed a CUDA tensor it launches the kernel.
 * :func:`load_kernels` — builds every ``csrc/*.cu`` with ``nvcc`` into
@@ -37,11 +38,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C signatures of the kernels' entry points: every pointer and the stream
 # are c_void_p (a bare int would be cut to 32 bits), sizes are 64-bit
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_F32 = ctypes.c_float
 _SIGNATURES = {
     "segment_sum": ("segment_sum_f32", (_VP, _VP, _VP, _VP, _I64, _I32, _VP)),
     "block_gather": ("block_gather_f32", (_VP, _VP, _VP, _I64, _I64, _I64,
                                           _VP)),
+    # q, k, v, o, dtype, B, H, KVH, S, D, (batch, head, row) strides of q,
+    # k and v, scale, causal, window, softcap, stream
+    "flash_attention": ("flash_attention_fwd",
+                        (_VP, _VP, _VP, _VP) + (_I32,) * 6 + (_I64,) * 9
+                        + (_F32, _I32, _I32, _F32, _VP)),
+    # q, k_pages, v_pages, block_table, lengths, o, dtype, B, KVH, G, D, P,
+    # page, npmax, scale, window, softcap, stream
+    "paged_attention": ("paged_attention_fwd",
+                        (_VP,) * 6 + (_I32,) * 8 + (_F32, _I32, _F32, _VP)),
 }
+
+# the element-type flag of the attention kernels' entry points
+DTYPE_FLAGS = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 

@@ -4,7 +4,8 @@ The JAX package's ``CBList``, ``BlockStore``, ``UpdateLog`` and program
 outputs are NamedTuples of arrays; anything with the same field names whose
 leaves ``np.asarray`` accepts converts here (nothing of the JAX package is
 imported).  Values are copied unchanged — int32 stays int32 — so a layout
-moved across and back compares bit for bit.
+moved across and back compares bit for bit.  ``lm_params_from_jax`` turns
+the JAX LM's period-stacked parameter tree into the port's layer list.
 """
 from __future__ import annotations
 
@@ -26,8 +27,11 @@ def to_numpy(x) -> np.ndarray:
 
 
 def from_numpy(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(np.asarray(x)),
-                           device=resolve_device(device))
+    a = np.array(np.asarray(x))
+    if a.dtype.name == "bfloat16":          # ml_dtypes, as JAX hands it out
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(resolve_device(device))
+    return torch.as_tensor(a, device=resolve_device(device))
 
 
 def _fields(obj, names):
@@ -65,3 +69,24 @@ def log_from_arrays(log, device=None) -> UpdateLog:
 
 def log_to_numpy(log: UpdateLog) -> Dict[str, np.ndarray]:
     return {k: to_numpy(getattr(log, k)) for k in UpdateLog._fields}
+
+
+def lm_params_from_jax(tree, device=None) -> Dict[str, Any]:
+    """The port's LM parameters from a JAX ``init_params`` tree (numpy or
+    JAX leaves): layer ``p * period + i`` is ``periods["l{i}"]`` at index p,
+    then the ``tail`` layers in order."""
+    def conv(node, index=None):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        return from_numpy(node if index is None else np.asarray(node)[index],
+                          device)
+
+    periods = tree["periods"]
+    subs = [periods[f"l{i}"] for i in range(len(periods))]
+    layers = []
+    if subs[0] is not None:
+        n_full = len(np.asarray(subs[0]["ln1"]["scale"]))
+        layers = [conv(sub, p) for p in range(n_full) for sub in subs]
+    layers += [conv(lp) for lp in tree.get("tail", [])]
+    return {"embed": conv(tree["embed"]), "lm_head": conv(tree["lm_head"]),
+            "ln_f": conv(tree["ln_f"]), "layers": layers}

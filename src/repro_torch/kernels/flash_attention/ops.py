@@ -1,0 +1,71 @@
+"""Prefill attention: the ``impl`` switch and the wrapper of the flash
+kernel (``csrc/flash_attention.cu``).
+
+``attention(..., impl="torch")`` is the plain version (the JAX package's
+``impl="xla"``); ``impl="cuda"`` goes through :func:`flash_attention`, which
+runs the plain version for a CPU tensor and launches the kernel for a CUDA
+tensor.  Unlike the Pallas kernel, the CUDA one takes any S (it masks the
+ragged tile) and q / k / v in any layout whose last axis is contiguous.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import backend
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+MAX_HEAD_DIM = 256
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention wants q[B, H, S, D] and "
+                         f"k, v[B, KVH, S, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, D = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or \
+            H % k.shape[1]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if q.dtype not in backend.DTYPE_FLAGS or not q.dtype == k.dtype == \
+            v.dtype:
+        raise TypeError(f"flash_attention wants float32 or bfloat16 q, k, v "
+                        f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {D} > {MAX_HEAD_DIM}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q [B, H, S, D]; k, v [B, KVH, S, D] with H % KVH == 0 -> o [B, H, S, D].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, scale=scale, causal=causal,
+                             window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    B, H, S, D = q.shape
+    o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    backend.launch("flash_attention", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), o.data_ptr(), backend.DTYPE_FLAGS[q.dtype],
+                   B, H, k.shape[1], S, D, *q.stride()[:3], *k.stride()[:3],
+                   *v.stride()[:3], float(scale), int(bool(causal)),
+                   int(window), float(softcap))
+    return o
+
+
+def attention(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
+              softcap: float = 0.0, impl: str = "cuda") -> torch.Tensor:
+    """Prefill attention through the plain version or the flash kernel."""
+    if backend.resolve_impl(impl) == "torch":
+        return attention_ref(q, k, v, scale=scale, causal=causal,
+                             window=window, softcap=softcap)
+    return flash_attention(q, k, v, scale=scale, causal=causal,
+                           window=window, softcap=softcap)

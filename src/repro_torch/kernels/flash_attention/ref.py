@@ -1,0 +1,27 @@
+"""Plain torch version of prefill attention (the kernel's oracle): dense
+softmax attention with GQA, causal mask, sliding window and softcap, in
+float32, as ``repro.kernels.flash_attention.ref.attention_ref``."""
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, scale, causal=True, window=0, softcap=0.0):
+    """q [B, H, S, D]; k, v [B, KVH, S, D] -> [B, H, S, D] in q's dtype."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    qg = q.float().reshape(B, KVH, H // KVH, S, D)     # head h -> kv h // G
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)
+    qi, ki = pos[:, None], pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= (qi - ki) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)

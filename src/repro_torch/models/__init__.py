@@ -1,0 +1,1 @@
+"""Models of the port (the JAX package's ``repro.models``)."""

@@ -1,0 +1,152 @@
+"""Attention kernels of the port: the plain versions of flash (prefill) and
+paged (decode) attention against the JAX package's oracles and its Pallas
+kernels in interpret mode, on the same numpy inputs, and the wrappers' input
+checks.  The CUDA kernels are held against these plain versions in
+``test_torch_cuda.py``."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import attention as j_attention  # noqa: E402
+from repro.kernels import attention_ref as j_attention_ref  # noqa: E402
+from repro.kernels import decode_attention as j_decode  # noqa: E402
+from repro.kernels import paged_attention_ref as j_paged_ref  # noqa: E402
+from repro_torch import backend  # noqa: E402
+from repro_torch.kernels import (attention, decode_attention,  # noqa: E402
+                                 flash_attention, paged_attention)
+
+from torch_parity import t  # noqa: E402
+
+# float32 softmax attention: the sums run in another order than XLA's, so
+# compare relative to the value with a small absolute floor for outputs near 0
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _close(got, ref, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,causal,window,cap", [
+    (1, 2, 2, 64, 16, True, 0, 0.0),
+    (2, 4, 2, 128, 32, True, 0, 50.0),
+    (1, 2, 1, 64, 16, True, 32, 0.0),
+    (1, 2, 2, 64, 16, False, 0, 0.0),
+    (2, 4, 2, 50, 16, True, 16, 30.0),      # S not a multiple of the tile
+])
+def test_flash_plain_matches_jax(B, H, KVH, S, D, causal, window, cap):
+    rng = np.random.default_rng(S + H)
+    q, k, v = (rng.standard_normal((B, n, S, D)).astype(np.float32)
+               for n in (H, KVH, KVH))
+    kw = dict(scale=1 / np.sqrt(D), causal=causal, window=window,
+              softcap=cap)
+    refs = [j_attention_ref(*map(jnp.asarray, (q, k, v)), **kw)]
+    if S % 32 == 0:                          # the Pallas kernel's contract
+        refs.append(j_attention(*map(jnp.asarray, (q, k, v)), tq=32, tk=32,
+                                impl="pallas_interpret", **kw))
+    before = backend.LAUNCHES["flash_attention"]
+    for impl in ("torch", "cuda"):
+        got = attention(t(q), t(k), t(v), impl=impl, **kw)
+        assert got.shape == (B, H, S, D) and got.dtype == torch.float32
+        for ref in refs:
+            _close(got, ref)
+    assert backend.LAUNCHES["flash_attention"] == before   # CPU: no launch
+
+
+def test_flash_plain_bf16_matches_jax():
+    rng = np.random.default_rng(1)
+    B, H, S, D = 1, 2, 64, 16
+    q, k, v = (jnp.asarray(rng.standard_normal((B, H, S, D)), jnp.bfloat16)
+               for _ in range(3))
+    ref = j_attention(q, k, v, scale=D ** -0.5, tq=32, tk=32,
+                      impl="pallas_interpret")
+    tq, tk, tv = (t(np.asarray(x, np.float32)).to(torch.bfloat16)
+                  for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, scale=D ** -0.5)
+    assert got.dtype == torch.bfloat16
+    # both round a float32 result to bf16 once: one bf16 ulp (2^-7) apart
+    _close(got, np.asarray(ref, np.float32), rtol=2 ** -7, atol=1e-5)
+
+
+def _paged(rng, B, KVH, G, D, page, NP, P=32):
+    q = rng.standard_normal((B, KVH, G, D)).astype(np.float32)
+    kp = rng.standard_normal((KVH, P, page, D)).astype(np.float32)
+    vp = rng.standard_normal((KVH, P, page, D)).astype(np.float32)
+    bt = rng.permutation(P)[:B * NP].reshape(B, NP).astype(np.int32)
+    lens = rng.integers(1, NP * page, B).astype(np.int32)
+    return q, kp, vp, bt, lens
+
+
+@pytest.mark.parametrize("B,KVH,G,D,page,NP,window,cap", [
+    (2, 2, 4, 16, 8, 6, 0, 0.0),
+    (3, 1, 8, 32, 16, 4, 0, 50.0),
+    (2, 2, 2, 16, 8, 6, 24, 0.0),
+])
+def test_paged_plain_matches_jax(B, KVH, G, D, page, NP, window, cap):
+    rng = np.random.default_rng(B * 10 + G)
+    arrays = _paged(rng, B, KVH, G, D, page, NP)
+    kw = dict(scale=1 / np.sqrt(D), window=window, softcap=cap)
+    jargs = [jnp.asarray(a) for a in arrays]
+    refs = [j_paged_ref(*jargs, **kw),
+            j_decode(*jargs, impl="pallas_interpret", **kw)]
+    before = backend.LAUNCHES["paged_attention"]
+    for impl in ("torch", "cuda"):
+        got = decode_attention(*map(t, arrays), impl=impl, **kw)
+        assert got.shape == (B, KVH, G, D)
+        for ref in refs:
+            _close(got, ref)
+    assert backend.LAUNCHES["paged_attention"] == before
+
+
+def test_paged_plain_empty_sequence_is_the_uniform_average():
+    """lengths == 0 masks every key with -1e30, so the reference averages V
+    over every slot of the table; the port keeps that value."""
+    rng = np.random.default_rng(5)
+    q, kp, vp, bt, lens = _paged(rng, 2, 2, 2, 16, 8, 3)
+    lens[0] = 0
+    kw = dict(scale=0.25, window=4, softcap=50.0)
+    ref = j_paged_ref(*map(jnp.asarray, (q, kp, vp, bt, lens)), **kw)
+    got = paged_attention(*map(t, (q, kp, vp, bt, lens)), **kw)
+    _close(got, ref)
+    mean_v = vp[:, bt[0]].reshape(2, -1, 16).mean(axis=1)      # [KVH, D]
+    _close(got[0], np.broadcast_to(mean_v[:, None, :], (2, 2, 16)),
+           rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["rank", "dtype", "mixed", "head_dim",
+                                 "kv_shape"])
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q = torch.zeros(1, 2, 8, 16)
+    k = v = torch.zeros(1, 1, 8, 16)
+    if bad == "rank":
+        q = q[0]
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed":
+        q = q.to(torch.bfloat16)
+    elif bad == "head_dim":
+        q, k, v = (torch.zeros(x.shape[:3] + (272,)) for x in (q, k, v))
+    elif bad == "kv_shape":
+        k = v = torch.zeros(1, 1, 9, 16)
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention(q, k, v, scale=0.25)
+
+
+@pytest.mark.parametrize("bad", ["table_dtype", "group", "lengths"])
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q = torch.zeros(2, 1, 2, 16)
+    kp = vp = torch.zeros(1, 4, 8, 16)
+    bt = torch.zeros(2, 2, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    if bad == "table_dtype":
+        bt = bt.long()
+    elif bad == "group":
+        q = torch.zeros(2, 1, 33, 16)
+    elif bad == "lengths":
+        lens = torch.ones(3, dtype=torch.int32)
+    with pytest.raises((ValueError, TypeError)):
+        paged_attention(q, kp, vp, bt, lens, scale=0.25)

@@ -76,3 +76,152 @@ def test_service_on_the_card_matches_the_host(gen):
     for name in ("bfs", "cc"):
         out = [interop.to_numpy(svc.analytics(name)) for svc in svcs]
         np.testing.assert_array_equal(out[0], out[1])
+
+
+# attention kernels: float32 within rtol 1e-4 of the plain version (the sums
+# run in another order); bfloat16 within one bf16 ulp (2^-7 relative), since
+# both compute in float32 and round once at the end
+ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,S,D,causal,window,cap", [
+    (1, 2, 2, 64, 16, True, 0, 0.0),
+    (2, 4, 2, 128, 32, True, 0, 50.0),
+    (1, 2, 1, 64, 16, True, 32, 0.0),
+    (1, 2, 2, 64, 16, False, 0, 0.0),
+    (2, 4, 2, 1, 128, True, 0, 50.0),          # S = 1
+    (1, 4, 2, 200, 128, True, 48, 50.0),       # ragged S, window
+    (1, 2, 1, 130, 96, False, 40, 0.0),        # non-causal with a window
+    (1, 2, 2, 70, 256, True, 0, 30.0),         # widest head
+])
+def test_flash_attention_kernel_matches_plain(gen, dtype, B, H, KVH, S, D,
+                                              causal, window, cap):
+    from repro_torch import backend
+    from repro_torch.kernels import attention_ref, flash_attention
+    q, k, v = (torch.randn((B, n, S, D), generator=gen, device="cuda")
+               .to(dtype) for n in (H, KVH, KVH))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, softcap=cap)
+    before = backend.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, **kw)
+    assert backend.LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw)
+                               .float(), **ATTN_TOL[dtype])
+
+
+def test_flash_attention_kernel_takes_strided_heads(gen):
+    """q/k/v as the model hands them over: [B, S, H, D] viewed as
+    [B, H, S, D] (no copy)."""
+    from repro_torch.kernels import attention_ref, flash_attention
+    B, S, H, KVH, D = 2, 150, 4, 2, 128
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").transpose(1, 2)
+    k = torch.randn((B, S, KVH, D), generator=gen, device="cuda") \
+        .transpose(1, 2)
+    v = torch.randn((B, S, KVH, D), generator=gen, device="cuda") \
+        .transpose(1, 2)
+    kw = dict(scale=D ** -0.5, causal=True, window=64, softcap=50.0)
+    got = flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw),
+                               **ATTN_TOL[torch.float32])
+
+
+def _paged_inputs(gen, B, KVH, G, D, page, NP, P, dtype):
+    q = torch.randn((B, KVH, G, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((KVH, P, page, D), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((KVH, P, page, D), generator=gen, device="cuda").to(dtype)
+    perm = torch.randperm(P, generator=gen, device="cuda")[:B * NP]
+    bt = perm.reshape(B, NP).to(torch.int32)
+    return q, kp, vp, bt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KVH,G,D,page,NP,window,cap", [
+    (2, 2, 4, 16, 8, 6, 0, 0.0),
+    (3, 1, 8, 32, 16, 4, 0, 50.0),
+    (2, 2, 2, 16, 8, 6, 24, 0.0),
+    (4, 4, 2, 128, 128, 5, 200, 50.0),         # the Gemma-2 group shape
+    (2, 2, 2, 256, 32, 3, 0, 0.0),
+    (2, 2, 2, 18, 8, 4, 0, 50.0),              # rows not 16-byte aligned
+])
+def test_paged_attention_kernel_matches_plain(gen, dtype, B, KVH, G, D, page,
+                                              NP, window, cap):
+    from repro_torch import backend
+    from repro_torch.kernels import paged_attention, paged_attention_ref
+    P = B * NP + 3
+    q, kp, vp, bt = _paged_inputs(gen, B, KVH, G, D, page, NP, P, dtype)
+    # lengths 0, 1, a page boundary and its neighbour, and random ones;
+    # slots past each length are -1, as the KV cache leaves them
+    edge = torch.tensor([0, 1, page, page + 1, NP * page], device="cuda")
+    lens = torch.randint(1, NP * page + 1, (B,), generator=gen,
+                         device="cuda")
+    lens[:min(B, 5)] = edge[:min(B, 5)]
+    lens = lens.to(torch.int32)
+    slots = torch.arange(NP, device="cuda")[None, :]
+    bt = torch.where(slots * page < lens[:, None], bt, -1).to(torch.int32)
+    kw = dict(scale=D ** -0.5, window=window, softcap=cap)
+    before = backend.LAUNCHES["paged_attention"]
+    got = paged_attention(q, kp, vp, bt, lens, **kw)
+    assert backend.LAUNCHES["paged_attention"] == before + 1
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(q, kp, vp, bt, lens, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+    # lengths == 0 is the reference's uniform average over every slot
+    empty = lens == 0
+    if bool(empty.any()):
+        assert torch.isfinite(got[empty].float()).all()
+
+
+def test_paged_attention_kernel_clamps_out_of_pool_ids(gen):
+    """Ids >= P (a dry pool) read page P - 1 and -1 reads page 0, as the
+    plain version does; no address outside the pool is formed."""
+    from repro_torch.kernels import paged_attention, paged_attention_ref
+    B, KVH, G, D, page, NP, P = 3, 2, 2, 64, 16, 4, 12
+    q, kp, vp, bt = _paged_inputs(gen, B, KVH, G, D, page, NP, P,
+                                  torch.float32)
+    bt[0, 1] = P
+    bt[1, 2] = -1
+    bt[2, 0] = P + 1000
+    lens = torch.full((B,), NP * page, dtype=torch.int32, device="cuda")
+    kw = dict(scale=D ** -0.5, window=0, softcap=50.0)
+    got = paged_attention(q, kp, vp, bt, lens, **kw)
+    torch.testing.assert_close(got, paged_attention_ref(q, kp, vp, bt, lens,
+                                                        **kw),
+                               **ATTN_TOL[torch.float32])
+
+
+def test_lm_serve_on_the_card_matches_the_host(gen):
+    """``serve`` at the Gemma-2 smoke config (float32): the same weights
+    and prompts on the card (flash and paged kernels) and on the host (plain
+    versions) give the same greedy tokens and close prefill logits."""
+    from repro_torch import backend
+    from repro_torch.configs.gemma2_27b import smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import model as M
+    cfg = smoke_config()
+    params = M.init_params(cfg, seed=3, device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.cuda()
+
+    on_card = to_card(params)
+    host = torch.Generator().manual_seed(4)
+    lens = torch.randint(20, 70, (5,), generator=host)
+    prompts = torch.randint(0, cfg.vocab, (5, int(lens.max())),
+                            generator=host)
+    before = dict(backend.LAUNCHES)
+    res = [serve(cfg, p, prompts, lens, 12, page=16, device=d)
+           for p, d in ((on_card, "cuda"), (params, "cpu"))]
+    assert backend.LAUNCHES["flash_attention"] > before["flash_attention"]
+    assert backend.LAUNCHES["paged_attention"] > before["paged_attention"]
+    torch.testing.assert_close(res[0].prefill_logits.cpu(),
+                               res[1].prefill_logits, rtol=1e-4, atol=1e-5)
+    assert torch.equal(res[0].tokens.cpu(), res[1].tokens)
+    for c_card, c_host in zip(res[0].caches, res[1].caches):
+        assert torch.equal(c_card.block_table.cpu(), c_host.block_table)
+        assert torch.equal(c_card.free_top.cpu(), c_host.free_top)

@@ -47,3 +47,16 @@ def assert_close(got, ref) -> None:
 
 def assert_exact(got, ref) -> None:
     np.testing.assert_array_equal(interop.to_numpy(got), np.asarray(ref))
+
+
+def lm_config(jax_cfg):
+    """The port's LMConfig with the values of a JAX ``LMConfig`` (dense
+    models only: the port has no MoE yet)."""
+    import dataclasses
+
+    from repro_torch.models.transformer.layers import LMConfig
+    assert not jax_cfg.moe
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    kw = {f.name: getattr(jax_cfg, f.name) for f in dataclasses.fields(LMConfig)}
+    kw["dtype"] = dtypes[np.dtype(jax_cfg.dtype).name]
+    return LMConfig(**kw)
