@@ -33,7 +33,22 @@ Phases, one report line each:
    batch row 0 and heads 0-3; paged on the serve's caches after prefill,
    every row), timed beside its plain version, SDPA (flash) and its bound;
    and 4 teacher-forced decode steps through ``serve_step_paged`` against
-   the dense plain ``serve_step``.
+   the dense plain ``serve_step``;
+7. recsys serving, once the LM state is freed: SASRec at its full published
+   config (2^20-row item table, embed_dim 50, 2 blocks, 1 head, seq_len
+   50), weights from ``--seed``, left-padded histories of 25-50 items made
+   on the device.  With the launch counters at 0: ``serve_p99`` (20
+   requests of 512 users, top-100 over the whole catalog),
+   ``retrieval_cand`` (1 user, 10^6 candidates through ``score_candidates``)
+   and ``serve_bulk`` (262,144 users in chunks of 4,096).  Checks: both
+   kernels launched; the kernel route's ``user_repr`` bit-identical to the
+   plain route's and its top-100 ids equal; ``score_candidates`` against
+   ``serve_step`` at the same candidates; ``embedding_bag`` against its
+   plain version on the bulk chunk's lookup (bit-exact), on 65,536 bags of
+   32 weighted slots and on ragged bags of 1-64 slots (rtol 1e-5 of a
+   float64 sum, bit-identical on a repeat); ``block_gather`` exact at the
+   retrieval shape.  Each timed beside its plain version, one library call
+   and its bound.
 
 The last two lines are the ``kernels`` JSON object and the device line.  It
 exits non-zero, printing no result, without a CUDA device or without the
@@ -43,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -75,6 +91,14 @@ ATTN_RTOL, ATTN_ATOL = 2 ** -7, 1e-5
 # this script, seeds 0 and 1).  The kernel route must stay within 3 %; a
 # wrong kernel is off by about 100 %
 LOGIT_REL_L2 = 3e-2
+# SASRec serving at its full published config, the three serve shapes of
+# configs/sasrec.py
+RECSYS_KERNELS = ("embedding_bag", "block_gather")
+P99_REQUESTS, RETRIEVAL_REQUESTS, TOPK, BULK_CHUNK = 20, 5, 100, 4096
+BAG_CHECK_BAGS, BAG_CHECK_SLOTS, BAG_RAGGED_MAX = 65_536, 32, 64
+# float32 scores from two product routes (GEMM, batched dot) over d = 50:
+# relative, with a floor for scores near 0
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -662,6 +686,248 @@ def lm_phase(torch, timer, dev, seed, report, profile=False) -> None:
         prefill_repeat_bit_identical=out["prefill_repeat_bit_identical"])
 
 
+# ---------------------------------------------------------------------------
+# recsys serving: SASRec at its full published config
+# ---------------------------------------------------------------------------
+
+def sasrec_histories(torch, gen, cfg, B, dev):
+    """Left-padded histories: lengths uniform in S/2..S (as
+    ``sasrec_batches`` draws them), items uniform in [1, n_items]."""
+    S = cfg.seq_len
+    lens = torch.randint(S // 2, S + 1, (B, 1), generator=gen, device=dev)
+    items = torch.randint(1, cfg.n_items + 1, (B, S), generator=gen,
+                          device=dev, dtype=torch.int32)
+    return torch.where(torch.arange(S, device=dev) >= S - lens, items, 0)
+
+
+def time_embedding_bag(torch, timer, name, table, ids, weights, seg=None,
+                       num_bags=None):
+    """``embedding_bag`` (``[B, L]`` ids) or, with ``seg``,
+    ``embedding_bag_sorted`` against its plain version (bit-exact for
+    one-slot bags, else within rtol 1e-5 of a float64 sum and bit-identical
+    on a repeat), timed beside the plain version,
+    ``torch.nn.functional.embedding_bag`` and the bytes bound."""
+    from repro_torch.kernels.embedding_bag.ops import (embedding_bag,
+                                                       embedding_bag_sorted)
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_ref, embedding_bag_sorted_ref)
+    V, F = table.shape
+    if seg is None:
+        B, L = ids.shape
+        kern = functools.partial(embedding_bag, table, ids, weights)
+        plain = functools.partial(embedding_bag_ref, table, ids, weights)
+        flat_w = weights.expand(B, L).reshape(-1)
+        offsets = None
+    else:
+        B, L = num_bags, 0
+        args = (table, ids, seg, weights, num_bags)
+        kern = functools.partial(embedding_bag_sorted, *args)
+        plain = functools.partial(embedding_bag_sorted_ref, *args)
+        flat_w = weights
+        offsets = torch.searchsorted(seg, torch.arange(
+            num_bags, dtype=torch.int32, device=seg.device), out_int32=True)
+    got, again = kern(), kern()
+    flat = ids.reshape(-1)
+    live = flat >= 0
+    if L == 1:
+        ref = plain()
+        err = (got - ref).abs()
+        check(torch.equal(got, ref), f"embedding_bag {name}: one-slot bags "
+              f"differ from the plain version")
+    else:
+        ref = (embedding_bag_ref(table.double(), ids, weights.double())
+               if seg is None else
+               embedding_bag_sorted_ref(table.double(), ids, seg,
+                                        weights.double(), num_bags))
+        err = (got.double() - ref).abs()
+        check(bool((err <= SEG_ATOL + SEG_RTOL * ref.abs()).all()),
+              f"embedding_bag {name}: outside rtol {SEG_RTOL} of the "
+              f"float64 sum (max abs err {float(err.max()):.3e})")
+    check(torch.equal(got, again), f"embedding_bag {name}: repeat differs")
+    # the library call: ids -1 passed as row 0 with weight 0
+    lib_ids = flat.clamp(0, V - 1) if seg is not None else \
+        ids.clamp(0, V - 1)
+    lib_w = (flat_w * live).reshape(lib_ids.shape)
+    emb_bag = torch.nn.functional.embedding_bag
+    n_live = int(live.sum())
+    rows_read = int(torch.unique(flat[live].clamp(max=V - 1)).numel())
+    # each live row the ids name read once, ids and weights read once, the
+    # output written once; two flops per live element
+    b_ms, b_by = bound_ms(rows_read * F * 4 + flat.numel() * 8 + B * F * 4,
+                          2 * n_live * F)
+    row = dict(
+        name="embedding_bag", shape=name, bags=B, slots=flat.numel(),
+        live_slots=n_live, rows_read=rows_read, F=F,
+        max_abs_err=float(err.max()), bit_identical_repeat=True,
+        ms=timer.ms(kern), plain_ms=timer.ms(plain),
+        library_ms=timer.ms(lambda: emb_bag(lib_ids, table, offsets,
+                                            mode="sum",
+                                            per_sample_weights=lib_w)),
+        bound_ms=b_ms, bound_by=b_by)
+    say("recsys.kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                            for k, v in row.items()})
+    return row
+
+
+def recsys_kernel_checks(torch, timer, dev, gen, table, bulk_seq, cands,
+                         d):
+    """Each recsys kernel against its plain version at the path's shapes."""
+    rows = []
+    ids = torch.where(bulk_seq == 0, -1, bulk_seq).reshape(-1, 1)
+    w = torch.full((), d ** 0.5, dtype=torch.float32, device=dev)
+    rows.append(time_embedding_bag(torch, timer, "serve_bulk chunk lookup",
+                                   table, ids, w))
+    V = table.shape[0]
+    B, L = BAG_CHECK_BAGS, BAG_CHECK_SLOTS
+    ids = torch.randint(1, V, (B, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids = torch.where(torch.rand((B, L), generator=gen, device=dev) < 0.1,
+                      -1, ids)
+    w = torch.rand((B, L), generator=gen, device=dev)
+    rows.append(time_embedding_bag(torch, timer, f"{B}x{L} weighted", table,
+                                   ids, w))
+    lens = torch.randint(1, BAG_RAGGED_MAX + 1, (B,), generator=gen,
+                         device=dev)
+    seg = torch.repeat_interleave(
+        torch.arange(B, dtype=torch.int32, device=dev), lens)
+    n = seg.numel()
+    ids = torch.randint(1, V, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids = torch.where(torch.rand(n, generator=gen, device=dev) < 0.1, -1, ids)
+    w = torch.rand(n, generator=gen, device=dev)
+    rows.append(time_embedding_bag(torch, timer,
+                                   f"ragged 1-{BAG_RAGGED_MAX} sorted", table,
+                                   ids, w, seg=seg, num_bags=B))
+    rows.append(time_gather(torch, timer, "retrieval candidates", table,
+                            cands.reshape(-1)))
+    return rows
+
+
+def recsys_phase(torch, timer, dev, seed, report, profile=False) -> None:
+    """Phase 7: SASRec at its full published config through its three serve
+    shapes; the kernels against their plain versions at those shapes."""
+    from repro_torch import backend
+    from repro_torch.configs.sasrec import RECSYS_SHAPES, full_config
+    from repro_torch.models.recsys import sasrec as M
+    cfg = full_config()
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    params, init_s = timer.wall(lambda: M.init_params(cfg, gen, device=dev))
+    table = params["item_emb"]
+    S = cfg.seq_len
+    n_p99 = RECSYS_SHAPES["serve_p99"]["batch"]
+    n_bulk = RECSYS_SHAPES["serve_bulk"]["batch"]
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    p99 = sasrec_histories(torch, gen, cfg, P99_REQUESTS * n_p99, dev) \
+        .reshape(P99_REQUESTS, n_p99, S)
+    one = sasrec_histories(torch, gen, cfg, 1, dev)
+    cands = torch.randint(1, cfg.n_items + 1, (1, n_cand), generator=gen,
+                          device=dev, dtype=torch.int32)
+    bulk = sasrec_histories(torch, gen, cfg, n_bulk, dev)
+    out = report["recsys"] = dict(
+        config=cfg.name, items=cfg.n_items, table_rows=table.shape[0],
+        table_bytes=table.numel() * 4, embed_dim=cfg.embed_dim,
+        blocks=cfg.n_blocks, heads=cfg.n_heads, seq_len=S,
+        init_seconds=init_s,
+        history_live_mean=float((bulk != 0).float().sum(1).mean()))
+    say("recsys.setup", **out)
+
+    # the serve path, with the launch counters at 0
+    backend.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    p99_s = []
+    for r in range(P99_REQUESTS):
+        (vals, ids), sec = timer.wall(lambda: M.serve_step_topk(
+            params, cfg, p99[r], k=TOPK))
+        p99_s.append(sec)
+        check(vals.shape == (n_p99, TOPK) and bool(torch.isfinite(vals)
+                                                   .all()),
+              f"serve_p99 request {r}: top-k values malformed")
+    ret_s = []
+    for _ in range(RETRIEVAL_REQUESTS):
+        scores, sec = timer.wall(lambda: M.score_candidates(params, cfg, one,
+                                                            cands))
+        ret_s.append(sec)
+    bulk_vals = torch.empty((n_bulk, TOPK), device=dev)
+    bulk_ids = torch.empty((n_bulk, TOPK), dtype=torch.int32, device=dev)
+
+    def serve_bulk():
+        for c in range(0, n_bulk, BULK_CHUNK):
+            bulk_vals[c:c + BULK_CHUNK], bulk_ids[c:c + BULK_CHUNK] = \
+                M.serve_step_topk(params, cfg, bulk[c:c + BULK_CHUNK],
+                                  k=TOPK)
+
+    _, bulk_s = timer.wall(serve_bulk)
+    launches = {k: backend.LAUNCHES[k] for k in RECSYS_KERNELS}
+    p99_sorted, ret_sorted = sorted(p99_s), sorted(ret_s)
+    out.update(
+        p99_requests=P99_REQUESTS, p99_users=n_p99,
+        p99_latency_ms_median=1e3 * p99_sorted[len(p99_s) // 2],
+        p99_latency_ms_max=1e3 * p99_sorted[-1],
+        p99_latency_ms_first=1e3 * p99_s[0],
+        retrieval_candidates=n_cand,
+        retrieval_latency_ms_median=1e3 * ret_sorted[len(ret_s) // 2],
+        retrieval_latency_ms_max=1e3 * ret_sorted[-1],
+        bulk_users=n_bulk, bulk_chunk=BULK_CHUNK, bulk_seconds=bulk_s,
+        bulk_users_per_s=n_bulk / bulk_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches)
+    say("recsys.serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                           for k, v in out.items()
+                           if k.startswith(("p99_lat", "retrieval_lat",
+                                            "bulk_", "max_mem", "launches"))})
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on the recsys path")
+    check(bool(torch.isfinite(bulk_vals).all())
+          and int(bulk_ids.min()) >= 0 and int(bulk_ids.max()) <= cfg.n_items
+          and bool((bulk_vals[:, :-1] >= bulk_vals[:, 1:]).all()),
+          "serve_bulk: top-k malformed")
+    check(scores.shape == (1, n_cand) and bool(torch.isfinite(scores).all()),
+          "retrieval scores malformed")
+
+    # the kernel route against the plain route on a serve_p99 batch
+    u_k = M.user_repr(params, cfg, p99[0], impl="cuda")
+    u_p = M.user_repr(params, cfg, p99[0], impl="torch")
+    check(torch.equal(u_k, u_p), "user_repr: kernel and plain routes differ")
+    _, top_k = M.serve_step_topk(params, cfg, p99[0], k=TOPK, impl="cuda")
+    _, top_p = M.serve_step_topk(params, cfg, p99[0], k=TOPK, impl="torch")
+    check(torch.equal(top_k, top_p), "serve_p99: top-100 ids differ between "
+                                     "the kernel and plain routes")
+    # score_candidates against the full catalog's scores
+    full = M.serve_step(params, cfg, one)
+    ref = full.gather(1, cands.long())
+    cand_err = float((scores - ref).abs().max())
+    check(torch.allclose(scores, ref, rtol=SCORE_RTOL, atol=SCORE_ATOL),
+          f"score_candidates off serve_step by {cand_err:.3e}")
+    del full, ref
+    out.update(user_repr_routes_bit_identical=True, topk_ids_equal=True,
+               candidates_vs_serve_step_max_abs_err=cand_err)
+
+    # where a request's time goes: CUDA events around each stage
+    stages = {}
+    for shape, seq in (("serve_p99", p99[0]),
+                       ("serve_bulk", bulk[:BULK_CHUNK])):
+        u = M.user_repr(params, cfg, seq)
+        st = dict(user_repr_ms=timer.ms(lambda: M.user_repr(params, cfg,
+                                                            seq), 3),
+                  scores_ms=timer.ms(lambda: u @ table.T, 3))
+        scores_full = u @ table.T
+        st["topk_ms"] = timer.ms(lambda: torch.topk(scores_full, TOPK), 3)
+        del scores_full
+        stages[shape] = st
+        say("recsys.stages", shape=shape,
+            **{k: f"{v:.4g}" for k, v in st.items()})
+    if profile:
+        _, report["profile_recsys_bulk_chunk"] = profiled(
+            torch, lambda: M.serve_step_topk(params, cfg, bulk[:BULK_CHUNK],
+                                             k=TOPK))
+    out["stages"] = stages
+    say("recsys.check", user_repr_routes="bit-identical",
+        topk_ids="equal", candidates_vs_serve_step=f"{cand_err:.3e}")
+    report["recsys_kernels"] = recsys_kernel_checks(
+        torch, timer, dev, gen, table, bulk[:BULK_CHUNK], cands,
+        cfg.embed_dim)
+
+
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     """Phases 1-5: the GraphService at LiveJournal size."""
     from repro_torch.data.synthetic import rmat_edges
@@ -745,12 +1011,17 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     t0 = time.perf_counter()
     lm_phase(torch, timer, dev, seed, report, profile)
     report["lm_seconds"] = time.perf_counter() - t0
+    gc.collect()                       # the LM state goes before SASRec's
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recsys_phase(torch, timer, dev, seed, report, profile)
+    report["recsys_seconds"] = time.perf_counter() - t0
 
 
 def kernels_line(report: dict) -> dict:
     """The ``kernels`` JSON object: each kernel at its path's dominant shape
-    (the push sweep; the global attention layer), errors over every shape
-    checked, launches on its own path's run."""
+    (the push sweep; the global attention layer; the serve_bulk lookup),
+    errors over every shape checked, launches on its own path's run."""
     launches = report["service"]["launches"]
     meta = {
         "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
@@ -764,10 +1035,16 @@ def kernels_line(report: dict) -> dict:
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention/kernel.py:72"),
     }
+    recsys_meta = {
+        "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                          "src/repro/kernels/embedding_bag/kernel.py:38"),
+    }
     out = []
     for table, rows_key, main_shape, launch_counts in (
             (meta, "kernels", "push", launches),
-            (lm_meta, "lm_kernels", "global", report["lm"]["launches"])):
+            (lm_meta, "lm_kernels", "global", report["lm"]["launches"]),
+            (recsys_meta, "recsys_kernels", "serve_bulk",
+             report["recsys"]["launches"])):
         for name, (source, replaces) in table.items():
             rows = [r for r in report[rows_key] if r["name"] == name]
             main = next(r for r in rows if r["shape"].startswith(main_shape))
@@ -788,8 +1065,9 @@ def main(argv=None) -> int:
                     help="fraction of the LiveJournal-size graph")
     ap.add_argument("--profile", action="store_true",
                     help="profile the last flush, the warm PageRank, the "
-                         "LM check's prefill and its last paged decode step "
-                         "(their times then include the profiler's cost)")
+                         "LM check's prefill, its last paged decode step and "
+                         "one serve_bulk chunk of SASRec (their times then "
+                         "include the profiler's cost)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -813,8 +1091,11 @@ def main(argv=None) -> int:
     (out_dir / name).write_text(json.dumps(report, indent=1))
     say("report", max_memory_allocated=report["max_memory_allocated"],
         lm_max_memory_allocated=report["lm"]["max_memory_allocated"],
+        recsys_max_memory_allocated=report["recsys"]["max_memory_allocated"],
         graph_seconds=f"{report['graph_seconds']:.1f}",
-        lm_seconds=f"{report['lm_seconds']:.1f}", file=f"chiprun_out/{name}")
+        lm_seconds=f"{report['lm_seconds']:.1f}",
+        recsys_seconds=f"{report['recsys_seconds']:.1f}",
+        file=f"chiprun_out/{name}")
     print(json.dumps(kernels_line(report)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

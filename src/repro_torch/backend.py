@@ -5,8 +5,8 @@
   than quietly running on the host.
 * :func:`resolve_impl` — the port's ``impl=`` convention: ``"torch"`` is the
   plain tensor-op oracle (the JAX package's ``"xla"``), ``"cuda"`` routes the
-  ``combine="sum"`` sweeps and the LM's attention through the hand-written
-  kernels.  A kernel
+  ``combine="sum"`` sweeps, the LM's attention and the SASRec item
+  lookups through the hand-written kernels.  A kernel
   wrapper handed a CPU tensor runs the kernel's plain version (the analogue
   of Pallas interpret mode); handed a CUDA tensor it launches the kernel.
 * :func:`load_kernels` — builds every ``csrc/*.cu`` with ``nvcc`` into
@@ -52,6 +52,10 @@ _SIGNATURES = {
     # page, npmax, scale, window, softcap, stream
     "paged_attention": ("paged_attention_fwd",
                         (_VP,) * 6 + (_I32,) * 8 + (_F32, _I32, _F32, _VP)),
+    # table, ids, weights (or NULL), row_ptr (or NULL), out, num_bags,
+    # bag_len, F, V, stream
+    "embedding_bag": ("embedding_bag_f32",
+                      (_VP,) * 5 + (_I64, _I64, _I32, _I64, _VP)),
 }
 
 # the element-type flag of the attention kernels' entry points

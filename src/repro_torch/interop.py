@@ -5,7 +5,8 @@ outputs are NamedTuples of arrays; anything with the same field names whose
 leaves ``np.asarray`` accepts converts here (nothing of the JAX package is
 imported).  Values are copied unchanged — int32 stays int32 — so a layout
 moved across and back compares bit for bit.  ``lm_params_from_jax`` turns
-the JAX LM's period-stacked parameter tree into the port's layer list.
+the JAX LM's period-stacked parameter tree into the port's layer list;
+``sasrec_params_from_jax`` carries a SASRec tree over as it is.
 """
 from __future__ import annotations
 
@@ -90,3 +91,13 @@ def lm_params_from_jax(tree, device=None) -> Dict[str, Any]:
     layers += [conv(lp) for lp in tree.get("tail", [])]
     return {"embed": conv(tree["embed"]), "lm_head": conv(tree["lm_head"]),
             "ln_f": conv(tree["ln_f"]), "layers": layers}
+
+
+def sasrec_params_from_jax(tree, device=None) -> Dict[str, Any]:
+    """The port's SASRec parameters from a JAX ``init_params`` tree (numpy
+    or JAX leaves), with the same keys and ``blocks`` list."""
+    if isinstance(tree, dict):
+        return {k: sasrec_params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [sasrec_params_from_jax(v, device) for v in tree]
+    return from_numpy(tree, device)

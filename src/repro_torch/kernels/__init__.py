@@ -3,9 +3,14 @@
 Each wrapper checks its inputs, runs the plain version for a CPU tensor and
 launches its CUDA kernel (``repro_torch/csrc``) for a CUDA tensor: the
 GTChain segment sum and block gather of the graph path, flash (prefill) and
-paged (decode) attention of the LM serving path.
+paged (decode) attention of the LM serving path, and EmbeddingBag (the
+SASRec item lookup).
 """
 from repro_torch.kernels.block_gather import block_gather_ref, gather_rows
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_ref,
+                                               embedding_bag_sorted,
+                                               embedding_bag_sorted_ref)
 from repro_torch.kernels.segment_matmul import segment_matmul, segment_sum_ref
 from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  flash_attention)

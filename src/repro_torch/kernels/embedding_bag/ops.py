@@ -1,0 +1,103 @@
+"""Wrappers of the EmbeddingBag kernel (``csrc/embedding_bag.cu``).
+
+``embedding_bag(table, bag_ids, weights)`` takes fixed-length ``[B, L]``
+bags, as ``repro.kernels.embedding_bag.embedding_bag`` does;
+``embedding_bag_sorted(table, ids, seg, weights, num_bags)`` takes a flat
+stream of slots sorted by bag, as the Pallas kernel does, and turns ``seg``
+into bag offsets with ``searchsorted``.  A CPU tensor takes the plain
+version in :mod:`.ref`; a CUDA tensor launches the kernel.  Float32 tables
+only.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import backend
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_ref,
+                                                   embedding_bag_sorted_ref)
+
+
+def _check(table: torch.Tensor, ids: torch.Tensor, ids_dim: int) -> None:
+    if table.dim() != 2 or ids.dim() != ids_dim:
+        raise ValueError(f"embedding_bag wants table[V, F] and {ids_dim}-D "
+                         f"ids, got {tuple(table.shape)} and "
+                         f"{tuple(ids.shape)}")
+    if table.shape[0] == 0:
+        raise ValueError("embedding_bag: empty table")
+    if table.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError(f"embedding_bag wants a float32 table and int32 ids, "
+                        f"got {table.dtype} and {ids.dtype}")
+    if table.device != ids.device:
+        raise ValueError("embedding_bag: table and ids on different devices")
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("embedding_bag wants contiguous tensors")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"embedding_bag: unsupported device {table.device}")
+
+
+def _check_weights(weights: torch.Tensor, table: torch.Tensor) -> None:
+    if weights.dtype != torch.float32:
+        raise TypeError(f"embedding_bag wants float32 weights, got "
+                        f"{weights.dtype}")
+    if weights.device != table.device:
+        raise ValueError("embedding_bag: weights on another device")
+
+
+def _launch(table, ids, weights, row_ptr, bag_len: int,
+            num_bags: int) -> torch.Tensor:
+    V, F = table.shape
+    out = torch.empty((num_bags, F), dtype=torch.float32, device=table.device)
+    backend.launch("embedding_bag", table.data_ptr(), ids.data_ptr(),
+                   None if weights is None else weights.data_ptr(),
+                   None if row_ptr is None else row_ptr.data_ptr(),
+                   out.data_ptr(), num_bags, bag_len, F, V)
+    return out
+
+
+def embedding_bag(table: torch.Tensor, bag_ids: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[b] = sum_l w[b, l] * table[bag_ids[b, l]]  (ids -1 = padding).
+
+    ``bag_ids`` int32 [B, L]; ``weights`` float32, broadcastable to [B, L]
+    (a scalar weights every slot alike), or None for a plain sum.
+    """
+    _check(table, bag_ids, 2)
+    if weights is not None:
+        _check_weights(weights, table)
+    if table.device.type == "cpu":
+        return embedding_bag_ref(table, bag_ids, weights)
+    B, L = bag_ids.shape
+    if weights is not None:
+        weights = weights.expand(B, L).contiguous()
+    return _launch(table, bag_ids, weights, None, L, B)
+
+
+def embedding_bag_sorted(table: torch.Tensor, ids: torch.Tensor,
+                         seg: torch.Tensor, weights: torch.Tensor,
+                         num_bags: int) -> torch.Tensor:
+    """out[b] = sum_{i: seg[i] == b} weights[i] * table[ids[i]].
+
+    ``ids``, ``seg`` int32 [N] and ``weights`` float32 [N]; ``seg`` must be
+    sorted ascending.  Slots whose ``seg`` is outside [0, num_bags) are
+    dropped; a bag with no slot is 0.
+    """
+    _check(table, ids, 1)
+    _check_weights(weights, table)
+    if seg.shape != ids.shape or weights.shape != ids.shape:
+        raise ValueError(f"embedding_bag_sorted wants ids, seg and weights "
+                         f"of one shape, got {tuple(ids.shape)}, "
+                         f"{tuple(seg.shape)}, {tuple(weights.shape)}")
+    if seg.dtype != torch.int32:
+        raise TypeError(f"embedding_bag_sorted wants int32 seg, got "
+                        f"{seg.dtype}")
+    if seg.device != ids.device:
+        raise ValueError("embedding_bag_sorted: seg on another device")
+    if not (seg.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("embedding_bag_sorted wants contiguous tensors")
+    if table.device.type == "cpu":
+        return embedding_bag_sorted_ref(table, ids, seg, weights, num_bags)
+    bounds = torch.arange(num_bags + 1, dtype=torch.int32, device=seg.device)
+    row_ptr = torch.searchsorted(seg, bounds)
+    return _launch(table, ids, weights, row_ptr, 0, num_bags)

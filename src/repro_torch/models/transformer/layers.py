@@ -180,7 +180,7 @@ def apply_layer(p: Params, cfg: LMConfig, x: torch.Tensor,
 # nn.Module views of the parameter dicts
 # ---------------------------------------------------------------------------
 
-class _ParamTree(nn.Module):
+class ParamTree(nn.Module):
     """A parameter dict held as frozen ``nn.Parameter``s (nested dicts as
     submodules); :meth:`tree` gives the dict back, sharing storage."""
 
@@ -188,7 +188,7 @@ class _ParamTree(nn.Module):
         super().__init__()
         for name, value in params.items():
             if isinstance(value, dict):
-                self.add_module(name, _ParamTree(value))
+                self.add_module(name, ParamTree(value))
             else:
                 self.register_parameter(
                     name, nn.Parameter(value, requires_grad=False))
@@ -199,7 +199,7 @@ class _ParamTree(nn.Module):
         return out
 
 
-class RMSNorm(_ParamTree):
+class RMSNorm(ParamTree):
     def __init__(self, params: Params, eps: float):
         super().__init__(params)
         self.eps = eps
@@ -208,7 +208,7 @@ class RMSNorm(_ParamTree):
         return rmsnorm(self.tree(), x, self.eps)
 
 
-class Attention(_ParamTree):
+class Attention(ParamTree):
     def __init__(self, cfg: LMConfig, params: Params):
         super().__init__(params)
         self.cfg = cfg
@@ -218,7 +218,7 @@ class Attention(_ParamTree):
                                impl)
 
 
-class MLP(_ParamTree):
+class MLP(ParamTree):
     def forward(self, x):
         return apply_mlp(self.tree(), x)
 

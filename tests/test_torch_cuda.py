@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version, and
-a small GraphService sequence on the card against the same one on the host.
+small GraphService, LM and SASRec runs on the card against the same ones on
+the host.
 Every test is marked ``cuda`` and skips without a CUDA device; the file
 imports no JAX, so it runs where only torch is installed:
 
@@ -10,6 +11,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 pytestmark = pytest.mark.cuda
+
+
+def _to_card(tree):
+    """A parameter tree (dicts and lists of tensors) copied to the card."""
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v) for v in tree]
+    return tree.cuda()
 
 
 @pytest.fixture
@@ -47,6 +57,98 @@ def test_block_gather_kernel_matches_index_select(gen, rows_per_step, F):
     got = gather_rows(table, ids, rows_per_step=rows_per_step)
     assert torch.equal(got, block_gather_ref(table, ids, rows_per_step))
     torch.cuda.synchronize()
+
+
+# EmbeddingBag: positive rows and weights, so no cancellation; float32 sums
+# of up to 64 terms stay within 64 float32 roundings of the float64 sum
+BAG_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("F", [1, 16, 50, 64])
+def test_embedding_bag_kernel_matches_float64_sum(gen, F, weighted):
+    """Ragged bags of 0-64 slots through ``embedding_bag_sorted``, ids -1
+    and >= V among them; deterministic on a repeat."""
+    from repro_torch import backend
+    from repro_torch.kernels import (embedding_bag_sorted,
+                                     embedding_bag_sorted_ref)
+    V, nb = 5_000, 3_000
+    table = torch.rand((V, F), generator=gen, device="cuda")
+    lens = torch.randint(0, 65, (nb,), generator=gen, device="cuda")
+    lens[:3] = torch.tensor([0, 1, 64], device="cuda")
+    seg = torch.repeat_interleave(
+        torch.arange(nb, dtype=torch.int32, device="cuda"), lens)
+    ids = torch.randint(-1, V + 5, (seg.numel(),), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    w = (torch.rand(seg.numel(), generator=gen, device="cuda") if weighted
+         else torch.ones(seg.numel(), device="cuda"))
+    before = backend.LAUNCHES["embedding_bag"]
+    got = embedding_bag_sorted(table, ids, seg, w, nb)
+    assert backend.LAUNCHES["embedding_bag"] == before + 1
+    ref = embedding_bag_sorted_ref(table.double(), ids, seg, w.double(), nb)
+    torch.testing.assert_close(got.double(), ref, **BAG_TOL)
+    assert not got[lens == 0].any()
+    assert torch.equal(got, embedding_bag_sorted(table, ids, seg, w, nb))
+
+
+@pytest.mark.parametrize("F", [1, 16, 50, 64])
+def test_embedding_bag_kernel_fixed_bags_without_weights(gen, F):
+    """[B, L] bags, weights None, -1 padding at the tail and ids >= V."""
+    from repro_torch.kernels import embedding_bag, embedding_bag_ref
+    V, B, L = 3_000, 2_000, 40
+    table = torch.rand((V, F), generator=gen, device="cuda")
+    ids = torch.randint(0, V + 10, (B, L), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    keep = torch.randint(0, L + 1, (B, 1), generator=gen, device="cuda")
+    ids = torch.where(torch.arange(L, device="cuda") < keep, ids, -1)
+    got = embedding_bag(table, ids)
+    torch.testing.assert_close(got.double(),
+                               embedding_bag_ref(table.double(), ids),
+                               **BAG_TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_embedding_bag_kernel_one_slot_bags_are_exact(gen, offset):
+    """The SASRec lookup: one slot per bag, a scalar weight; bit for bit the
+    plain version, also from a table whose rows are not 8-byte aligned."""
+    from repro_torch.kernels import embedding_bag, embedding_bag_ref
+    V, F, N = 10_000, 50, 30_000
+    table = torch.randn(V * F + offset, generator=gen,
+                        device="cuda")[offset:].view(V, F)
+    ids = torch.randint(-1, V, (N, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w = torch.full((), 50 ** 0.5, device="cuda")
+    got = embedding_bag(table, ids, w)
+    assert torch.equal(got, embedding_bag_ref(table, ids, w))
+    assert not got[ids[:, 0] < 0].any()
+
+
+def test_sasrec_on_the_card_matches_the_host(gen):
+    """SASRec at the smoke config: the same weights and histories on the
+    card (both kernels) and on the host (plain versions)."""
+    from repro_torch import backend
+    from repro_torch.configs.sasrec import smoke_config
+    from repro_torch.models.recsys import sasrec as M
+    cfg = smoke_config()
+    params = M.init_params(cfg, torch.Generator().manual_seed(2),
+                           device="cpu")
+    on_card = _to_card(params)
+    host = torch.Generator().manual_seed(5)
+    seq = torch.randint(0, cfg.n_items + 1, (16, cfg.seq_len),
+                        generator=host, dtype=torch.int32)
+    cands = torch.randint(1, cfg.n_items + 1, (16, 64), generator=host,
+                          dtype=torch.int32)
+    before = dict(backend.LAUNCHES)
+    card = M.score_candidates(on_card, cfg, seq.cuda(), cands.cuda())
+    assert backend.LAUNCHES["embedding_bag"] > before["embedding_bag"]
+    assert backend.LAUNCHES["block_gather"] > before["block_gather"]
+    torch.testing.assert_close(card.cpu(), M.score_candidates(params, cfg,
+                                                              seq, cands),
+                               rtol=1e-5, atol=1e-6)
+    vals, _ = M.serve_step_topk(on_card, cfg, seq.cuda(), k=10)
+    torch.testing.assert_close(vals.cpu(), M.serve_step_topk(params, cfg, seq,
+                                                             k=10)[0],
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_service_on_the_card_matches_the_host(gen):
@@ -201,15 +303,7 @@ def test_lm_serve_on_the_card_matches_the_host(gen):
     from repro_torch.models.transformer import model as M
     cfg = smoke_config()
     params = M.init_params(cfg, seed=3, device="cpu")
-
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_card(v) for v in tree]
-        return tree.cuda()
-
-    on_card = to_card(params)
+    on_card = _to_card(params)
     host = torch.Generator().manual_seed(4)
     lens = torch.randint(20, 70, (5,), generator=host)
     prompts = torch.randint(0, cfg.vocab, (5, int(lens.max())),
