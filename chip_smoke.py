@@ -26,14 +26,22 @@ Phases, one report line each:
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
    at 0, ``launch.serve.serve`` takes 8 requests (prompts of 2,048-7,168
-   random tokens, padded to the longest), prefills them through the flash
-   kernel and decodes 64 greedy steps through the paged kernel over a page
-   pool of 128-token pages.  Then each kernel against its plain version at
-   the serve shapes (flash on the first local and global layers' own inputs,
-   batch row 0 and heads 0-3; paged on the serve's caches after prefill,
-   every row), timed beside its plain version, SDPA (flash) and its bound;
-   and 4 teacher-forced decode steps through ``serve_step_paged`` against
-   the dense plain ``serve_step``;
+   random tokens, padded to the longest), prefills them through the bf16
+   tensor-core flash kernel (8 launches, none of the float32 one) and
+   decodes 64 greedy steps through the paged kernel over a page pool of
+   128-token pages.  Then each kernel against its plain version at the
+   serve shapes (flash on the first local and global layers' own inputs,
+   batch row 0 and heads 0-3, within the bf16 bound below and bit-identical
+   on a repeat; the float32 flash kernel on the global layer's inputs in
+   float32; paged on the serve's caches after prefill, every row), timed
+   beside its plain version, SDPA (flash) and its floors (bytes, products,
+   and for flash the transcendentals at 16 a clock per SM); 4
+   teacher-forced decode steps through ``serve_step_paged`` against the
+   dense plain ``serve_step``; and the float32 flash kernel's own path, a
+   float32 ``serve`` at the Gemma-2 smoke config against the same on the
+   host.  The set-up line ``setup.flash_sass`` says whether the tensor-core
+   kernel's SASS holds HGMMA, its registers and spills and its build
+   seconds;
 7. recsys serving, once the LM state is freed: SASRec at its full published
    config (2^20-row item table, embed_dim 50, 2 blocks, 1 head, seq_len
    50), weights from ``--seed``, left-padded histories of 25-50 items made
@@ -79,11 +87,22 @@ LM_LAYERS, LM_REQUESTS, LM_DECODE, LM_CHECK_STEPS = 8, 8, 64, 4
 LM_PROMPT_MIN, LM_PROMPT_MAX = 2048, 7168
 FLASH_CHECK_HEADS = 4
 GRAPH_KERNELS = ("segment_sum", "block_gather")
-LM_KERNELS = ("flash_attention", "paged_attention")
-# attention kernels against their plain versions, bf16 outputs: both compute
-# in float32 and round once, so they differ by at most one bf16 ulp (2^-7
+# the bf16 serve path; the float32 kernel is driven by a float32 serve at
+# the smoke config
+LM_KERNELS = ("flash_attention_wgmma", "paged_attention")
+F32_LM_KERNELS = ("flash_attention", "paged_attention")
+F32_LM_REQUESTS, F32_LM_DECODE = 4, 8
+MUFU_PER_CLK_PER_SM, H100_SMS = 16, 132           # special-function unit
+# the paged kernel against its plain version, bf16 outputs: both compute in
+# float32 and round once, so they differ by at most one bf16 ulp (2^-7
 # relative) plus a floor for outputs near 0
 ATTN_RTOL, ATTN_ATOL = 2 ** -7, 1e-5
+# the bf16 flash kernel rounds P to bf16 before P·V (the tensor cores take
+# bf16): each p moves by at most 2^-8 · p, so the output by at most
+# 2^-8 · max_k |v[k, d]| beyond the one-ulp bound above
+FLASH_BF16_RTOL, FLASH_BF16_VTOL = 2 ** -7, 2 ** -8
+# the float32 flash kernel: float32 sums in another order
+FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-4, 1e-5
 # paged decode vs the dense plain serve_step, bf16 model: sums taken in
 # another order flip bf16 roundings, which grow through the 8 random layers;
 # the paged route through the plain attention is itself 0.83-0.88 % off the
@@ -115,9 +134,10 @@ def say(phase: str, **fields) -> None:
           flush=True)
 
 
-def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
+def smi_line(query: str = "name,power.limit",
+             fmt: str = "csv,noheader") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          f"--format={fmt}"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -445,23 +465,42 @@ def live_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def time_flash(torch, timer, name, q, k, v, window, softcap, library):
-    """The flash kernel at a prefill layer's shape against its plain version
-    (batch row 0, heads 0-3, every row), timed beside the plain version over
-    the whole shape, the bound and (``library``) SDPA."""
+def mufu_per_s(smi_clock_mhz: float) -> float:
+    """Special-function results per second: 16 a clock per SM."""
+    return MUFU_PER_CLK_PER_SM * H100_SMS * smi_clock_mhz * 1e6
+
+
+def time_flash(torch, timer, name, q, k, v, window, softcap, library,
+               clock_mhz):
+    """A flash kernel at a prefill layer's shape against its plain version
+    (batch row 0, heads 0-3, every row; bit-identical on a repeat), timed
+    beside the plain version over the whole shape, the floors and
+    (``library``) SDPA.  bf16 goes through the tensor-core kernel, float32
+    through the CUDA-core one."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, H, S, D = q.shape
     G = H // k.shape[1]
     hs = FLASH_CHECK_HEADS
+    bf16 = q.dtype == torch.bfloat16
     kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=softcap)
     got = flash_attention(q, k, v, **kw)
+    check(torch.equal(got, flash_attention(q, k, v, **kw)),
+          f"flash_attention {name}: a repeat differs")
     ref = attention_ref(q[:1, :hs], k[:1, :hs // G], v[:1, :hs // G],
                         **kw).float()
     err = (got[:1, :hs].float() - ref).abs()
-    check(bool((err <= ATTN_ATOL + ATTN_RTOL * ref.abs()).all()),
+    if bf16:     # P rounded to bf16 before P·V: 2^-8 · max_k |v[k, d]| more
+        vmax = v[:1, :hs // G].float().abs().amax(dim=2, keepdim=True) \
+            .repeat_interleave(G, dim=1)
+        tol = FLASH_BF16_RTOL * ref.abs() + FLASH_BF16_VTOL * vmax \
+            + ATTN_ATOL
+    else:
+        tol = FLASH_F32_ATOL + FLASH_F32_RTOL * ref.abs()
+    check(bool((err <= tol).all()),
           f"flash_attention {name}: off its plain version by "
-          f"{float(err.max()):.3e}")
+          f"{float(err.max()):.3e} (worst err/bound "
+          f"{float((err / tol).max()):.3f})")
 
     def plain():                     # the plain version over the whole shape
         for b in range(B):
@@ -473,22 +512,69 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library):
     pairs = B * H * live_pairs(S, window)
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
         * q.element_size()
-    b_ms, b_by = bound_ms(nbytes, 4 * pairs * D, BF16_TENSOR_OPS_PER_S)
+    ops = 4 * pairs * D
+    # floors: the bytes; the products at the type's peak (tensor cores for
+    # bf16, the CUDA cores for float32); the transcendentals the function
+    # needs, an exp a live pair and a tanh with the softcap, at 16 a clock
+    # per SM (the kernel spends three: its tanh is an exp2 and a reciprocal)
+    mufu = pairs * (2 if softcap > 0 else 1)
+    floors = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                  products=ops / (BF16_TENSOR_OPS_PER_S if bf16
+                                  else FP32_OPS_PER_S) * 1e3,
+                  transcendentals=mufu / mufu_per_s(clock_mhz) * 1e3)
+    binding = max(floors, key=floors.get)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row = dict(
-        name="flash_attention", shape=name, B=B, H=H, KVH=k.shape[1], S=S,
-        D=D, window=window, softcap=softcap, live_pairs=pairs,
-        max_abs_err=float(err.max()),
+        name="flash_attention_wgmma" if bf16 else "flash_attention",
+        shape=name, dtype=str(q.dtype).replace("torch.", ""), B=B, H=H,
+        KVH=k.shape[1], S=S, D=D, window=window, softcap=softcap,
+        live_pairs=pairs, mufu_ops=mufu, max_abs_err=float(err.max()),
+        max_err_over_bound=float((err / tol).max()),
         ms=timer.ms(lambda: flash_attention(q, k, v, **kw)),
         plain_ms=timer.ms(plain),
         # SDPA computes the same causal GQA attention without the softcap
         library_ms=(timer.ms(lambda: sdpa(q, k, v, is_causal=True,
                                           scale=D ** -0.5, enable_gqa=True))
                     if library else None),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=floors[binding],
+        bound_by="bytes" if binding == "bytes" else "operations",
+        binding_floor=binding, **{f"{k_}_floor_ms": v_
+                                  for k_, v_ in floors.items()})
     say("lm.kernel", **{k_: (f"{v_:.4g}" if isinstance(v_, float) else v_)
                         for k_, v_ in row.items()})
     return row
+
+
+def flash_build_report(torch, backend) -> dict:
+    """What was built for the tensor-core flash kernel: whether its SASS
+    holds HGMMA, registers and local memory (spills) per template from
+    ``cuobjdump -res-usage``, and the seconds its build took."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = str(backend.library_path("flash_attention_wgmma"))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    usage = [dict(template=m.group(1), regs=int(m.group(2)),
+                  stack=int(m.group(3)), local=int(m.group(4)))
+             for m in re.finditer(r"flash_fwd_wgmmaILi(\d+)ELi\d+E\S*:\s*"
+                                  r"REG:(\d+) STACK:(\d+) \S+ LOCAL:(\d+)",
+                                  res)]
+    out = dict(hgmma=sass.count("HGMMA"), templates=usage,
+               build_seconds=backend.last_build_seconds_by_source.get(
+                   "flash_attention_wgmma"))
+    say("setup.flash_sass", hgmma=out["hgmma"],
+        regs="/".join(f"D{u['template']}:{u['regs']}" for u in usage),
+        spill_bytes=sum(u["stack"] + u["local"] for u in usage),
+        consumer_regs="240 (setmaxnreg)",
+        build_s=("cached" if out["build_seconds"] is None
+                 else f"{out['build_seconds']:.2f}"))
+    check(out["hgmma"] > 0, "flash_attention_wgmma: no HGMMA in its SASS")
+    check(len(usage) == 3, f"flash_attention_wgmma: res-usage unparsed: "
+          f"{res[-500:]}")
+    return out
 
 
 def time_paged(torch, timer, name, cache, q, window, softcap):
@@ -525,7 +611,8 @@ def time_paged(torch, timer, name, cache, q, window, softcap):
     return row
 
 
-def lm_phase(torch, timer, dev, seed, report, profile=False) -> None:
+def lm_phase(torch, timer, dev, seed, report, clock_mhz,
+             profile=False) -> None:
     """Phase 6: serve 8 requests of Gemma-2 27B (full width, 8 layers, bf16)
     through flash prefill and paged decode; kernels against their plain
     versions at the serve shapes; paged decode against the dense plain
@@ -583,6 +670,11 @@ def lm_phase(torch, timer, dev, seed, report, profile=False) -> None:
                                         "max_mem", "launches"))})
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the serve path")
+    check(launches["flash_attention_wgmma"] == cfg.n_layers,
+          f"prefill launched the tensor-core flash kernel "
+          f"{launches['flash_attention_wgmma']} times, not {cfg.n_layers}")
+    check(backend.LAUNCHES["flash_attention"] == 0,
+          "a bf16 prefill reached the float32 flash kernel")
     check(bool(torch.isfinite(res.prefill_logits).all()),
           "prefill logits not finite")
     tokens, first_logits = res.tokens, res.prefill_logits
@@ -605,7 +697,12 @@ def lm_phase(torch, timer, dev, seed, report, profile=False) -> None:
                                    rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                    positions)
         rows.append(time_flash(torch, timer, f"{name} w={window}", q, k, v,
-                               window, cfg.attn_softcap, library=window == 0))
+                               window, cfg.attn_softcap, window == 0,
+                               clock_mhz))
+        if window == 0:      # the float32 kernel on the same inputs
+            rows.append(time_flash(torch, timer, f"f32 {name} w={window}",
+                                   q.float(), k.float(), v.float(), window,
+                                   cfg.attn_softcap, False, clock_mhz))
         del q, k, v
         if li == 0:
             x = apply_layer(lp, cfg, x, positions, window)[0]
@@ -684,6 +781,54 @@ def lm_phase(torch, timer, dev, seed, report, profile=False) -> None:
         max_abs_logit=f"{max(s['max_abs_logit'] for s in steps):.4g}",
         argmax_agree=min(s["argmax_agree"] for s in steps),
         prefill_repeat_bit_identical=out["prefill_repeat_bit_identical"])
+    lm_f32_path(torch, timer, dev, seed, report)
+
+
+def _tree_to(tree, dev):
+    """A parameter tree (dicts and lists of tensors) copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def lm_f32_path(torch, timer, dev, seed, report) -> None:
+    """The float32 flash kernel's path: ``serve`` at the Gemma-2 smoke
+    config (float32, 4 layers, head_dim 16) with the launch counters at 0,
+    against the same serve on the host (plain versions): greedy tokens equal,
+    prefill logits within rtol 1e-4."""
+    from repro_torch import backend
+    from repro_torch.configs.gemma2_27b import smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import model as M
+    cfg = smoke_config()
+    params = M.init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    lens = torch.randint(20, 70, (F32_LM_REQUESTS,), generator=gen,
+                         device=dev)
+    prompts = torch.randint(0, cfg.vocab, (F32_LM_REQUESTS, int(lens.max())),
+                            generator=gen, device=dev)
+    backend.reset_launch_counts()
+    res, sec = timer.wall(lambda: serve(cfg, params, prompts, lens,
+                                        F32_LM_DECODE, page=16, device=dev))
+    launches = {k: backend.LAUNCHES[k] for k in F32_LM_KERNELS}
+    host = serve(cfg, _tree_to(params, "cpu"), prompts.cpu(), lens.cpu(),
+                 F32_LM_DECODE, page=16, device="cpu")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on the float32 serve")
+    check(backend.LAUNCHES["flash_attention_wgmma"] == 0,
+          "a float32 prefill reached the bf16 flash kernel")
+    check(torch.equal(res.tokens.cpu(), host.tokens),
+          "float32 serve: card and host tokens differ")
+    check(torch.allclose(res.prefill_logits.cpu(), host.prefill_logits,
+                         rtol=1e-4, atol=1e-5),
+          "float32 serve: card and host prefill logits differ")
+    report["lm_f32"] = dict(config=cfg.name, requests=F32_LM_REQUESTS,
+                            decode_steps=F32_LM_DECODE, serve_seconds=sec,
+                            launches=launches)
+    say("lm.f32_serve", config=cfg.name, seconds=f"{sec:.3f}",
+        launches=launches, tokens="equal to the host's")
 
 
 # ---------------------------------------------------------------------------
@@ -1002,6 +1147,9 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     say("setup.build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc_seconds=f"{backend.last_build_seconds:.2f}")
     report["build_seconds"] = backend.last_build_seconds
+    report["flash_build"] = flash_build_report(torch, backend)
+    clock_mhz = float(smi_line("clocks.max.sm", "csv,noheader,nounits"))
+    report["sm_clock_max_mhz"] = clock_mhz
 
     t0 = time.perf_counter()
     graph_phases(torch, timer, dev, scale, seed, profile, report)
@@ -1009,7 +1157,7 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     gc.collect()                       # the graph state goes before the LM's
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    lm_phase(torch, timer, dev, seed, report, profile)
+    lm_phase(torch, timer, dev, seed, report, clock_mhz, profile)
     report["lm_seconds"] = time.perf_counter() - t0
     gc.collect()                       # the LM state goes before SASRec's
     torch.cuda.empty_cache()
@@ -1030,10 +1178,16 @@ def kernels_line(report: dict) -> dict:
                          "src/repro/kernels/block_gather/kernel.py:29"),
     }
     lm_meta = {
-        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention/kernel.py:69"),
+        "flash_attention_wgmma": (
+            "src/repro_torch/csrc/flash_attention_wgmma.cu",
+            "src/repro/kernels/flash_attention/kernel.py:69"),
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention/kernel.py:72"),
+    }
+    # float32 prefill attention on the CUDA cores (the float32 serve path)
+    lm_f32_meta = {
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:69"),
     }
     recsys_meta = {
         "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -1043,6 +1197,8 @@ def kernels_line(report: dict) -> dict:
     for table, rows_key, main_shape, launch_counts in (
             (meta, "kernels", "push", launches),
             (lm_meta, "lm_kernels", "global", report["lm"]["launches"]),
+            (lm_f32_meta, "lm_kernels", "f32 global",
+             report["lm_f32"]["launches"]),
             (recsys_meta, "recsys_kernels", "serve_bulk",
              report["recsys"]["launches"])):
         for name, (source, replaces) in table.items():

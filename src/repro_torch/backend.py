@@ -43,11 +43,16 @@ _SIGNATURES = {
     "segment_sum": ("segment_sum_f32", (_VP, _VP, _VP, _VP, _I64, _I32, _VP)),
     "block_gather": ("block_gather_f32", (_VP, _VP, _VP, _I64, _I64, _I64,
                                           _VP)),
-    # q, k, v, o, dtype, B, H, KVH, S, D, (batch, head, row) strides of q,
-    # k and v, scale, causal, window, softcap, stream
+    # float32 on the CUDA cores: q, k, v, o, B, H, KVH, S, D, (batch, head,
+    # row) strides of q, k and v, scale, causal, window, softcap, stream
     "flash_attention": ("flash_attention_fwd",
-                        (_VP, _VP, _VP, _VP) + (_I32,) * 6 + (_I64,) * 9
+                        (_VP,) * 4 + (_I32,) * 5 + (_I64,) * 9
                         + (_F32, _I32, _I32, _F32, _VP)),
+    # bf16 on the tensor cores: q, k, v, o, B, H, KVH, S, D, (batch, head,
+    # row) strides of q, k and v, scale, causal, window, softcap, stream
+    "flash_attention_wgmma": ("flash_attention_wgmma_bf16",
+                              (_VP,) * 4 + (_I32,) * 5 + (_I64,) * 9
+                              + (_F32, _I32, _I32, _F32, _VP)),
     # q, k_pages, v_pages, block_table, lengths, o, dtype, B, KVH, G, D, P,
     # page, npmax, scale, window, softcap, stream
     "paged_attention": ("paged_attention_fwd",
@@ -65,6 +70,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 
 _kernels: Dict[str, ctypes._CFuncPtr] = {}
 last_build_seconds: Optional[float] = None
+# seconds from the start of the last build to each source's library
+last_build_seconds_by_source: Dict[str, float] = {}
 
 
 def reset_launch_counts() -> None:
@@ -105,6 +112,12 @@ def _library_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
+def library_path(name: str) -> Path:
+    """The shared library that :func:`build_kernels` builds from
+    ``csrc/<name>.cu``."""
+    return _library_path(CSRC / f"{name}.cu")
+
+
 def build_kernels() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library yet.
 
@@ -114,6 +127,7 @@ def build_kernels() -> Dict[str, Path]:
     """
     global last_build_seconds
     t0 = time.perf_counter()
+    last_build_seconds_by_source.clear()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
     for src in sorted(CSRC.glob("*.cu")):
@@ -129,6 +143,7 @@ def build_kernels() -> Dict[str, Path]:
     failures = []
     for src, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        last_build_seconds_by_source[src.stem] = time.perf_counter() - t0
         if proc.returncode != 0:
             failures.append(f"{src.name}:\n{log}")
         else:

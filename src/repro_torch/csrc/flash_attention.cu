@@ -11,16 +11,16 @@
 // What bounds it: at the serve shapes (S in the thousands, D = 128) the work
 // is 4 * D multiply-adds per live (query, key) pair against 2 * D * S bytes
 // of K and V, far above the card's ~295 operations per byte, so the bound is
-// operations.  This first kernel multiplies on the CUDA cores in float32
-// (4 x 4 register tiles over float4 shared-memory reads); mma.sync / wgmma on
-// the tensor cores is later work.
+// operations.  This kernel multiplies on the CUDA cores in float32 (4 x 4
+// register tiles over float4 shared-memory reads).  The wrapper sends it
+// float32 inputs only: bf16 goes to the tensor-core kernel,
+// csrc/flash_attention_wgmma.cu.
 //
 // Design:
 //   * 256 threads as 16 x 16: thread (ty, tx) owns query rows 4ty .. 4ty+3,
 //     score columns tx + 16j, and output columns 64g + 4tx .. +3.  Row
 //     maxima and sums reduce over the 16 lanes of a half-warp by shuffles;
-//   * Q, K and V tiles are staged in shared memory as float32 (bf16 is
-//     widened on load), rows padded by 4 floats so the float4 reads of
+//   * Q, K and V tiles are staged in shared memory as float32, rows padded by 4 floats so the float4 reads of
 //     neighbouring rows fall in different banks.  K and V share one buffer
 //     (V is loaded after the scores), which keeps two CTAs on an SM at
 //     D <= 128;
@@ -33,7 +33,6 @@
 //     (the ragged last tile) are -inf and weigh exactly 0;
 //   * any S (the ragged edges are masked), any head_dim D <= 256, q/k/v in
 //     any layout whose last axis is contiguous (strides are passed).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -46,13 +45,7 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Strides {
   long long b, h, s;
@@ -270,12 +263,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, Strides qs,
 
 }  // namespace
 
-// q [B, H, S, D], k / v [B, KVH, S, D] with the given (batch, head, row)
-// strides in elements and a contiguous last axis; o [B, H, S, D] contiguous.
-// dtype 0 = float32, 1 = bfloat16 (all four tensors alike).
+// q [B, H, S, D], k / v [B, KVH, S, D] float32 with the given (batch, head,
+// row) strides in elements and a contiguous last axis; o [B, H, S, D]
+// float32 contiguous.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int KVH, int S, int D, long long q_sb, long long q_sh,
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KVH, int S, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
     int window, float softcap, void* stream) {
@@ -286,11 +279,6 @@ extern "C" int flash_attention_fwd(
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, qs, ks, vs, B, H, KVH, S, D, scale,
-                           causal, window, softcap, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, qs, ks, vs, B, H, KVH, S, D,
-                                   scale, causal, window, softcap, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<float>(q, k, v, o, qs, ks, vs, B, H, KVH, S, D, scale,
+                         causal, window, softcap, st);
 }

@@ -1,11 +1,12 @@
 """Prefill attention: the ``impl`` switch and the wrapper of the flash
-kernel (``csrc/flash_attention.cu``).
+kernels (``csrc/flash_attention_wgmma.cu`` for bf16,
+``csrc/flash_attention.cu`` for float32).
 
 ``attention(..., impl="torch")`` is the plain version (the JAX package's
 ``impl="xla"``); ``impl="cuda"`` goes through :func:`flash_attention`, which
-runs the plain version for a CPU tensor and launches the kernel for a CUDA
-tensor.  Unlike the Pallas kernel, the CUDA one takes any S (it masks the
-ragged tile) and q / k / v in any layout whose last axis is contiguous.
+runs the plain version for a CPU tensor and launches a kernel for a CUDA
+tensor.  Unlike the Pallas kernel, the CUDA ones take any S (they mask the
+ragged tile) and q / k / v views whose last axis is contiguous.
 """
 from __future__ import annotations
 
@@ -37,12 +38,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: head_dim {D} > {MAX_HEAD_DIM}")
 
 
+def _tma_view(x: torch.Tensor) -> tuple:
+    """(x, its [batch, head, row] strides) as the tensor maps take them:
+    16-byte aligned base and strides, else a contiguous copy.  A dimension
+    of size 1 is never stepped, so its stride is reported as a packed one."""
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(
+            x.stride(i) % 8 for i in range(3) if x.shape[i] > 1):
+        x = x.contiguous()
+    packed = (x.shape[1] * x.shape[2] * x.shape[3], x.shape[2] * x.shape[3],
+              x.shape[3])
+    return x, tuple(x.stride(i) if x.shape[i] > 1 else packed[i]
+                    for i in range(3))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, S, D]; k, v [B, KVH, S, D] with H % KVH == 0 -> o [B, H, S, D].
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel,
+    chosen by dtype: bfloat16 goes to the tensor-core kernel
+    (``flash_attention_wgmma``: wgmma and TMA, D a multiple of 8), float32
+    to the CUDA-core kernel (``flash_attention``).  That is a dispatch on the
+    type, not a fallback: a bf16 call that cannot build or launch its kernel
+    raises.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -50,14 +69,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     B, H, S, D = q.shape
+    if q.dtype == torch.bfloat16:
+        if D % 8:
+            raise ValueError(f"flash_attention: bf16 head_dim {D} is not a "
+                             f"multiple of 8")
+        (q, qs), (k, ks), (v, vs) = (_tma_view(x) for x in (q, k, v))
+        o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+        backend.launch("flash_attention_wgmma", q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), o.data_ptr(), B, H, k.shape[1], S, D,
+                       *qs, *ks, *vs, float(scale), int(bool(causal)),
+                       int(window), float(softcap))
+        return o
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     backend.launch("flash_attention", q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), o.data_ptr(), backend.DTYPE_FLAGS[q.dtype],
-                   B, H, k.shape[1], S, D, *q.stride()[:3], *k.stride()[:3],
-                   *v.stride()[:3], float(scale), int(bool(causal)),
-                   int(window), float(softcap))
+                   v.data_ptr(), o.data_ptr(), B, H, k.shape[1], S, D,
+                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   float(scale), int(bool(causal)), int(window),
+                   float(softcap))
     return o
 
 

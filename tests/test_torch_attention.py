@@ -17,6 +17,8 @@ from repro.kernels import paged_attention_ref as j_paged_ref  # noqa: E402
 from repro_torch import backend  # noqa: E402
 from repro_torch.kernels import (attention, decode_attention,  # noqa: E402
                                  flash_attention, paged_attention)
+from repro_torch.kernels.flash_attention import \
+    attention_ref_bf16_p  # noqa: E402
 
 from torch_parity import t  # noqa: E402
 
@@ -70,6 +72,43 @@ def test_flash_plain_bf16_matches_jax():
     assert got.dtype == torch.bfloat16
     # both round a float32 result to bf16 once: one bf16 ulp (2^-7) apart
     _close(got, np.asarray(ref, np.float32), rtol=2 ** -7, atol=1e-5)
+
+
+def bf16_kernel_bound(ref, v, group):
+    """The bf16 tensor-core kernel's tolerance, per (b, head, d): P rounded
+    to bf16 before P·V moves each p by at most 2^-8 · p, so the output by at
+    most 2^-8 · max_k |v[k, d]|; the output's own bf16 rounding and the
+    float32 sums' order stay under 2^-7 · |ref|."""
+    vmax = np.repeat(np.abs(v).max(axis=2, keepdims=True), group, axis=1)
+    return 2 ** -7 * np.abs(ref) + 2 ** -8 * vmax + 1e-5
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,window,cap", [
+    (2, 4, 2, 64, 16, 8, 50.0),        # the Gemma-2 smoke config, local
+    (2, 4, 2, 64, 16, 0, 50.0),        # and global layer
+    (1, 4, 2, 512, 128, 0, 50.0),      # the 27B head, four kv tiles
+    (1, 4, 2, 512, 128, 96, 50.0),     # a window inside a kv tile
+    (1, 2, 1, 300, 64, 0, 0.0),        # ragged S, no softcap
+])
+def test_flash_bf16_p_rounding_bound_is_the_arithmetics(B, H, KVH, S, D,
+                                                        window, cap):
+    """The plain version with the kernel's bf16 rounding of P against the
+    JAX oracle in float32: inside the bf16 kernel's bound everywhere, and the
+    bound no looser than the arithmetic needs (the old one-ulp bound fails,
+    and the error reaches a tenth of the new one)."""
+    rng = np.random.default_rng(S + D)
+    q, k, v = (t(2 * rng.standard_normal((B, n, S, D)).astype(np.float32))
+               .to(torch.bfloat16).float().numpy() for n in (H, KVH, KVH))
+    kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=cap)
+    ref = np.asarray(j_attention_ref(*map(jnp.asarray, (q, k, v)), **kw))
+    got = attention_ref_bf16_p(*(t(x).to(torch.bfloat16) for x in (q, k, v)),
+                               **kw)
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - ref)
+    bound = bf16_kernel_bound(ref, v, H // KVH)
+    assert (err <= bound).all()
+    assert (err > 2 ** -7 * np.abs(ref) + 1e-5).any()
+    assert (err / bound).max() >= 0.1
 
 
 def _paged(rng, B, KVH, G, D, page, NP, P=32):

@@ -181,10 +181,55 @@ def test_service_on_the_card_matches_the_host(gen):
 
 
 # attention kernels: float32 within rtol 1e-4 of the plain version (the sums
-# run in another order); bfloat16 within one bf16 ulp (2^-7 relative), since
-# both compute in float32 and round once at the end
+# run in another order); bfloat16 paged attention within one bf16 ulp (2^-7
+# relative), since it computes in float32 and rounds once at the end
 ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# the bf16 flash kernel (tensor cores) rounds P to bf16 before P·V: each p
+# moves by at most 2^-8 · p, the output by at most 2^-8 · max_k |v[k, d]|
+FLASH_KERNEL = {torch.float32: "flash_attention",
+                torch.bfloat16: "flash_attention_wgmma"}
+
+
+def _assert_flash_close(got, ref, v, group):
+    """float32: ATTN_TOL; bf16: |got - ref| <= 2^-7 |ref| + 2^-8 max_k |v|
+    + 1e-5 per (b, head, d)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, **ATTN_TOL[torch.float32])
+        return
+    ref = ref.float()
+    vmax = v.float().abs().amax(dim=2, keepdim=True) \
+        .repeat_interleave(group, dim=1)
+    err = (got.float() - ref).abs()
+    bound = 2 ** -7 * ref.abs() + 2 ** -8 * vmax + 1e-5
+    assert bool((err <= bound).all()), \
+        f"max err {float(err.max()):.3e}, worst err/bound " \
+        f"{float((err / bound).max()):.3f}"
+
+
+def _flash_case(gen, dtype, B, H, KVH, S, D, causal, window, cap,
+                strided=False):
+    """One call of the flash kernel against the plain version: the launch
+    counted under the dtype's kernel, a repeat bit-identical."""
+    from repro_torch import backend
+    from repro_torch.kernels import attention_ref, flash_attention
+    if strided:              # [B, S, H, D] viewed as [B, H, S, D], no copy
+        q, k, v = (torch.randn((B, S, n, D), generator=gen, device="cuda")
+                   .to(dtype).transpose(1, 2) for n in (H, KVH, KVH))
+    else:
+        q, k, v = (torch.randn((B, n, S, D), generator=gen, device="cuda")
+                   .to(dtype) for n in (H, KVH, KVH))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, softcap=cap)
+    before = dict(backend.LAUNCHES)
+    got = flash_attention(q, k, v, **kw)
+    assert backend.LAUNCHES[FLASH_KERNEL[dtype]] == \
+        before[FLASH_KERNEL[dtype]] + 1
+    other = FLASH_KERNEL[torch.float32 if dtype == torch.bfloat16
+                         else torch.bfloat16]
+    assert backend.LAUNCHES[other] == before[other]
+    torch.cuda.synchronize()
+    _assert_flash_close(got, attention_ref(q, k, v, **kw), v, H // KVH)
+    assert torch.equal(got, flash_attention(q, k, v, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -200,17 +245,24 @@ ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 ])
 def test_flash_attention_kernel_matches_plain(gen, dtype, B, H, KVH, S, D,
                                               causal, window, cap):
-    from repro_torch import backend
-    from repro_torch.kernels import attention_ref, flash_attention
-    q, k, v = (torch.randn((B, n, S, D), generator=gen, device="cuda")
-               .to(dtype) for n in (H, KVH, KVH))
-    kw = dict(scale=D ** -0.5, causal=causal, window=window, softcap=cap)
-    before = backend.LAUNCHES["flash_attention"]
-    got = flash_attention(q, k, v, **kw)
-    assert backend.LAUNCHES["flash_attention"] == before + 1
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw)
-                               .float(), **ATTN_TOL[dtype])
+    _flash_case(gen, dtype, B, H, KVH, S, D, causal, window, cap)
+
+
+@pytest.mark.parametrize("S", [127, 128, 129, 1000])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+def test_flash_attention_bf16_tile_edges(gen, S, D):
+    """bf16 through the tensor-core kernel around the 128-row query tile
+    and the 128-key (64 at D 256) kv tile, every head width template."""
+    _flash_case(gen, torch.bfloat16, 1, 4, 2, S, D, True, 0, 50.0)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("window", [100, 200, 4096])
+def test_flash_attention_bf16_groups_and_windows(gen, G, window):
+    """Windows that end inside a kv tile (100, 200) and one past S, with
+    1, 2 and 4 query heads to a kv head."""
+    _flash_case(gen, torch.bfloat16, 2, 2 * G, 2, 700, 128, True, window,
+                50.0)
 
 
 def test_flash_attention_kernel_takes_strided_heads(gen):
@@ -227,6 +279,22 @@ def test_flash_attention_kernel_takes_strided_heads(gen):
     got = flash_attention(q, k, v, **kw)
     torch.testing.assert_close(got, attention_ref(q, k, v, **kw),
                                **ATTN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("S,window", [(150, 64), (1000, 300)])
+def test_flash_attention_bf16_takes_strided_heads(gen, S, window):
+    """The model's [B, S, H, D] views in bf16 go into the tensor maps as
+    they are."""
+    _flash_case(gen, torch.bfloat16, 2, 4, 2, S, 128, True, window, 50.0,
+                strided=True)
+
+
+def test_flash_attention_bf16_rejects_head_dim_off_the_tma_grid(gen):
+    from repro_torch.kernels import flash_attention
+    q, k, v = (torch.randn((1, 2, 64, 20), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, scale=0.25)
 
 
 def _paged_inputs(gen, B, KVH, G, D, page, NP, P, dtype):
