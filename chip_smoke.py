@@ -11,17 +11,24 @@ Phases, one report line each:
    ``GraphService.from_coo`` over it;
 2. agreement on a small input: one update/read/analytics sequence on the
    card and on the host, stores bit-exact and analytics equal;
-3. kernels against their plain versions at the service graph's shapes
-   (push and pull F = 1, plus push_feat F = 16 on a 1/16-size graph):
-   ``block_gather`` exact, ``segment_sum`` within rtol 1e-5 of a float64
-   sum and bit-identical on a repeat, each timed beside its plain version,
-   one PyTorch library call and its bytes bound;
+3. kernels against their plain versions at the service graph's shapes,
+   over the engine's sweep plan (push and pull F = 1, plus push_feat F = 16
+   on a 1/16-size graph): ``block_gather`` exact (x[src] in the plan's
+   destination order, x[owner], x[dst]), ``segment_sum`` over the plan's
+   sorted streams within rtol 1e-5 of a float64 sum and bit-identical on a
+   repeat, each timed beside its plain version, one PyTorch library call
+   (``index_select``; ``torch.segment_reduce`` on the sorted stream) and
+   its bytes bound; the push sweep through the plan against the route that
+   sorts on each call and against ``impl="torch"`` (``index_add_``);
 4. the service's main path with every launch counter at 0: cold PageRank,
    BFS, SSSP and CC, three rounds of 1,000,000 updates (20 % deletes) through
    ``apply`` + ``flush`` with point reads of just-inserted and just-deleted
    pairs after each, then the same analytics warm;
 5. checks: ranks sum to 1, PageRank with ``impl="torch"`` agrees with the
-   kernel path, both kernels launched on the main path;
+   kernel path, both kernels launched on the main path; a cold PageRank
+   through each route, the kernel route building one sweep plan and
+   launching each graph kernel once per iteration, and the plan's build
+   time;
 6. LM serving, once the graph state is freed: Gemma-2 27B at full width
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
@@ -232,40 +239,81 @@ def sweep_inputs(torch, cbl, x):
     return (table, owner), (msg.contiguous(), seg)
 
 
-def time_segment_sum(torch, timer, name, data, seg, num_rows):
+def time_segment_sum(torch, timer, name, data_sorted, row_ptr, parts,
+                     data, seg):
+    """The CSR kernel over a plan's sorted stream (``data_sorted``,
+    ``row_ptr``, ``parts``) against a float64 sum, bit-identical on a
+    repeat, timed beside its plain version, ``torch.segment_reduce`` on the
+    same stream and its bytes bound; the one-off wrapper over the unsorted
+    stream (``data``, ``seg``: sort, gather, kernel) and ``index_add_`` on
+    it beside them."""
     from repro_torch.kernels.segment_matmul.ops import (segment_matmul,
-                                                        segment_sum_sorted,
-                                                        sorted_layout)
-    from repro_torch.kernels.segment_matmul.ref import segment_sum_ref
-    got = segment_matmul(data, seg, num_rows)
-    again = segment_matmul(data, seg, num_rows)
-    ref64 = segment_sum_ref(data.double(), seg, num_rows)
+                                                        segment_sum_csr)
+    from repro_torch.kernels.segment_matmul.ref import (segment_sum_csr_ref,
+                                                        segment_sum_ref)
+    num_rows = row_ptr.numel() - 1
+    got = segment_sum_csr(data_sorted, row_ptr, parts)
+    again = segment_sum_csr(data_sorted, row_ptr, parts)
+    ref64 = segment_sum_csr_ref(data_sorted.double(), row_ptr)
     err = (got.double() - ref64).abs()
     ok = bool((err <= SEG_ATOL + SEG_RTOL * ref64.abs()).all())
     check(ok, f"segment_sum {name}: outside rtol {SEG_RTOL} of the "
               f"float64 sum (max abs err {float(err.max()):.3e})")
     check(torch.equal(got, again), f"segment_sum {name}: repeat differs")
-    order, row_ptr = sorted_layout(seg, num_rows)
+    oneoff = segment_matmul(data, seg, num_rows)
+    oneoff_err = (oneoff.double() - segment_sum_ref(data.double(), seg,
+                                                    num_rows)).abs()
+    check(bool((oneoff_err <= SEG_ATOL + SEG_RTOL * ref64.abs()).all()),
+          f"segment_matmul {name}: the one-off route is outside rtol "
+          f"{SEG_RTOL} of the float64 sum")
+    del ref64, oneoff, oneoff_err
     valid = (seg >= 0) & (seg < num_rows)
     idx, vals = seg[valid].long(), data[valid]
-    E, F = data.shape
-    n_valid = int(valid.sum())
-    # the payload of in-range lanes only (the rest is dropped unread), every
-    # segment id, the output once
-    b_ms, b_by = bound_ms(n_valid * F * 4 + E * 4 + num_rows * F * 4,
-                          n_valid * F)
+    offsets = row_ptr.long()
+    V, F = data_sorted.shape
+    # the sorted stream read once, row_ptr read once, the output written
+    # once; one add an item and feature
+    b_ms, b_by = bound_ms(V * F * 4 + (num_rows + 1) * 4 + num_rows * F * 4,
+                          V * F)
     row = dict(
-        name="segment_sum", shape=name, E=E, E_valid=n_valid, F=F,
-        rows=num_rows, max_abs_err=float(err.max()), bit_identical_repeat=True,
-        ms=timer.ms(lambda: segment_matmul(data, seg, num_rows)),
-        kernel_ms=timer.ms(lambda: segment_sum_sorted(data, order, row_ptr,
-                                                      num_rows)),
-        plain_ms=timer.ms(lambda: segment_sum_ref(data, seg, num_rows)),
-        library_ms=timer.ms(lambda: torch.zeros(
+        name="segment_sum", shape=name, V=V, F=F, rows=num_rows,
+        tiles=parts.shape[0] - 1, E_unsorted=data.shape[0],
+        max_abs_err=float(err.max()), bit_identical_repeat=True,
+        ms=timer.ms(lambda: segment_sum_csr(data_sorted, row_ptr, parts)),
+        plain_ms=timer.ms(lambda: segment_sum_csr_ref(data_sorted, row_ptr)),
+        library_ms=timer.ms(lambda: torch.segment_reduce(
+            data_sorted, "sum", offsets=offsets)),
+        oneoff_ms=timer.ms(lambda: segment_matmul(data, seg, num_rows), 3),
+        index_add_ms=timer.ms(lambda: torch.zeros(
             (num_rows, F), device=data.device).index_add_(0, idx, vals)),
         bound_ms=b_ms, bound_by=b_by)
     say("kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                      for k, v in row.items()})
+    return row
+
+
+def time_push_sweep(torch, timer, cbl, plan, x):
+    """PageRank's push sweep (message x[src]) through the plan, through the
+    kernel route that sorts on each call, and through ``impl="torch"``
+    (``index_add_`` on the unsorted stream)."""
+    from repro_torch.core.engine import process_edge_push
+    msg = lambda xs, w: xs      # noqa: E731 — PageRank's message
+    planned = lambda: process_edge_push(cbl, x, dense_f=msg,  # noqa: E731
+                                        impl="cuda", plan=plan)
+    got = planned()
+    ref = process_edge_push(cbl, x, dense_f=msg, impl="torch")
+    err = float((got - ref).abs().max())
+    check(torch.allclose(got, ref, rtol=SEG_RTOL, atol=SEG_ATOL),
+          f"push sweep through the plan off impl='torch' by {err:.3e}")
+    row = dict(
+        name="push_sweep", max_abs_err=err,
+        plan_ms=timer.ms(planned),
+        sort_each_call_ms=timer.ms(lambda: process_edge_push(
+            cbl, x, dense_f=msg, impl="cuda"), 3),
+        torch_index_add_ms=timer.ms(lambda: process_edge_push(
+            cbl, x, dense_f=msg, impl="torch")))
+    say("sweep", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                    for k, v in row.items()})
     return row
 
 
@@ -297,27 +345,45 @@ def time_gather(torch, timer, name, table, ids, rows_per_step=1):
     return row
 
 
-def kernel_phase(torch, timer, dev, cbl, small_cbl, seed):
+def kernel_phase(torch, timer, dev, cbl, small_cbl, seed, report):
+    from repro_torch.core.engine import sweep_plan
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
     nv = cbl.capacity_vertices
     x = torch.rand(nv, generator=gen, device=dev)
     (table, owner), (msg, seg) = sweep_inputs(torch, cbl, x)
     st = cbl.store
-    rows = [time_gather(torch, timer, "push x[owner]", table, owner)]
+    plan = sweep_plan(cbl)
+    rows = [time_gather(torch, timer, "push x[src] (plan)", table, plan.src),
+            time_gather(torch, timer, "push x[owner]", table, owner)]
     dst_ids = st.keys.clamp(0, nv - 1).reshape(-1).contiguous()
     rows.append(time_gather(torch, timer, "pull x[dst]", table, dst_ids))
-    rows.append(time_segment_sum(torch, timer, "push", msg, seg, nv))
+    del dst_ids
+    # the default message x[src] * w, in the plan's order and unsorted
+    sorted_msg = (x[plan.src.long()] * plan.w)[:, None].contiguous()
+    rows.append(time_segment_sum(torch, timer, "push", sorted_msg,
+                                 plan.row_ptr, plan.partition("lanes", 1),
+                                 msg, seg))
+    del sorted_msg
     per_blk = msg.reshape(st.num_blocks, -1).sum(1, keepdim=True).contiguous()
     owner_seg = torch.where(st.owner == -1, nv, st.owner).contiguous()
-    rows.append(time_segment_sum(torch, timer, "pull", per_blk, owner_seg, nv))
-    del msg, seg, per_blk, dst_ids
+    rows.append(time_segment_sum(torch, timer, "pull",
+                                 per_blk[plan.blocks.long()].contiguous(),
+                                 plan.block_row_ptr,
+                                 plan.partition("blocks", 1), per_blk,
+                                 owner_seg))
+    del msg, seg, per_blk
+    report["push_sweep"] = time_push_sweep(torch, timer, cbl, plan, x)
+    del plan
     snv = small_cbl.capacity_vertices
     xf = torch.rand((snv, 16), generator=gen, device=dev)
     (ftable, fowner), (fmsg, fseg) = sweep_inputs(torch, small_cbl, xf)
-    rows.append(time_gather(torch, timer, "push_feat x[owner] F=16",
-                            ftable, fowner))
-    rows.append(time_segment_sum(torch, timer, "push_feat F=16", fmsg, fseg,
-                                 snv))
+    fplan = sweep_plan(small_cbl, pull=False)
+    rows.append(time_gather(torch, timer, "push_feat x[src] (plan) F=16",
+                            ftable, fplan.src))
+    fsorted = (xf[fplan.src.long()] * fplan.w[:, None]).contiguous()
+    rows.append(time_segment_sum(torch, timer, "push_feat F=16", fsorted,
+                                 fplan.row_ptr, fplan.partition("lanes", 16),
+                                 fmsg, fseg))
     return rows
 
 
@@ -450,6 +516,7 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
     say("service.warm", **{k: f"{v['seconds']:.3f}s/{v['iterations']}it"
                            for k, v in warm.items()})
     out["launches"] = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
+    out["plan_builds"] = backend.PLAN_BUILDS
     report["service"] = out
     return ranks, ranks_warm
 
@@ -1075,6 +1142,8 @@ def recsys_phase(torch, timer, dev, seed, report, profile=False) -> None:
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     """Phases 1-5: the GraphService at LiveJournal size."""
+    from repro_torch import backend
+    from repro_torch.core.engine import sweep_plan
     from repro_torch.data.synthetic import rmat_edges
     from repro_torch.graph.algorithms import pagerank
     from repro_torch.stream.service import GraphService
@@ -1098,7 +1167,8 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     ssrc, sdst = rmat_edges(nv // 16, ne // 16, seed=seed + 5, device=dev)
     small = GraphService.from_coo(ssrc, sdst, None, num_vertices=nv // 16,
                                   device=dev).snapshot.cbl
-    report["kernels"] = kernel_phase(torch, timer, dev, cbl0, small, seed)
+    report["kernels"] = kernel_phase(torch, timer, dev, cbl0, small, seed,
+                                     report)
     del small, ssrc, sdst
 
     torch.cuda.reset_peak_memory_stats()
@@ -1108,13 +1178,29 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
 
     total = float(ranks.double().sum())
     check(abs(total - 1.0) <= 1e-3, f"PageRank ranks sum to {total}")
-    # the same cold PageRank through each route, back to back
+    # the same cold PageRank through each route, back to back, each with
+    # the counters at 0
     per_it = {}
     for impl in ("cuda", "torch"):
+        backend.reset_launch_counts()
         (ref, iters), sec = timer.wall(
             lambda: pagerank(cbl0, impl=impl, return_stats=True))
         per_it[impl] = dict(seconds=sec, iterations=iters,
-                            ms_per_iteration=sec * 1e3 / max(iters, 1))
+                            ms_per_iteration=sec * 1e3 / max(iters, 1),
+                            plan_builds=backend.PLAN_BUILDS,
+                            launches={k: backend.LAUNCHES[k]
+                                      for k in GRAPH_KERNELS})
+    kern = per_it["cuda"]
+    check(kern["plan_builds"] == 1, f"the kernel route's PageRank built "
+          f"{kern['plan_builds']} sweep plans, not 1")
+    check(per_it["torch"]["plan_builds"] == 0,
+          "the plain route built a sweep plan")
+    for name in GRAPH_KERNELS:
+        check(kern["launches"][name] == kern["iterations"],
+              f"PageRank launched {name} {kern['launches'][name]} times in "
+              f"{kern['iterations']} iterations")
+    _, plan_s = timer.wall(lambda: sweep_plan(cbl0, pull=False))
+    kern["plan_build_ms"] = plan_s * 1e3
     rel = float(((ranks - ref).abs() / ref.abs().clamp(min=1e-30)).max())
     check(torch.allclose(ranks, ref, rtol=1e-4, atol=0.0),
           f"PageRank impl=torch vs cuda: max rel diff {rel:.3e}")
@@ -1122,9 +1208,13 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
         check(n > 0, f"kernel {name} never launched on the main path")
     report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     say("checks", ranks_sum=f"{total:.6f}", torch_vs_cuda_max_rel=f"{rel:.3e}",
-        launches=launches)
-    say("pagerank.routes", **{f"{k}_ms_per_it": f"{v['ms_per_iteration']:.4g}"
-                              for k, v in per_it.items()})
+        launches=launches, plan_builds=report["service"]["plan_builds"])
+    say("pagerank.routes",
+        **{f"{k}_ms_per_it": f"{v['ms_per_iteration']:.4g}"
+           for k, v in per_it.items()},
+        iterations=kern["iterations"],
+        plan_build_ms=f"{kern['plan_build_ms']:.4g}",
+        plan_builds=kern["plan_builds"], launches=kern["launches"])
     report["checks"] = dict(ranks_sum=total, torch_vs_cuda_max_rel=rel)
     report["pagerank_routes"] = per_it
 
@@ -1168,7 +1258,8 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
 
 def kernels_line(report: dict) -> dict:
     """The ``kernels`` JSON object: each kernel at its path's dominant shape
-    (the push sweep; the global attention layer; the serve_bulk lookup),
+    (the push sweep's first row: x[src] over the sweep plan and the CSR sum
+    of its stream; the global attention layer; the serve_bulk lookup),
     errors over every shape checked, launches on its own path's run."""
     launches = report["service"]["launches"]
     meta = {

@@ -13,7 +13,8 @@
   ``build/repro_torch/`` at first use (one ``nvcc`` per source, all started
   together) and binds the plain C entry points through ``ctypes``.
 * :data:`LAUNCHES` — one integer per kernel, bumped by its wrapper where it
-  launches, so a run can show that its main path went through the kernel.
+  launches, so a run can show that its main path went through the kernel;
+  :data:`PLAN_BUILDS` counts the engine's sweep plans the same way.
 """
 from __future__ import annotations
 
@@ -40,7 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _F32 = ctypes.c_float
 _SIGNATURES = {
-    "segment_sum": ("segment_sum_f32", (_VP, _VP, _VP, _VP, _I64, _I32, _VP)),
+    # data_sorted, row_ptr, parts, carry scratch, out, num_rows, F, n_ctas,
+    # stream
+    "segment_sum": ("segment_sum_csr_f32", (_VP,) * 5 + (_I64, _I32, _I64,
+                                                          _VP)),
     "block_gather": ("block_gather_f32", (_VP, _VP, _VP, _I64, _I64, _I64,
                                           _VP)),
     # float32 on the CUDA cores: q, k, v, o, B, H, KVH, S, D, (batch, head,
@@ -67,6 +71,9 @@ _SIGNATURES = {
 DTYPE_FLAGS = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+# sweep plans built (``core.engine.sweep_plan``): one per ``run_program`` of
+# a program with a sum sweep on the kernel route
+PLAN_BUILDS = 0
 
 _kernels: Dict[str, ctypes._CFuncPtr] = {}
 last_build_seconds: Optional[float] = None
@@ -75,8 +82,11 @@ last_build_seconds_by_source: Dict[str, float] = {}
 
 
 def reset_launch_counts() -> None:
+    """Every kernel's launch count and the plan-build count back to 0."""
+    global PLAN_BUILDS
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    PLAN_BUILDS = 0
 
 
 def resolve_device(device=None) -> torch.device:

@@ -12,8 +12,14 @@ and pull mode gathers ``x[v_dst]`` per lane instead.  Every sweep takes
   * ``"torch"`` — plain tensor ops (``index_add_`` / ``scatter_reduce``),
     the oracle, as ``impl="xla"`` is in the JAX package;
   * ``"cuda"``  — the data-dependent gathers go through ``gather_rows`` and
-    the destination sum through the GTChain ``segment_matmul`` kernel (their
+    the destination sum through the GTChain segment-sum kernel (their
     plain versions when the tensors lie on the CPU).
+
+A :class:`SweepPlan` (:func:`sweep_plan`) lays a CBList snapshot's lanes out
+in destination order once, so that a ``"cuda"`` sum sweep handed one sorts
+nothing: push gathers ``x[src]`` in that order (the vertex vector is the
+random side, small enough for L2) and the segment sum reads one contiguous
+stream.  Without a plan each sum sweep sorts its segment ids itself.
 
 ``min``/``max`` combines always use ``scatter_reduce`` (the sum kernel is
 additive), as the JAX package keeps them off its kernels.
@@ -25,11 +31,16 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import backend
 from repro_torch.backend import resolve_impl
 from repro_torch.core.blockstore import NULL, I32, arange32
 from repro_torch.core.cblist import CBList
 from repro_torch.core.traversal import lane_mask
 from repro_torch.kernels import gather_rows, segment_matmul
+from repro_torch.kernels.segment_matmul.ops import (INT32_MAX,
+                                                    csr_items_per_cta,
+                                                    merge_path_partition,
+                                                    segment_sum_csr)
 
 
 def _segment_reduce(reduce: str, fill: float):
@@ -100,6 +111,104 @@ def _segment_sum(msg: torch.Tensor, seg: torch.Tensor, num_segments: int,
     return out[:, 0] if msg.dim() == 1 else out
 
 
+@dataclasses.dataclass(eq=False)
+class SweepPlan:
+    """One CBList snapshot's sum sweeps in destination order.
+
+    ``lanes`` (push, push_feat): the live lanes whose destination is in
+    range, stable-sorted by destination, as each lane's source vertex
+    ``src`` (its block's owner) and weight ``w``, with ``row_ptr`` the span
+    of each destination.  ``blocks`` (pull): the owned blocks stable-sorted
+    by owner, with ``block_row_ptr``.  Either is None when not built.  The
+    merge-path partitions of both streams are made once per feature width.
+    The plan holds the store arrays it was built from and refuses another
+    store (:meth:`check`).
+    """
+    nv: int
+    built_from: tuple                    # (keys, vals, count, owner)
+    src: Optional[torch.Tensor] = None   # i32[V]
+    w: Optional[torch.Tensor] = None     # f32[V]
+    row_ptr: Optional[torch.Tensor] = None         # i32[nv + 1]
+    blocks: Optional[torch.Tensor] = None          # i32[NB owned]
+    block_row_ptr: Optional[torch.Tensor] = None   # i32[nv + 1]
+    _parts: dict = dataclasses.field(default_factory=dict)
+
+    def check(self, cbl: CBList) -> None:
+        st = cbl.store
+        now = (st.keys, st.vals, st.count, st.owner)
+        if cbl.capacity_vertices != self.nv or any(
+                a is not b for a, b in zip(self.built_from, now)):
+            raise ValueError("sweep plan was built for another CBList store; "
+                             "build one for this graph with sweep_plan(cbl)")
+
+    def stream(self, name: str):
+        """``row_ptr`` of the ``"lanes"`` or ``"blocks"`` stream."""
+        row_ptr = self.row_ptr if name == "lanes" else self.block_row_ptr
+        if row_ptr is None:
+            raise ValueError(f"this sweep plan has no {name} stream "
+                             f"(build it with sweep_plan(cbl, ...))")
+        return row_ptr
+
+    def partition(self, name: str, F: int) -> torch.Tensor:
+        """The merge-path partition of stream ``name`` at width ``F``."""
+        key = (name, csr_items_per_cta(F))
+        if key not in self._parts:
+            self._parts[key] = merge_path_partition(self.stream(name), key[1])
+        return self._parts[key]
+
+
+def sweep_plan(cbl: CBList, *, push: bool = True,
+               pull: bool = True) -> SweepPlan:
+    """Lay ``cbl``'s lanes (``push``) and blocks (``pull``) out in
+    destination order for the sum sweeps; counted in
+    ``backend.PLAN_BUILDS``."""
+    backend.PLAN_BUILDS += 1
+    st = cbl.store
+    nv = cbl.capacity_vertices
+    plan = SweepPlan(nv=nv, built_from=(st.keys, st.vals, st.count,
+                                        st.owner))
+    bounds = arange32(nv + 1, cbl.device)
+    if push:
+        mask = lane_mask(st) & (st.keys >= 0) & (st.keys < nv)
+        lanes = torch.nonzero(mask.reshape(-1)).squeeze(1)   # GTChain order
+        if lanes.numel() > INT32_MAX:
+            raise ValueError(f"sweep_plan: {lanes.numel()} lanes do not fit "
+                             "an int32 stream")
+        sorted_dst, order = torch.sort(st.keys.reshape(-1)[lanes],
+                                       stable=True)
+        lanes = lanes[order]
+        plan.src = st.owner[lanes // st.block_width]
+        plan.w = st.vals.reshape(-1)[lanes]
+        plan.row_ptr = torch.searchsorted(sorted_dst, bounds, out_int32=True)
+        plan.partition("lanes", 1)
+    if pull:
+        blocks = torch.nonzero((st.owner >= 0) & (st.owner < nv)).squeeze(1)
+        sorted_owner, order = torch.sort(st.owner[blocks], stable=True)
+        plan.blocks = blocks[order].to(I32)
+        plan.block_row_ptr = torch.searchsorted(sorted_owner, bounds,
+                                                out_int32=True)
+        plan.partition("blocks", 1)
+    return plan
+
+
+def _planned_sum(plan: SweepPlan, name: str,
+                 data: torch.Tensor) -> torch.Tensor:
+    """Segment sum of a stream already in the plan's order."""
+    flat = data.reshape(data.shape[0], -1).contiguous()
+    out = segment_sum_csr(flat, plan.stream(name),
+                          plan.partition(name, flat.shape[1]))
+    return out.reshape((out.shape[0],) + tuple(data.shape[1:]))
+
+
+def _active_lanes(plan: SweepPlan, msg: torch.Tensor,
+                  active: Optional[torch.Tensor]) -> torch.Tensor:
+    """Lanes whose source is inactive add 0."""
+    if active is None:
+        return msg
+    act = active.index_select(0, plan.src)
+    return torch.where(act.view(-1, *([1] * (msg.dim() - 1))), msg, 0.0)
+
+
 def process_vertex(cbl: CBList, f: Callable, x: torch.Tensor,
                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ProcessVertex(f, active): map f over vertex values (inactive keep x)."""
@@ -114,13 +223,22 @@ def process_edge_push(cbl: CBList, x: torch.Tensor,
                       active: Optional[torch.Tensor] = None, *,
                       dense_f: Callable = _default_edge_f,
                       combine: str = "sum",
-                      impl: str = "torch") -> torch.Tensor:
+                      impl: str = "torch",
+                      plan: Optional[SweepPlan] = None) -> torch.Tensor:
     """Push sweep: y[dst] = combine over in-edges of dense_f(x[src], w).
 
     Each block has exactly one owner, so the source value is one gather per
-    block broadcast over its lanes (the locality the GTChain buys).
+    block broadcast over its lanes (the locality the GTChain buys).  With a
+    ``plan`` (``impl="cuda"``, sum) the source values are gathered per lane
+    in destination order instead and summed as one sorted stream.
     """
     impl = resolve_impl(impl)
+    if plan is not None and impl == "cuda" and combine == "sum":
+        plan.check(cbl)
+        plan.stream("lanes")
+        xs = _gather_values(x, plan.src, impl)           # [V] in dst order
+        msg = torch.broadcast_to(dense_f(xs, plan.w), xs.shape)
+        return _planned_sum(plan, "lanes", _active_lanes(plan, msg, active))
     st = cbl.store
     nv = cbl.capacity_vertices
     owner_safe = st.owner.clamp(min=0)
@@ -142,13 +260,20 @@ def process_edge_pull(cbl: CBList, x: torch.Tensor,
                       active_dst: Optional[torch.Tensor] = None, *,
                       dense_f: Callable = _default_edge_f,
                       combine: str = "sum",
-                      impl: str = "torch") -> torch.Tensor:
+                      impl: str = "torch",
+                      plan: Optional[SweepPlan] = None) -> torch.Tensor:
     """Pull sweep: y[src] = combine over out-edges of dense_f(x[dst], w).
 
     The x[dst] gather is the paper's random-access pattern (§2.1); with
-    ``impl="cuda"`` it runs through the ``gather_rows`` kernel.
+    ``impl="cuda"`` it runs through the ``gather_rows`` kernel.  With a
+    ``plan`` (``impl="cuda"``, sum) the per-block sums are put in owner
+    order by the plan's block order and summed as one sorted stream.
     """
     impl = resolve_impl(impl)
+    planned = plan is not None and impl == "cuda" and combine == "sum"
+    if planned:
+        plan.check(cbl)
+        plan.stream("blocks")
     st = cbl.store
     nv = cbl.capacity_vertices
     mask = lane_mask(st)
@@ -162,6 +287,11 @@ def process_edge_pull(cbl: CBList, x: torch.Tensor,
     sr = SEMIRINGS[combine]
     msg = torch.where(mask, msg, sr.fill)
     per_blk = sr.lane_reduce(msg, 1)
+    if planned:
+        flat = per_blk.reshape(per_blk.shape[0], -1).contiguous()
+        ordered = gather_rows(flat, plan.blocks, rows_per_step=1)
+        return _planned_sum(plan, "blocks", ordered.reshape(
+            (-1,) + tuple(per_blk.shape[1:])))
     if combine == "sum":
         return _segment_sum(per_blk, owner_seg, nv, impl)
     return sr.segment_reduce(per_blk, owner_seg, nv)
@@ -170,13 +300,22 @@ def process_edge_pull(cbl: CBList, x: torch.Tensor,
 def process_edge_push_feat(cbl: CBList, x: torch.Tensor,
                            active: Optional[torch.Tensor] = None, *,
                            weighted: bool = True,
-                           impl: str = "torch") -> torch.Tensor:
+                           impl: str = "torch",
+                           plan: Optional[SweepPlan] = None) -> torch.Tensor:
     """Feature-matrix push: y[dst, :] += x[src, :] * w over all edges.
 
     One F-wide row gather per block, then a segment-sum keyed by the lane
-    destinations (both kernels with ``impl="cuda"``).
+    destinations (both kernels with ``impl="cuda"``).  With a ``plan``
+    (``impl="cuda"``) the rows are gathered per lane in destination order
+    and summed as one sorted stream.
     """
     impl = resolve_impl(impl)
+    if plan is not None and impl == "cuda":
+        plan.check(cbl)
+        plan.stream("lanes")
+        xs = _gather_values(x, plan.src, impl)           # [V, F] in dst order
+        msg = xs * plan.w[:, None] if weighted else xs
+        return _planned_sum(plan, "lanes", _active_lanes(plan, msg, active))
     st = cbl.store
     nv = cbl.capacity_vertices
     owner_safe = st.owner.clamp(min=0)

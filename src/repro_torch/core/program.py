@@ -8,6 +8,9 @@ conversion, the ``unsupported_min`` retraction phase, the warm-start
 validity rule).  :func:`run_program` is the single executor; the fixpoint
 and retraction loops that the JAX package runs as ``lax.while_loop`` are
 host loops here, with one device sync per iteration for the predicate.
+On the kernel route (``impl="cuda"``) a program with a sum sweep lays the
+graph out once per run in a :class:`~repro_torch.core.engine.SweepPlan`
+that every iteration's sweeps reuse.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 
 from repro_torch.core.blockstore import arange32
 from repro_torch.core.engine import (SEMIRINGS, process_edge_pull,
-                                     process_edge_push, process_edge_push_feat)
+                                     process_edge_push, process_edge_push_feat,
+                                     sweep_plan)
 
 INF = float("inf")
 
@@ -27,12 +31,14 @@ WARM_VALIDITY = ("always", "inserts_only", "never")
 
 class ProgramContext(NamedTuple):
     """Everything a program hook can see: the graph, the vertex capacity,
-    the live-vertex mask, the call parameters and the ``setup`` constants."""
+    the live-vertex mask, the call parameters, the ``setup`` constants and
+    the sweep plan of the kernel route (None on the plain route)."""
     cbl: Any
     nv: int
     live: torch.Tensor
     params: Dict[str, Any]
     consts: Dict[str, Any]
+    plan: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,15 +168,27 @@ def registered_programs() -> Tuple[str, ...]:
 # Executor
 # ---------------------------------------------------------------------------
 
-def _run_sweep(cbl, sw: Sweep, x, active, impl: str):
+def _run_sweep(ctx: ProgramContext, sw: Sweep, x, active, impl: str):
+    cbl, plan = ctx.cbl, ctx.plan
     if sw.direction == "push_feat":
         return process_edge_push_feat(cbl, x, active, weighted=sw.weighted,
-                                      impl=impl)
+                                      impl=impl, plan=plan)
     entry = process_edge_push if sw.direction == "push" else process_edge_pull
     if sw.message is None:
-        return entry(cbl, x, active, combine=sw.combine, impl=impl)
+        return entry(cbl, x, active, combine=sw.combine, impl=impl, plan=plan)
     return entry(cbl, x, active, dense_f=sw.message, combine=sw.combine,
-                 impl=impl)
+                 impl=impl, plan=plan)
+
+
+def _plan_for(cbl, prog: VertexProgram, impl: str):
+    """The sweep plan the kernel route's sum sweeps share, or None."""
+    if impl != "cuda":
+        return None
+    dirs = {sw.direction for sw in prog.sweeps if sw.combine == "sum"}
+    if not dirs:
+        return None
+    return sweep_plan(cbl, push=bool(dirs & {"push", "push_feat"}),
+                      pull="pull" in dirs)
 
 
 def _step(ctx: ProgramContext, prog: VertexProgram, state, frontier,
@@ -180,7 +198,7 @@ def _step(ctx: ProgramContext, prog: VertexProgram, state, frontier,
     for sw in prog.sweeps:
         x = sw.pre(ctx, new) if sw.pre is not None else new
         act = frontier if (frontier is not None and sw.use_frontier) else None
-        acc = _run_sweep(ctx.cbl, sw, x, act, impl)
+        acc = _run_sweep(ctx, sw, x, act, impl)
         new = sw.apply(ctx, new, acc) if sw.apply is not None else acc
     nf = None
     if frontier is not None:
@@ -214,7 +232,7 @@ def _retract_unsupported(ctx: ProgramContext, prog: VertexProgram, state,
     anchor_mask, anchor_val = prog.anchor(ctx)
     it, cont = 0, True
     while it <= ctx.nv and cont:
-        cand = _run_sweep(ctx.cbl, sw, state, None, impl)
+        cand = _run_sweep(ctx, sw, state, None, impl)
         new = torch.where(anchor_mask, anchor_val,
                           torch.where(state < cand, INF, state))
         cont = bool((new != state).any())
@@ -247,7 +265,8 @@ def run_program(cbl, prog: VertexProgram, *, warm=None,
 
     nv = cbl.capacity_vertices
     live = arange32(nv, cbl.device) < cbl.n_vertices
-    ctx = ProgramContext(cbl=cbl, nv=nv, live=live, params=params, consts={})
+    ctx = ProgramContext(cbl=cbl, nv=nv, live=live, params=params, consts={},
+                         plan=_plan_for(cbl, prog, impl))
     if prog.setup is not None:
         ctx = ctx._replace(consts=prog.setup(ctx))
     frontier_mode = prog.task == "frontier"

@@ -46,6 +46,142 @@ def test_segment_sum_kernel_matches_float64_sum(gen, E, F, rows):
     torch.cuda.synchronize()
 
 
+def _csr_case(gen, case):
+    """(data_sorted, row_ptr) of one CSR stream shape: rows of random
+    lengths at F, one hub row of 10^6 items among short rows, 10^5 empty
+    rows around a few full ones, no items at all, or a stream that starts
+    one float past a 16-byte boundary."""
+    kind, F = case
+    if kind == "hub":
+        lens = torch.randint(0, 20, (3_000,), generator=gen, device="cuda")
+        lens[1_234] = 1_000_000
+    elif kind == "empty":
+        lens = torch.zeros(100_000, dtype=torch.int64, device="cuda")
+        lens[::20_000] = 3_000
+    elif kind == "none":
+        lens = torch.zeros(5_000, dtype=torch.int64, device="cuda")
+    else:
+        lens = torch.randint(0, 40, (20_000,), generator=gen, device="cuda")
+    row_ptr = torch.zeros(lens.numel() + 1, dtype=torch.int32, device="cuda")
+    row_ptr[1:] = lens.cumsum(0)
+    V = int(row_ptr[-1])
+    skew = 1 if kind == "offset" else 0
+    data = torch.rand(V * F + skew, generator=gen, device="cuda") - 0.25
+    return data[skew:].view(V, F), row_ptr
+
+
+@pytest.mark.parametrize("case", [("random", 1), ("random", 4),
+                                  ("random", 16), ("random", 3),
+                                  ("random", 50), ("offset", 1),
+                                  ("offset", 5), ("hub", 1), ("hub", 16),
+                                  ("empty", 1), ("none", 1), ("none", 16)])
+def test_segment_sum_csr_kernel_matches_float64_sum(gen, case):
+    """The merge-path kernel against its plain version run in float64 (a
+    float64 sum: the kernel adds in float64 and rounds once), bit-identical
+    on a repeat, one launch a call."""
+    from repro_torch import backend
+    from repro_torch.kernels.segment_matmul import (merge_path_partition,
+                                                    segment_sum_csr,
+                                                    segment_sum_csr_ref)
+    from repro_torch.kernels.segment_matmul.ops import csr_items_per_cta
+    data, row_ptr = _csr_case(gen, case)
+    parts = merge_path_partition(row_ptr, csr_items_per_cta(data.shape[1]))
+    before = backend.LAUNCHES["segment_sum"]
+    got = segment_sum_csr(data, row_ptr, parts)
+    assert backend.LAUNCHES["segment_sum"] == before + 1
+    torch.cuda.synchronize()
+    ref64 = segment_sum_csr_ref(data.double(), row_ptr)
+    torch.testing.assert_close(got.double(), ref64, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, segment_sum_csr(data, row_ptr, parts))
+
+
+def test_segment_sum_csr_rejects_a_partition_of_another_width(gen):
+    from repro_torch.kernels.segment_matmul import (merge_path_partition,
+                                                    segment_sum_csr)
+    from repro_torch.kernels.segment_matmul.ops import csr_items_per_cta
+    data, row_ptr = _csr_case(gen, ("random", 16))
+    parts = merge_path_partition(row_ptr, csr_items_per_cta(1))
+    with pytest.raises(ValueError):
+        segment_sum_csr(data, row_ptr, parts)
+
+
+@pytest.mark.parametrize("N,F,skew", [(4 * 10_000 + 1, 1, 1),
+                                      (4 * 10_000 + 1, 1, 0),
+                                      (4 * 10_000 + 3, 1, 2),
+                                      (30_000, 16, 0), (20_000, 50, 0),
+                                      (20_000, 50, 1), (7, 1, 3)])
+def test_block_gather_kernel_is_exact_at_the_engine_shapes(gen, N, F, skew):
+    """x[ids] at F = 1 (N = 4k + 1 and 4k + 3, ids sliced off a 16-byte
+    boundary), push_feat's F = 16 and SASRec's F = 50, bit for bit."""
+    from repro_torch import backend
+    from repro_torch.kernels import block_gather_ref, gather_rows
+    rows = 50_000
+    table = torch.rand((rows, F), generator=gen, device="cuda")
+    ids = torch.randint(-3, rows + 3, (N + skew,), generator=gen,
+                        device="cuda", dtype=torch.int32)[skew:]
+    before = backend.LAUNCHES["block_gather"]
+    got = gather_rows(table, ids, rows_per_step=1)
+    assert backend.LAUNCHES["block_gather"] == before + 1
+    assert torch.equal(got, block_gather_ref(table, ids, 1))
+
+
+def _card_graph(nv=3_000, ne=40_000, seed=4):
+    from repro_torch.core.cblist import blocks_needed, build_from_coo
+    from repro_torch.data.synthetic import rmat_edges
+    src, dst = rmat_edges(nv, ne, seed=seed, device="cuda")
+    w = torch.rand(ne, generator=torch.Generator(device="cuda")
+                   .manual_seed(seed), device="cuda") + 0.1
+    return build_from_coo(src, dst, w, num_vertices=nv,
+                          num_blocks=blocks_needed(src, nv, 8) + 64,
+                          block_width=8)
+
+
+def test_planned_sweeps_on_the_card_match_the_plain_route(gen):
+    """push (default and PageRank's message), pull and push_feat (F = 16)
+    through the sweep plan's kernels against ``impl="torch"``, with and
+    without an active mask."""
+    from repro_torch import backend
+    from repro_torch.core import engine as E
+    cbl = _card_graph()
+    nv = cbl.capacity_vertices
+    plan = E.sweep_plan(cbl)
+    x = torch.rand(nv, generator=gen, device="cuda")
+    xf = torch.rand((nv, 16), generator=gen, device="cuda")
+    active = torch.rand(nv, generator=gen, device="cuda") < 0.5
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for act in (None, active):
+        for kw in ({}, {"dense_f": lambda xs, w: xs}):
+            before = dict(backend.LAUNCHES)
+            got = E.process_edge_push(cbl, x, act, impl="cuda", plan=plan,
+                                      **kw)
+            assert backend.LAUNCHES["segment_sum"] == \
+                before["segment_sum"] + 1
+            assert backend.LAUNCHES["block_gather"] == \
+                before["block_gather"] + 1
+            torch.testing.assert_close(
+                got, E.process_edge_push(cbl, x, act, impl="torch", **kw),
+                **tol)
+        torch.testing.assert_close(
+            E.process_edge_pull(cbl, x, act, impl="cuda", plan=plan),
+            E.process_edge_pull(cbl, x, act, impl="torch"), **tol)
+        torch.testing.assert_close(
+            E.process_edge_push_feat(cbl, xf, act, impl="cuda", plan=plan),
+            E.process_edge_push_feat(cbl, xf, act, impl="torch"), **tol)
+
+
+def test_pagerank_on_the_card_builds_one_plan(gen):
+    from repro_torch import backend
+    from repro_torch.graph.algorithms import pagerank
+    cbl = _card_graph()
+    backend.reset_launch_counts()
+    got, iters = pagerank(cbl, impl="cuda", return_stats=True)
+    assert backend.PLAN_BUILDS == 1
+    assert backend.LAUNCHES["segment_sum"] == iters
+    assert backend.LAUNCHES["block_gather"] == iters
+    ref = pagerank(cbl, impl="torch")
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=0.0)
+
+
 @pytest.mark.parametrize("rows_per_step,F", [(1, 1), (4, 1), (1, 16), (2, 3)])
 def test_block_gather_kernel_matches_index_select(gen, rows_per_step, F):
     from repro_torch.kernels import block_gather_ref, gather_rows
