@@ -18,8 +18,9 @@ Phases, one report line each:
    sorted streams within rtol 1e-5 of a float64 sum and bit-identical on a
    repeat, each timed beside its plain version, one PyTorch library call
    (``index_select``; ``torch.segment_reduce`` on the sorted stream) and
-   its bytes bound; the push sweep through the plan against the route that
-   sorts on each call and against ``impl="torch"`` (``index_add_``);
+   its bytes bound; the push sweep through the plan within rtol 1e-5 of
+   ``impl="torch"`` run in float64, timed beside the route that sorts on
+   each call and ``impl="torch"`` (``index_add_``);
 4. the service's main path with every launch counter at 0: cold PageRank,
    BFS, SSSP and CC, three rounds of 1,000,000 updates (20 % deletes) through
    ``apply`` + ``flush`` with point reads of just-inserted and just-deleted
@@ -35,20 +36,24 @@ Phases, one report line each:
    at 0, ``launch.serve.serve`` takes 8 requests (prompts of 2,048-7,168
    random tokens, padded to the longest), prefills them through the bf16
    tensor-core flash kernel (8 launches, none of the float32 one) and
-   decodes 64 greedy steps through the paged kernel over a page pool of
-   128-token pages.  Then each kernel against its plain version at the
-   serve shapes (flash on the first local and global layers' own inputs,
-   batch row 0 and heads 0-3, within the bf16 bound below and bit-identical
-   on a repeat; the float32 flash kernel on the global layer's inputs in
-   float32; paged on the serve's caches after prefill, every row), timed
-   beside its plain version, SDPA (flash) and its floors (bytes, products,
-   and for flash the transcendentals at 16 a clock per SM); 4
-   teacher-forced decode steps through ``serve_step_paged`` against the
-   dense plain ``serve_step``; and the float32 flash kernel's own path, a
-   float32 ``serve`` at the Gemma-2 smoke config against the same on the
-   host.  The set-up line ``setup.flash_sass`` says whether the tensor-core
-   kernel's SASS holds HGMMA, its registers and spills and its build
-   seconds;
+   decodes 64 greedy steps through the split paged kernel over a page pool
+   of 128-token pages, twice: replayed from one CUDA graph (the card's
+   default) and by the eager loop (``graph=False``); 8 x 64 paged launches
+   and the same greedy tokens on both routes.  Then each kernel against its
+   plain version at the serve shapes (flash on the first local and global
+   layers' own inputs, batch row 0 and heads 0-3, within the bf16 bound
+   below and bit-identical on a repeat; the float32 flash kernel on the
+   global layer's inputs in float32; paged on the serve's caches after
+   prefill, every row, bit-identical on a repeat, with its split size),
+   timed beside its plain version, torch's compiled ``flex_attention``
+   with the softcap and window (flash's library call; SDPA, without the
+   softcap, beside it) and its floors (bytes, products, and for flash the
+   transcendentals at 16 a clock per SM); 4 teacher-forced decode steps
+   through the graph route against the dense plain ``serve_step``; and
+   the float32 kernels' own path, a float32 ``serve`` at the Gemma-2 smoke
+   config against the same on the host.  The set-up line
+   ``setup.flash_sass`` says whether the tensor-core kernel's SASS holds
+   HGMMA, its registers and spills and its build seconds;
 7. recsys serving, once the LM state is freed: SASRec at its full published
    config (2^20-row item table, embed_dim 50, 2 blocks, 1 head, seq_len
    50), weights from ``--seed``, left-padded histories of 25-50 items made
@@ -104,6 +109,7 @@ MUFU_PER_CLK_PER_SM, H100_SMS = 16, 132           # special-function unit
 # float32 and round once, so they differ by at most one bf16 ulp (2^-7
 # relative) plus a floor for outputs near 0
 ATTN_RTOL, ATTN_ATOL = 2 ** -7, 1e-5
+PAGED_GRAPH_CALLS = 10      # paged calls in the graph that times the kernel
 # the bf16 flash kernel rounds P to bf16 before P·V (the tensor cores take
 # bf16): each p moves by at most 2^-8 · p, so the output by at most
 # 2^-8 · max_k |v[k, d]| beyond the one-ulp bound above
@@ -301,10 +307,15 @@ def time_push_sweep(torch, timer, cbl, plan, x):
     planned = lambda: process_edge_push(cbl, x, dense_f=msg,  # noqa: E731
                                         impl="cuda", plan=plan)
     got = planned()
-    ref = process_edge_push(cbl, x, dense_f=msg, impl="torch")
-    err = float((got - ref).abs().max())
-    check(torch.allclose(got, ref, rtol=SEG_RTOL, atol=SEG_ATOL),
-          f"push sweep through the plan off impl='torch' by {err:.3e}")
+    # the reference route in float64: in float32, index_add_'s atomics over
+    # a hub's ~1.7e5 in-edges drift by about SEG_RTOL of the sum from run to
+    # run; the kernel sums in float64 and rounds once
+    ref = process_edge_push(cbl, x.double(), dense_f=msg, impl="torch")
+    err = float((got.double() - ref).abs().max())
+    check(torch.allclose(got.double(), ref, rtol=SEG_RTOL, atol=SEG_ATOL),
+          f"push sweep through the plan off impl='torch' (float64) by "
+          f"{err:.3e}")
+    del ref
     row = dict(
         name="push_sweep", max_abs_err=err,
         plan_ms=timer.ms(planned),
@@ -537,13 +548,49 @@ def mufu_per_s(smi_clock_mhz: float) -> float:
     return MUFU_PER_CLK_PER_SM * H100_SMS * smi_clock_mhz * 1e6
 
 
+def time_flex(torch, timer, q, k, v, window, softcap, got):
+    """(ms, note) of torch's ``flex_attention``, compiled, with the tanh
+    softcap as its ``score_mod`` and the causal (and sliding-window) mask as
+    its block mask: the one PyTorch call that computes the flash kernel's
+    own function.  (None, why) where it does not import or run."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+    except ImportError as e:
+        return None, f"flex_attention does not import: {e}"
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki
+        return keep & (qi - ki < window) if window > 0 else keep
+
+    S, D = q.shape[2], q.shape[3]
+    try:
+        mask = create_block_mask(mask_mod, None, None, S, S,
+                                 device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+        call = functools.partial(flex, q, k, v, score_mod=score_mod,
+                                 block_mask=mask, scale=D ** -0.5,
+                                 enable_gqa=True)
+        out = call()
+        ms = timer.ms(call)
+    except Exception as e:      # the library's failure is recorded, not ours
+        return None, f"flex_attention did not run: {type(e).__name__}: " \
+            f"{str(e)[:200]}"
+    diff = float((out.float() - got.float()).abs().max())
+    return ms, f"flex_attention (compiled), max |flex - kernel| {diff:.3g}"
+
+
 def time_flash(torch, timer, name, q, k, v, window, softcap, library,
                clock_mhz):
     """A flash kernel at a prefill layer's shape against its plain version
     (batch row 0, heads 0-3, every row; bit-identical on a repeat), timed
-    beside the plain version over the whole shape, the floors and
-    (``library``) SDPA.  bf16 goes through the tensor-core kernel, float32
-    through the CUDA-core one."""
+    beside the plain version over the whole shape, the floors and, with
+    ``library``, torch's compiled ``flex_attention`` (the same function)
+    and, without a window, SDPA (no softcap).  bf16 goes through the
+    tensor-core kernel, float32 through the CUDA-core one."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, H, S, D = q.shape
@@ -591,6 +638,9 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
                   transcendentals=mufu / mufu_per_s(clock_mhz) * 1e3)
     binding = max(floors, key=floors.get)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    flex_ms, flex_note = (time_flex(torch, timer, q, k, v, window, softcap,
+                                    got) if library
+                          else (None, "no library call timed"))
     row = dict(
         name="flash_attention_wgmma" if bf16 else "flash_attention",
         shape=name, dtype=str(q.dtype).replace("torch.", ""), B=B, H=H,
@@ -599,10 +649,11 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
         max_err_over_bound=float((err / tol).max()),
         ms=timer.ms(lambda: flash_attention(q, k, v, **kw)),
         plain_ms=timer.ms(plain),
+        library_ms=flex_ms, library_note=flex_note,
         # SDPA computes the same causal GQA attention without the softcap
-        library_ms=(timer.ms(lambda: sdpa(q, k, v, is_causal=True,
-                                          scale=D ** -0.5, enable_gqa=True))
-                    if library else None),
+        sdpa_ms=(timer.ms(lambda: sdpa(q, k, v, is_causal=True,
+                                       scale=D ** -0.5, enable_gqa=True))
+                 if library and window == 0 else None),
         bound_ms=floors[binding],
         bound_by="bytes" if binding == "bytes" else "operations",
         binding_floor=binding, **{f"{k_}_floor_ms": v_
@@ -645,20 +696,36 @@ def flash_build_report(torch, backend) -> dict:
 
 
 def time_paged(torch, timer, name, cache, q, window, softcap):
-    """The paged kernel over a serve cache (every row) against its plain
-    version, timed beside it and the bound."""
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    """The split paged kernel over a serve cache (every row) against its
+    plain version (within ATTN_RTOL / ATTN_ATOL, bit-identical on a repeat),
+    timed beside it and the bound, with the split size the wrapper picks.
+    ``ms`` is the kernel replayed from a CUDA graph, as the decode step runs
+    it; ``call_ms`` through its wrapper, one eager call after another."""
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         split_pages)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     B, KVH, G, D = q.shape
     args = (q, cache.k_pages, cache.v_pages, cache.block_table.clamp(min=0),
             cache.lengths)
     kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
     got = paged_attention(*args, **kw)
+    check(torch.equal(got, paged_attention(*args, **kw)),
+          f"paged_attention {name}: a repeat differs")
     ref = paged_attention_ref(*args, **kw).float()
     err = (got.float() - ref).abs()
     check(bool((err <= ATTN_ATOL + ATTN_RTOL * ref.abs()).all()),
           f"paged_attention {name}: off its plain version by "
           f"{float(err.max()):.3e}")
+    npmax = cache.block_table.shape[1]
+    pps = split_pages(npmax, B, KVH, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    n_split = -(-npmax // pps)
+    check(n_split > 1, f"paged_attention {name}: {n_split} split, so no more "
+          f"CTAs than B * KVH = {B * KVH}")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(PAGED_GRAPH_CALLS):
+            paged_attention(*args, **kw)
     lens = cache.lengths.long()
     live = int((lens.clamp(max=window) if window > 0 else lens).sum())
     # each live key's K and V row once, q read and o written once
@@ -669,8 +736,11 @@ def time_paged(torch, timer, name, cache, q, window, softcap):
     row = dict(
         name="paged_attention", shape=name, B=B, KVH=KVH, G=G, D=D,
         page=cache.page_size, window=window, live_keys=live,
+        npmax=npmax, pages_per_split=pps, n_split=n_split,
+        ctas=n_split * KVH * B,
         max_abs_err=float(err.max()),
-        ms=timer.ms(lambda: paged_attention(*args, **kw)),
+        ms=timer.ms(graph.replay) / PAGED_GRAPH_CALLS,
+        call_ms=timer.ms(lambda: paged_attention(*args, **kw)),
         plain_ms=timer.ms(lambda: paged_attention_ref(*args, **kw)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
     say("lm.kernel", **{k_: (f"{v_:.4g}" if isinstance(v_, float) else v_)
@@ -686,7 +756,8 @@ def lm_phase(torch, timer, dev, seed, report, clock_mhz,
     ``serve_step``, teacher-forced."""
     from repro_torch import backend
     from repro_torch.configs.gemma2_27b import full_config
-    from repro_torch.launch.serve import fill_paged, pages_per_seq, serve
+    from repro_torch.launch.serve import (DecodeGraph, fill_paged,
+                                          pages_per_seq, serve)
     from repro_torch.models.transformer import model as M
     from repro_torch.models.transformer.layers import (apply_layer,
                                                        attention_inputs,
@@ -709,46 +780,76 @@ def lm_phase(torch, timer, dev, seed, report, clock_mhz,
         page=cfg.kv_page_size)
     say("lm.setup", **{k: v for k, v in out.items() if k != "prompt_lens"})
 
-    # the serve path, with the launch counters at 0
-    backend.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    res, serve_s = timer.wall(lambda: serve(cfg, params, prompts, lens,
-                                            LM_DECODE, device=dev))
-    launches = {k: backend.LAUNCHES[k] for k in LM_KERNELS}
-    step_s = sorted(res.decode_s)
-    mean_step = sum(step_s) / len(step_s)
+    # the serve path, with the launch counters at 0: decode replayed from
+    # one CUDA graph (the card's default), then the eager loop it replaces
     live_tokens = int(lens.sum())
-    out.update(
-        serve_seconds=serve_s, prefill_s=res.prefill_s,
-        prompt_tokens=live_tokens,
-        prompt_tokens_per_s=live_tokens / res.prefill_s,
-        time_to_first_token_s=res.prefill_s, fill_s=res.fill_s,
-        decode_ms_per_step=1e3 * mean_step,
-        decode_ms_per_step_median=1e3 * step_s[len(step_s) // 2],
-        decode_ms_per_step_max=1e3 * step_s[-1],
-        decode_tokens_per_s=B / mean_step, pages_used=res.pages_used,
-        pool_pages=int(res.caches[0].free_stack.numel()),
-        max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches)
+    tokens = {}
+    for route, graph in (("graph", None), ("eager", False)):
+        backend.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, serve_s = timer.wall(lambda: serve(cfg, params, prompts, lens,
+                                                LM_DECODE, device=dev,
+                                                graph=graph))
+        launches = {k: backend.LAUNCHES[k] for k in LM_KERNELS}
+        for name, n in launches.items():
+            check(n > 0, f"kernel {name} never launched on the {route} "
+                  f"serve path")
+        check(launches["flash_attention_wgmma"] == cfg.n_layers,
+              f"prefill launched the tensor-core flash kernel "
+              f"{launches['flash_attention_wgmma']} times, not "
+              f"{cfg.n_layers}")
+        check(launches["paged_attention"] == cfg.n_layers * LM_DECODE,
+              f"{route} decode launched the paged kernel "
+              f"{launches['paged_attention']} times, not "
+              f"{cfg.n_layers * LM_DECODE}")
+        check(backend.LAUNCHES["flash_attention"] == 0,
+              "a bf16 prefill reached the float32 flash kernel")
+        check(res.graph == (route == "graph"),
+              f"the {route} serve decoded with graph={res.graph}")
+        check(bool(torch.isfinite(res.prefill_logits).all()),
+              "prefill logits not finite")
+        check(res.tokens.shape == (B, LM_DECODE + 1)
+              and int(res.tokens.min()) >= 0
+              and int(res.tokens.max()) < cfg.vocab,
+              "generated tokens malformed")
+        step_s = sorted(res.decode_s)
+        mean_step = sum(step_s) / len(step_s)
+        pre = "" if route == "graph" else "eager_"
+        out.update({
+            f"{pre}serve_seconds": serve_s,
+            f"{pre}prefill_s": res.prefill_s,
+            f"{pre}time_to_first_token_s": res.prefill_s,
+            f"{pre}fill_s": res.fill_s,
+            f"{pre}decode_ms_per_step": 1e3 * mean_step,
+            f"{pre}decode_ms_per_step_median": 1e3 * step_s[len(step_s) // 2],
+            f"{pre}decode_ms_per_step_max": 1e3 * step_s[-1],
+            f"{pre}decode_first_step_ms": 1e3 * res.decode_s[0],
+            f"{pre}decode_tokens_per_s": B / mean_step,
+            f"{pre}max_memory_allocated": torch.cuda.max_memory_allocated(),
+            f"{pre}launches": launches})
+        if route == "graph":
+            out.update(graph_capture_s=res.capture_s,
+                       prompt_tokens=live_tokens,
+                       prompt_tokens_per_s=live_tokens / res.prefill_s,
+                       pages_used=res.pages_used,
+                       pool_pages=int(res.caches[0].free_stack.numel()))
+            first_logits = res.prefill_logits
+        tokens[route] = res.tokens
+        del res
+        torch.cuda.empty_cache()
+    check(torch.equal(tokens["graph"], tokens["eager"]),
+          "the graph and eager decode routes' greedy tokens differ")
+    out["greedy_tokens_equal_across_routes"] = True
+    tokens = tokens["graph"]
     say("lm.serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                        for k, v in out.items()
                        if k.startswith(("prefill", "prompt_tokens", "time_",
                                         "fill", "decode_", "pages", "pool",
-                                        "max_mem", "launches"))})
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the serve path")
-    check(launches["flash_attention_wgmma"] == cfg.n_layers,
-          f"prefill launched the tensor-core flash kernel "
-          f"{launches['flash_attention_wgmma']} times, not {cfg.n_layers}")
-    check(backend.LAUNCHES["flash_attention"] == 0,
-          "a bf16 prefill reached the float32 flash kernel")
-    check(bool(torch.isfinite(res.prefill_logits).all()),
-          "prefill logits not finite")
-    tokens, first_logits = res.tokens, res.prefill_logits
-    check(tokens.shape == (B, LM_DECODE + 1) and int(tokens.min()) >= 0
-          and int(tokens.max()) < cfg.vocab, "generated tokens malformed")
-    del res
-    torch.cuda.empty_cache()
+                                        "max_mem", "launches", "graph_",
+                                        "greedy"))})
+    say("lm.serve_eager", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                             for k, v in out.items()
+                             if k.startswith("eager_")})
 
     # flash against its plain version on the first local and global layers'
     # own inputs at the prefill shape
@@ -764,8 +865,7 @@ def lm_phase(torch, timer, dev, seed, report, clock_mhz,
                                    rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                    positions)
         rows.append(time_flash(torch, timer, f"{name} w={window}", q, k, v,
-                               window, cfg.attn_softcap, window == 0,
-                               clock_mhz))
+                               window, cfg.attn_softcap, True, clock_mhz))
         if window == 0:      # the float32 kernel on the same inputs
             rows.append(time_flash(torch, timer, f"f32 {name} w={window}",
                                    q.float(), k.float(), v.float(), window,
@@ -804,19 +904,17 @@ def lm_phase(torch, timer, dev, seed, report, clock_mhz,
     dense_c["lengths"] = lens.clone()
     del dense
     # the same paged steps through the plain paged attention: how far bf16
-    # rounding alone moves the logits off the dense decoder
-    plain_caches = [c._replace(k_pages=c.k_pages.clone(),
-                               v_pages=c.v_pages.clone()) for c in caches]
-    steps = []
+    # rounding alone moves the logits off the dense decoder.  In-place steps
+    # write every field of a cache, so each route has its own
+    plain_caches = [type(c)(*(x.clone() for x in c)) for c in caches]
+    steps, replay = [], None
     for step in range(LM_CHECK_STEPS):
         tok = tokens[:, step:step + 1]
-        if profile and step == LM_CHECK_STEPS - 1:
-            (paged, caches), report["profile_decode_step"] = profiled(
-                torch, lambda: M.serve_step_paged(params, cfg, caches, tok,
-                                                  inplace=True))
+        if replay is None:   # the kernel route as serve decodes: one eager
+            replay = DecodeGraph(params, cfg, caches, tok)   # step, replays
+            paged, caches = replay.first_logits, replay.caches
         else:
-            paged, caches = M.serve_step_paged(params, cfg, caches, tok,
-                                               inplace=True)
+            paged = replay.step(tok)
         plain, plain_caches = M.serve_step_paged(
             params, cfg, plain_caches, tok, impl="torch", inplace=True)
         ref, dense_c = M.serve_step(params, cfg, dense_c, tok)
@@ -841,6 +939,29 @@ def lm_phase(torch, timer, dev, seed, report, clock_mhz,
               f"decode step {step}: paged logits off the dense serve_step "
               f"by {rel:.4g} relative L2 (> {LOGIT_REL_L2})")
     out["paged_vs_dense"] = steps
+    if profile:   # one replayed step, then one eager step, on the caches
+        tok = tokens[:, LM_CHECK_STEPS:LM_CHECK_STEPS + 1]
+        _, report["profile_decode_step"] = profiled(
+            torch, lambda: replay.step(tok))
+        _, report["profile_decode_step_eager"] = profiled(
+            torch, lambda: M.serve_step_paged(params, cfg, caches, tok,
+                                              inplace=True))
+        # the profiler slows the host, so the busy time is also given over
+        # the route's unprofiled median step
+        for key, median in (("profile_decode_step",
+                             out["decode_ms_per_step_median"]),
+                            ("profile_decode_step_eager",
+                             out["eager_decode_ms_per_step_median"])):
+            prof = report[key]
+            prof["busy_over_median_step"] = \
+                prof["device_busy_s"] * 1e3 / median
+            say(f"lm.{key}", wall_ms=f"{prof['wall_s'] * 1e3:.4g}",
+                device_busy_ms=f"{prof['device_busy_s'] * 1e3:.4g}",
+                device_busy_share=f"{prof['device_busy_share']:.3f}",
+                busy_over_median_step=f"{prof['busy_over_median_step']:.3f}",
+                top=", ".join(f"{r['op'][:40]} x{r['count']} "
+                              f"{r['device_ms']:.3f}ms"
+                              for r in prof["top"][:5]))
     say("lm.check", steps=len(steps),
         rel_l2=f"{max(s['rel_l2'] for s in steps):.4g}",
         plain_paged_rel_l2=f"{max(s['plain_paged_rel_l2'] for s in steps):.4g}",
@@ -861,10 +982,11 @@ def _tree_to(tree, dev):
 
 
 def lm_f32_path(torch, timer, dev, seed, report) -> None:
-    """The float32 flash kernel's path: ``serve`` at the Gemma-2 smoke
-    config (float32, 4 layers, head_dim 16) with the launch counters at 0,
-    against the same serve on the host (plain versions): greedy tokens equal,
-    prefill logits within rtol 1e-4."""
+    """The float32 kernels' path: ``serve`` at the Gemma-2 smoke config
+    (float32, 4 layers, head_dim 16; decode replayed from a CUDA graph)
+    with the launch counters at 0, against the same serve on the host
+    (plain versions): greedy tokens equal, prefill logits within rtol
+    1e-4."""
     from repro_torch import backend
     from repro_torch.configs.gemma2_27b import smoke_config
     from repro_torch.launch.serve import serve
@@ -886,6 +1008,10 @@ def lm_f32_path(torch, timer, dev, seed, report) -> None:
         check(n > 0, f"kernel {name} never launched on the float32 serve")
     check(backend.LAUNCHES["flash_attention_wgmma"] == 0,
           "a float32 prefill reached the bf16 flash kernel")
+    check(res.graph and launches["paged_attention"]
+          == cfg.n_layers * F32_LM_DECODE,
+          f"float32 serve: graph={res.graph}, "
+          f"{launches['paged_attention']} paged launches")
     check(torch.equal(res.tokens.cpu(), host.tokens),
           "float32 serve: card and host tokens differ")
     check(torch.allclose(res.prefill_logits.cpu(), host.prefill_logits,
@@ -1312,9 +1438,10 @@ def main(argv=None) -> int:
                     help="fraction of the LiveJournal-size graph")
     ap.add_argument("--profile", action="store_true",
                     help="profile the last flush, the warm PageRank, the "
-                         "LM check's prefill, its last paged decode step and "
-                         "one serve_bulk chunk of SASRec (their times then "
-                         "include the profiler's cost)")
+                         "LM check's prefill, one replayed and one eager "
+                         "paged decode step and one serve_bulk chunk of "
+                         "SASRec (their times then include the profiler's "
+                         "cost)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

@@ -13,8 +13,10 @@
   ``build/repro_torch/`` at first use (one ``nvcc`` per source, all started
   together) and binds the plain C entry points through ``ctypes``.
 * :data:`LAUNCHES` — one integer per kernel, bumped by its wrapper where it
-  launches, so a run can show that its main path went through the kernel;
-  :data:`PLAN_BUILDS` counts the engine's sweep plans the same way.
+  launches, so a run can show that its main path went through the kernel
+  (a replayed CUDA graph, ``launch.serve.DecodeGraph``, adds the launches
+  its capture counted); :data:`PLAN_BUILDS` counts the engine's sweep plans
+  the same way.
 """
 from __future__ import annotations
 
@@ -57,10 +59,11 @@ _SIGNATURES = {
     "flash_attention_wgmma": ("flash_attention_wgmma_bf16",
                               (_VP,) * 4 + (_I32,) * 5 + (_I64,) * 9
                               + (_F32, _I32, _I32, _F32, _VP)),
-    # q, k_pages, v_pages, block_table, lengths, o, dtype, B, KVH, G, D, P,
-    # page, npmax, scale, window, softcap, stream
+    # q, k_pages, v_pages, block_table, lengths, o, o_part, ml_part, dtype,
+    # B, KVH, G, D, P, page, npmax, pages_per_split, scale, window, softcap,
+    # stream
     "paged_attention": ("paged_attention_fwd",
-                        (_VP,) * 6 + (_I32,) * 8 + (_F32, _I32, _F32, _VP)),
+                        (_VP,) * 8 + (_I32,) * 9 + (_F32, _I32, _F32, _VP)),
     # table, ids, weights (or NULL), row_ptr (or NULL), out, num_bags,
     # bag_len, F, V, stream
     "embedding_bag": ("embedding_bag_f32",

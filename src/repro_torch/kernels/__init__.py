@@ -16,4 +16,7 @@ from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.paged_attention import (decode_attention,
                                                  paged_attention,
-                                                 paged_attention_ref)
+                                                 paged_attention_ref,
+                                                 paged_attention_split,
+                                                 paged_attention_split_ref,
+                                                 split_pages)

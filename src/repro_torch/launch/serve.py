@@ -8,6 +8,13 @@ every step appends the new token's K/V to its chain and attends over the
 chain with the paged kernel.  Finished sequences keep their pages, as in
 the JAX driver.
 
+On the card the decode step runs as one CUDA graph (:class:`DecodeGraph`):
+the first step runs eagerly, then ``serve_step_paged`` is captured over
+the caches, whose tensors an in-place step never moves, and every later
+step is one replay, in place of some 20 launches a layer from the host.
+This is the port's counterpart of the JAX decoder compiled under ``jit``.
+``graph=False`` keeps the eager loop on the card.
+
 Where the JAX driver (``repro.launch.serve``) differs: it decodes through
 the dense cache and only fills the pool, and it appends the padded prompt
 length to every chain, pad KV included.  Here decode runs on the pool and a
@@ -25,6 +32,7 @@ from typing import List
 
 import torch
 
+from repro_torch import backend
 from repro_torch.backend import resolve_device
 from repro_torch.configs.gemma2_27b import smoke_config
 from repro_torch.models.transformer import kvcache
@@ -39,8 +47,11 @@ class ServeResult:
     caches: List[kvcache.PagedKVCache]
     prefill_s: float                 # prompt in, first token's logits out
     fill_s: float                    # page chains filled from the prefill
-    decode_s: List[float]            # one entry per decode step
+    decode_s: List[float]            # one entry per decode step (the
+                                     # first one holds the graph's capture)
     pages_used: int                  # of each layer's pool
+    graph: bool                      # decoded by replaying a CUDA graph
+    capture_s: float                 # the graph's capture (0 without one)
 
 
 def pages_per_seq(prompt_len: int, decode_steps: int, page: int) -> int:
@@ -65,6 +76,50 @@ def fill_paged(cfg: LMConfig, dense: dict, prompt_lens: torch.Tensor,
     return caches
 
 
+class DecodeGraph:
+    """The paged decode step, ``serve_step_paged(..., inplace=True)``, as
+    one CUDA graph over fixed caches and static ``tok`` / ``logits``
+    buffers.
+
+    Construction runs one real step eagerly on a side stream (it builds the
+    kernels and sets their attributes; its logits are ``first_logits``),
+    then captures the step.  In-place steps update the caches' tensors where
+    they lie, so each later step is :meth:`step`: the token copied into
+    ``tok``, one replay.  A replay launches the kernels without their
+    wrappers, so the launches the capture counted are taken out of
+    ``backend.LAUNCHES`` (the capture ran nothing) and added back on each
+    replay.  A failed capture raises.
+    """
+
+    def __init__(self, params: Params, cfg: LMConfig,
+                 caches: List[kvcache.PagedKVCache], tok: torch.Tensor):
+        side = torch.cuda.Stream(device=tok.device)
+        side.wait_stream(torch.cuda.current_stream(tok.device))
+        with torch.cuda.stream(side):
+            self.first_logits, caches = M.serve_step_paged(
+                params, cfg, caches, tok, inplace=True)
+        torch.cuda.current_stream(tok.device).wait_stream(side)
+        self.tok = tok.clone()
+        before = dict(backend.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph):
+            self.logits, self.caches = M.serve_step_paged(
+                params, cfg, caches, self.tok, inplace=True)
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k: n - before[k] for k, n in backend.LAUNCHES.items()
+                         if n != before[k]}
+        backend.LAUNCHES.update(before)
+
+    def step(self, tok: torch.Tensor) -> torch.Tensor:
+        """One decode step from ``tok`` [B, 1]: the static logits buffer."""
+        self.tok.copy_(tok)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            backend.LAUNCHES[name] += n
+        return self.logits
+
+
 def _clock(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -73,10 +128,19 @@ def _clock(device: torch.device) -> float:
 
 def serve(cfg: LMConfig, params: Params, prompts: torch.Tensor,
           prompt_lens: torch.Tensor, decode_steps: int, page: int = 0,
-          device=None) -> ServeResult:
+          device=None, graph=None) -> ServeResult:
     """Prefill ``prompts`` [B, S] (row b live below ``prompt_lens[b]``),
-    then ``decode_steps`` greedy steps over the paged caches."""
+    then ``decode_steps`` greedy steps over the paged caches.
+
+    ``graph``: decode by replaying a CUDA graph (:class:`DecodeGraph`);
+    ``None`` means a graph on a CUDA device and the eager loop elsewhere.
+    """
     dev = resolve_device(device)
+    if graph is None:
+        graph = dev.type == "cuda"
+    if graph and dev.type != "cuda":
+        raise ValueError(f"serve: a CUDA graph needs a CUDA device, got "
+                         f"{dev}")
     page = page or cfg.kv_page_size
     prompts, prompt_lens = prompts.to(dev), prompt_lens.to(dev)
     B, S = prompts.shape
@@ -92,11 +156,17 @@ def serve(cfg: LMConfig, params: Params, prompts: torch.Tensor,
     del dense
     t2 = _clock(dev)
 
-    generated, step_s = [tok], []
+    generated, step_s, replay = [tok], [], None
     for _ in range(decode_steps):
         ts = _clock(dev)
-        step_logits, caches = M.serve_step_paged(params, cfg, caches, tok,
-                                                 inplace=True)
+        if replay is not None:
+            step_logits = replay.step(tok)
+        elif graph:          # the first step runs eagerly, then the capture
+            replay = DecodeGraph(params, cfg, caches, tok)
+            step_logits, caches = replay.first_logits, replay.caches
+        else:
+            step_logits, caches = M.serve_step_paged(params, cfg, caches,
+                                                     tok, inplace=True)
         tok = step_logits.argmax(-1, keepdim=True).to(torch.int32)
         generated.append(tok)
         step_s.append(_clock(dev) - ts)
@@ -104,7 +174,9 @@ def serve(cfg: LMConfig, params: Params, prompts: torch.Tensor,
     return ServeResult(tokens=torch.cat(generated, 1), prefill_logits=logits,
                        caches=caches, prefill_s=t1 - t0, fill_s=t2 - t1,
                        decode_s=step_s,
-                       pages_used=int(c0.free_stack.numel() - c0.free_top))
+                       pages_used=int(c0.free_stack.numel() - c0.free_top),
+                       graph=bool(graph),
+                       capture_s=replay.capture_s if replay else 0.0)
 
 
 def main(argv=None) -> ServeResult:
@@ -130,8 +202,9 @@ def main(argv=None) -> ServeResult:
     n = B * args.decode
     dt = sum(res.decode_s)
     print(f"served {B} seqs x {args.decode} tokens on {dev} in {dt:.3f}s "
-          f"({n / max(dt, 1e-9):.1f} tok/s); paged pool: {res.pages_used} "
-          f"pages per layer in {cfg.n_layers}-layer chains")
+          f"({n / max(dt, 1e-9):.1f} tok/s, "
+          f"{'CUDA graph' if res.graph else 'eager'} decode); paged pool: "
+          f"{res.pages_used} pages per layer in {cfg.n_layers}-layer chains")
     print("sample output ids:", res.tokens[0, :10].tolist())
     if not bool(torch.isfinite(res.prefill_logits).all()):
         raise RuntimeError("prefill logits are not finite")

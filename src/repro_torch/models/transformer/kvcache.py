@@ -9,7 +9,9 @@ sequence's chain; decode attention reads the chain through the paged kernel.
 The functions are pure unless told otherwise: they clone what they write and
 return a new cache.  ``inplace=True`` writes into the given cache's tensors
 instead; the serve loop owns its caches and uses it, so a decode step does
-not copy the pool.
+not copy the pool.  An in-place ``append`` also writes the block table,
+lengths and free-stack top into the cache's own tensors, so every address
+stays fixed from step to step, as a captured CUDA graph needs.
 
 Out-of-range ids are handled explicitly where JAX relies on its scatter and
 gather modes: a token whose page could not be allocated (the pool ran dry,
@@ -67,6 +69,8 @@ def append(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, *,
     """Append one token's K/V to every sequence.  k_new, v_new [B, KVH, D].
 
     Leaves the state bit-identical to JAX ``append``, with no host sync.
+    With ``inplace`` the returned cache holds the given cache's own tensors,
+    each updated in place.
     """
     B = k_new.shape[0]
     page = cache.page_size
@@ -80,11 +84,11 @@ def append(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, *,
     idx = cache.free_top - 1 - rank
     new_page = torch.where(need & (idx >= 0),
                            cache.free_stack[idx.clamp(min=0).long()], P)
-    free_top = cache.free_top - need_i.sum(dtype=torch.int32)
+    n_new = need_i.sum(dtype=torch.int32)
 
     slot = (lengths // page).clamp(max=npmax - 1).long()
     b_idx = torch.arange(B, device=lengths.device)
-    bt = cache.block_table.clone()
+    bt = cache.block_table if inplace else cache.block_table.clone()
     bt[b_idx, slot] = torch.where(need, new_page.to(torch.int32),
                                   bt[b_idx, slot])
     page_id = bt[b_idx, slot]                            # P if alloc failed
@@ -105,8 +109,13 @@ def append(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor, *,
                            new[src].transpose(0, 1).to(pool.dtype),
                            pool[:, 0, 0][:, None, :])
         pool[:, dst_page, dst_off] = vals
+    if inplace:
+        lengths.add_(1)
+        cache.free_top.sub_(n_new)
+        return cache
     return cache._replace(k_pages=k_pages, v_pages=v_pages, block_table=bt,
-                          lengths=lengths + 1, free_top=free_top)
+                          lengths=lengths + 1,
+                          free_top=cache.free_top - n_new)
 
 
 def append_many(cache: PagedKVCache, k_seq: torch.Tensor, v_seq: torch.Tensor,

@@ -67,9 +67,10 @@ def param_count(params: Params) -> int:
 
 def embed(params: Params, cfg: LMConfig, tokens: torch.Tensor):
     # the scale is rounded to the model's type before the multiply, as in
-    # the reference (sqrt(4608) = 67.88 is 68.0 in bf16)
-    scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
-                         device=tokens.device)
+    # the reference (sqrt(4608) = 67.88 is 68.0 in bf16).  A Python number
+    # holding that value gives the same product with no copy to the device,
+    # which a CUDA graph's capture forbids
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
     return params["embed"][tokens.long()] * scale
 
 

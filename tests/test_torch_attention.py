@@ -16,7 +16,8 @@ from repro.kernels import decode_attention as j_decode  # noqa: E402
 from repro.kernels import paged_attention_ref as j_paged_ref  # noqa: E402
 from repro_torch import backend  # noqa: E402
 from repro_torch.kernels import (attention, decode_attention,  # noqa: E402
-                                 flash_attention, paged_attention)
+                                 flash_attention, paged_attention,
+                                 paged_attention_split, split_pages)
 from repro_torch.kernels.flash_attention import \
     attention_ref_bf16_p  # noqa: E402
 
@@ -154,6 +155,62 @@ def test_paged_plain_empty_sequence_is_the_uniform_average():
     mean_v = vp[:, bt[0]].reshape(2, -1, 16).mean(axis=1)      # [KVH, D]
     _close(got[0], np.broadcast_to(mean_v[:, None, :], (2, 2, 16)),
            rtol=1e-5, atol=1e-6)
+
+
+# the split kernel's plain arithmetic: B = 4 sequences of lengths 0 (no
+# live key: the uniform average over every slot), 1, full (48) and 29, over
+# 6 slots of 8-key pages; row 2 names page P + 3 in a live slot (read as
+# page P - 1) and row 3 has -1 in a slot past its length
+SPLIT_LENS = np.array([0, 1, 48, 29], np.int32)
+
+
+def _split_inputs():
+    rng = np.random.default_rng(17)
+    q, kp, vp, bt, _ = _paged(rng, 4, 2, 2, 16, 8, 6)
+    P = kp.shape[1]
+    bt[2, 2], bt[3, 5] = P + 3, -1
+    return q, kp, vp, bt, SPLIT_LENS.copy()
+
+
+# rtol = atol = 1e-5 in float32: the merge of the partials rescales and
+# sums in another order than one softmax over all keys
+@pytest.mark.parametrize("pps", [1, 2, 6])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (0, 50.0), (13, 0.0),
+                                        (21, 50.0)])
+def test_paged_split_plain_matches_jax(pps, window, cap):
+    """Windows of 13 and 21 keys start inside a split of 8 or 16 keys for
+    lengths 29 and 48; pps = 6 is one split over the whole table."""
+    arrays = _split_inputs()
+    kw = dict(scale=0.25, window=window, softcap=cap)
+    jargs = [jnp.asarray(a) for a in arrays]
+    refs = [j_paged_ref(*jargs, **kw),
+            j_decode(*jargs, impl="pallas_interpret", **kw)]
+    before = backend.LAUNCHES["paged_attention"]
+    got = paged_attention_split(*map(t, arrays), pages_per_split=pps, **kw)
+    assert backend.LAUNCHES["paged_attention"] == before
+    for ref in refs:
+        _close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_split_pages_fills_the_card_from_the_shapes():
+    """The serve shape (50 slots, 8 sequences x 16 KV heads, 132 SMs)
+    splits into enough CTAs to fill the card's waves; a batch that fills
+    the card alone is not split; a split never covers more than the
+    table."""
+    from repro_torch.kernels.paged_attention.ops import CTAS_PER_SM, WAVES
+    pps = split_pages(50, 8, 16, 132)
+    assert 1 <= pps < 50
+    assert -(-50 // pps) * 8 * 16 >= WAVES * CTAS_PER_SM * 132
+    assert split_pages(50, 64, 64, 132) == 50
+    assert split_pages(3, 1, 1, 132) == 1
+
+
+@pytest.mark.parametrize("pps", [0, 7])
+def test_paged_split_rejects_a_split_outside_the_table(pps):
+    q, kp, vp, bt, lens = map(t, _split_inputs())
+    with pytest.raises(ValueError):
+        paged_attention_split(q, kp, vp, bt, lens, scale=0.25,
+                              pages_per_split=pps)
 
 
 @pytest.mark.parametrize("bad", ["rank", "dtype", "mixed", "head_dim",

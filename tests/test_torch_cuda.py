@@ -523,3 +523,71 @@ def test_lm_serve_on_the_card_matches_the_host(gen):
     for c_card, c_host in zip(res[0].caches, res[1].caches):
         assert torch.equal(c_card.block_table.cpu(), c_host.block_table)
         assert torch.equal(c_card.free_top.cpu(), c_host.free_top)
+
+
+def _split_case(gen, dtype, case):
+    """Inputs of one split-kernel case: (q, k_pages, v_pages, block_table,
+    lengths, window, softcap).  B = 4, KVH = 2, G = 2, D = 32, page 8, 6
+    slots.  ``lengths`` 0, 1, full (48) and one inside a page; ``window``
+    starts inside a split; ``ids`` puts -1 and ids >= P in live slots."""
+    B, KVH, G, D, page, NP, P = 4, 2, 2, 32, 8, 6, 30
+    q, kp, vp, bt = _paged_inputs(gen, B, KVH, G, D, page, NP, P, dtype)
+    lens = torch.tensor([0, 1, NP * page, 29], dtype=torch.int32,
+                        device="cuda")
+    window, cap = {"plain": (0, 0.0), "softcap": (0, 50.0),
+                   "window": (13, 0.0), "window_softcap": (21, 50.0),
+                   "ids": (0, 50.0)}[case]
+    if case == "ids":
+        bt[2, 1], bt[2, 4], bt[3, 0] = -1, P, P + 7
+    return q, kp, vp, bt, lens, window, cap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pps", [1, 2, 6])
+@pytest.mark.parametrize("case", ["plain", "softcap", "window",
+                                  "window_softcap", "ids"])
+def test_paged_attention_split_kernel_matches_plain(gen, dtype, pps, case):
+    """The split kernel at 1, 2 and all 6 slots a split against the plain
+    version, one launch each, and two launches give the same bits."""
+    from repro_torch import backend
+    from repro_torch.kernels import paged_attention_ref, paged_attention_split
+    q, kp, vp, bt, lens, window, cap = _split_case(gen, dtype, case)
+    kw = dict(scale=q.shape[-1] ** -0.5, window=window, softcap=cap)
+    before = backend.LAUNCHES["paged_attention"]
+    got = paged_attention_split(q, kp, vp, bt, lens, pages_per_split=pps,
+                                **kw)
+    assert backend.LAUNCHES["paged_attention"] == before + 1
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(q, kp, vp, bt, lens, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+    assert torch.equal(got, paged_attention_split(
+        q, kp, vp, bt, lens, pages_per_split=pps, **kw))
+
+
+def test_lm_serve_graph_matches_the_eager_loop(gen):
+    """``serve`` at the Gemma-2 smoke config on the card: the decode steps
+    replayed from one CUDA graph give the eager loop's greedy tokens and
+    cache state, with the same paged launches counted on both routes."""
+    from repro_torch import backend
+    from repro_torch.configs.gemma2_27b import smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import model as M
+    cfg = smoke_config()
+    params = M.init_params(cfg, seed=5, device="cuda")
+    lens = torch.randint(20, 70, (5,), generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (5, int(lens.max())),
+                            generator=gen, device="cuda")
+    res, launches = [], []
+    for graph in (True, False):
+        backend.reset_launch_counts()
+        res.append(serve(cfg, params, prompts, lens, 12, page=16,
+                         device="cuda", graph=graph))
+        launches.append(backend.LAUNCHES["paged_attention"])
+    assert [r.graph for r in res] == [True, False]
+    assert launches[0] == launches[1] == cfg.n_layers * 12
+    assert torch.equal(res[0].tokens, res[1].tokens)
+    for c_graph, c_eager in zip(res[0].caches, res[1].caches):
+        for name in ("block_table", "lengths", "free_top"):
+            assert torch.equal(getattr(c_graph, name), getattr(c_eager, name))
+        torch.testing.assert_close(c_graph.k_pages, c_eager.k_pages,
+                                   **ATTN_TOL[torch.float32])

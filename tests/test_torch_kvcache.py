@@ -1,8 +1,8 @@
 """Paged KV cache of the port against ``repro.models.transformer.kvcache``:
-``append`` and ``append_many`` leave the pool, block table, lengths, free
-stack and free_top bit-identical to JAX ``append`` (a pool that runs dry and
-a chain longer than its table included), and ``attend`` matches JAX
-``attend``."""
+``append`` (pure and in place) and ``append_many`` leave the pool, block
+table, lengths, free stack and free_top bit-identical to JAX ``append`` (a
+pool that runs dry and a chain longer than its table included), and
+``attend`` matches JAX ``attend``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -56,6 +56,23 @@ def test_append_is_bit_identical_to_jax(num_pages, npmax, T):
         c = KV.append(c, t(ks[step]), t(vs[step]))
         assert_same_state(jc, c)
         assert before.k_pages is not c.k_pages            # pure: a new pool
+    if num_pages == 8:
+        assert int(c.free_top) < 0                         # ran dry
+
+
+@pytest.mark.parametrize("num_pages,npmax,T", CASES)
+def test_append_in_place_is_bit_identical_to_jax(num_pages, npmax, T):
+    """``inplace=True`` leaves JAX ``append``'s state in the given cache's
+    own tensors (block table, lengths and free_top too), so their addresses
+    stay fixed, as a captured CUDA graph needs."""
+    jc, c = _caches(num_pages, npmax)
+    own = tuple(c)
+    ks, vs = _tokens(T + 3, T)
+    for step in range(T):
+        jc = JKV.append(jc, jnp.asarray(ks[step]), jnp.asarray(vs[step]))
+        got = KV.append(c, t(ks[step]), t(vs[step]), inplace=True)
+        assert all(a is b for a, b in zip(got, own))
+        assert_same_state(jc, got)
     if num_pages == 8:
         assert int(c.free_top) < 0                         # ran dry
 

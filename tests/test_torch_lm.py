@@ -207,3 +207,17 @@ def test_serve_cli_runs_on_the_host(capsys):
     res = main(["--device", "cpu", "--requests", "3", "--decode", "2"])
     assert res.tokens.shape == (3, 3)
     assert "served 3 seqs x 2 tokens on cpu" in capsys.readouterr().out
+
+
+def test_serve_graph_needs_a_cuda_device():
+    """A CUDA graph is asked for on the host: ``serve`` raises; left to
+    itself it decodes eagerly there."""
+    cfg = gemma2_27b.smoke_config()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    prompts = torch.zeros((2, 4), dtype=torch.int32)
+    lens = torch.full((2,), 4)
+    with pytest.raises(ValueError):
+        serve(cfg, params, prompts, lens, 2, page=4, device="cpu",
+              graph=True)
+    res = serve(cfg, params, prompts, lens, 2, page=4, device="cpu")
+    assert not res.graph and res.capture_s == 0.0
