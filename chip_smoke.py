@@ -42,18 +42,23 @@ Phases, one report line each:
    and the same greedy tokens on both routes.  Then each kernel against its
    plain version at the serve shapes (flash on the first local and global
    layers' own inputs, batch row 0 and heads 0-3, within the bf16 bound
-   below and bit-identical on a repeat; the float32 flash kernel on the
-   global layer's inputs in float32; paged on the serve's caches after
-   prefill, every row, bit-identical on a repeat, with its split size),
-   timed beside its plain version, torch's compiled ``flex_attention``
-   with the softcap and window (flash's library call; SDPA, without the
-   softcap, beside it) and its floors (bytes, products, and for flash the
-   transcendentals at 16 a clock per SM); 4 teacher-forced decode steps
-   through the graph route against the dense plain ``serve_step``; and
-   the float32 kernels' own path, a float32 ``serve`` at the Gemma-2 smoke
-   config against the same on the host.  The set-up line
-   ``setup.flash_sass`` says whether the tensor-core kernel's SASS holds
-   HGMMA, its registers and spills and its build seconds;
+   below and bit-identical on a repeat; the split-TF32 float32 flash
+   kernel on both layers' inputs in float32, within 1e-4 |ref| + 1e-5;
+   paged on the serve's caches after prefill, every row, bit-identical on
+   a repeat, with its split size), timed beside its plain version, torch's
+   compiled ``flex_attention`` with the softcap and window (flash's library
+   call, bf16 on both layers and float32 on the global one with
+   ``allow_tf32`` held False and its output held to the float32 bound;
+   SDPA, without the softcap, beside it) and its floors (bytes, products
+   -- for float32 split TF32's three TF32 products each, the CUDA-core
+   floor beside it -- and for flash the transcendentals at 16 a clock per
+   SM); 4 teacher-forced decode steps through the graph route against the
+   dense plain ``serve_step``; and the float32 kernels' own path, a
+   float32 ``serve`` at the Gemma-2 smoke config against the same on the
+   host.  The set-up lines ``setup.flash_sass`` and
+   ``setup.flash_f32_sass`` say how many wgmma instructions (HGMMA) each
+   tensor-core kernel's SASS holds (none fails the run), its registers and
+   spills and its build seconds;
 7. recsys serving, once the LM state is freed: SASRec at its full published
    config (2^20-row item table, embed_dim 50, 2 blocks, 1 head, seq_len
    50), weights from ``--seed``, left-padded histories of 25-50 items made
@@ -66,7 +71,9 @@ Phases, one report line each:
    ``serve_step`` at the same candidates; ``embedding_bag`` against its
    plain version on the bulk chunk's lookup (bit-exact), on 65,536 bags of
    32 weighted slots and on ragged bags of 1-64 slots (rtol 1e-5 of a
-   float64 sum, bit-identical on a repeat); ``block_gather`` exact at the
+   float64 sum, bit-identical on a repeat), each row naming the kernel
+   its shape is routed to (short bags for the one-slot lookup, a warp per
+   bag for the others); ``block_gather`` exact at the
    retrieval shape.  Each timed beside its plain version, one library call
    and its bound.
 
@@ -91,6 +98,10 @@ LJ_VERTICES, LJ_EDGES = 4_847_571, 68_993_773      # SNAP soc-LiveJournal1
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM, 700 W
 FP32_OPS_PER_S = 67e12                             # non-tensor float32 peak
 BF16_TENSOR_OPS_PER_S = 989e12                     # dense bf16 tensor cores
+TF32_TENSOR_OPS_PER_S = 495e12                     # dense TF32 tensor cores
+# float32-accurate products on the tensor cores: split TF32 takes three
+# TF32 products (hi.hi + hi.lo + lo.hi) for each float32 one
+SPLIT_TF32_PASSES = 3
 UPDATES_PER_ROUND, ROUNDS, DELETE_FRAC = 1_000_000, 3, 0.2
 READ_PAIRS = 65_536
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
@@ -128,6 +139,7 @@ LOGIT_REL_L2 = 3e-2
 RECSYS_KERNELS = ("embedding_bag", "block_gather")
 P99_REQUESTS, RETRIEVAL_REQUESTS, TOPK, BULK_CHUNK = 20, 5, 100, 4096
 BAG_CHECK_BAGS, BAG_CHECK_SLOTS, BAG_RAGGED_MAX = 65_536, 32, 64
+EMB_TIMED_CALLS = 100
 # float32 scores from two product routes (GEMM, batched dot) over d = 50:
 # relative, with a floor for scores near 0
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
@@ -548,11 +560,13 @@ def mufu_per_s(smi_clock_mhz: float) -> float:
     return MUFU_PER_CLK_PER_SM * H100_SMS * smi_clock_mhz * 1e6
 
 
-def time_flex(torch, timer, q, k, v, window, softcap, got):
+def time_flex(torch, timer, q, k, v, window, softcap, got, check_ref=None):
     """(ms, note) of torch's ``flex_attention``, compiled, with the tanh
     softcap as its ``score_mod`` and the causal (and sliding-window) mask as
     its block mask: the one PyTorch call that computes the flash kernel's
-    own function.  (None, why) where it does not import or run."""
+    own function.  (None, why) where it does not import or run, or where
+    ``check_ref`` (ref, tol over the checked rows) is given and its output
+    misses it."""
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
@@ -580,6 +594,16 @@ def time_flex(torch, timer, q, k, v, window, softcap, got):
         return None, f"flex_attention did not run: {type(e).__name__}: " \
             f"{str(e)[:200]}"
     diff = float((out.float() - got.float()).abs().max())
+    if check_ref is not None:
+        ref, tol = check_ref
+        rows = out[:ref.shape[0], :ref.shape[1]].float()
+        worst = float(((rows - ref).abs() / tol).max())
+        if not worst <= 1.0:
+            return None, f"flex_attention (compiled) off the plain version: " \
+                f"worst err/bound {worst:.3g}; not timed"
+        return ms, f"flex_attention (compiled), allow_tf32=False, worst " \
+            f"err/bound against the plain version {worst:.3g}, max |flex - " \
+            f"kernel| {diff:.3g}"
     return ms, f"flex_attention (compiled), max |flex - kernel| {diff:.3g}"
 
 
@@ -588,9 +612,11 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
     """A flash kernel at a prefill layer's shape against its plain version
     (batch row 0, heads 0-3, every row; bit-identical on a repeat), timed
     beside the plain version over the whole shape, the floors and, with
-    ``library``, torch's compiled ``flex_attention`` (the same function)
-    and, without a window, SDPA (no softcap).  bf16 goes through the
-    tensor-core kernel, float32 through the CUDA-core one."""
+    ``library``, torch's compiled ``flex_attention`` (the same function;
+    for float32 with ``allow_tf32`` held False and its output held to the
+    float32 bound) and, without a window, SDPA (no softcap).  bf16 goes
+    through the bf16 tensor-core kernel, float32 through the split-TF32
+    one."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, H, S, D = q.shape
@@ -627,19 +653,27 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) \
         * q.element_size()
     ops = 4 * pairs * D
-    # floors: the bytes; the products at the type's peak (tensor cores for
-    # bf16, the CUDA cores for float32); the transcendentals the function
-    # needs, an exp a live pair and a tanh with the softcap, at 16 a clock
-    # per SM (the kernel spends three: its tanh is an exp2 and a reciprocal)
+    # floors: the bytes; the products at the type's peak (bf16 tensor cores;
+    # for float32 the least time of float32-accurate products, split TF32's
+    # three TF32 products each, with the CUDA-core floor kept beside it);
+    # the transcendentals the function needs, an exp a live pair and a tanh
+    # with the softcap, at 16 a clock per SM
     mufu = pairs * (2 if softcap > 0 else 1)
     floors = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3,
-                  products=ops / (BF16_TENSOR_OPS_PER_S if bf16
-                                  else FP32_OPS_PER_S) * 1e3,
+                  products=(ops / BF16_TENSOR_OPS_PER_S if bf16 else
+                            SPLIT_TF32_PASSES * ops / TF32_TENSOR_OPS_PER_S)
+                  * 1e3,
                   transcendentals=mufu / mufu_per_s(clock_mhz) * 1e3)
     binding = max(floors, key=floors.get)
+    if not bf16:
+        floors["cuda_core_products"] = ops / FP32_OPS_PER_S * 1e3
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    check_ref = None if bf16 else (ref, tol)
+    if library and not bf16:
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "float32 flex_attention timed with allow_tf32 on")
     flex_ms, flex_note = (time_flex(torch, timer, q, k, v, window, softcap,
-                                    got) if library
+                                    got, check_ref) if library
                           else (None, "no library call timed"))
     row = dict(
         name="flash_attention_wgmma" if bf16 else "flash_attention",
@@ -650,10 +684,13 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
         ms=timer.ms(lambda: flash_attention(q, k, v, **kw)),
         plain_ms=timer.ms(plain),
         library_ms=flex_ms, library_note=flex_note,
-        # SDPA computes the same causal GQA attention without the softcap
+        allow_tf32=(None if bf16 else
+                    torch.backends.cuda.matmul.allow_tf32),
+        # SDPA computes the same causal GQA attention without the softcap;
+        # bf16 only (in float32 it falls back to a 37 GB score matrix)
         sdpa_ms=(timer.ms(lambda: sdpa(q, k, v, is_causal=True,
                                        scale=D ** -0.5, enable_gqa=True))
-                 if library and window == 0 else None),
+                 if library and window == 0 and bf16 else None),
         bound_ms=floors[binding],
         bound_by="bytes" if binding == "bytes" else "operations",
         binding_floor=binding, **{f"{k_}_floor_ms": v_
@@ -663,34 +700,40 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
     return row
 
 
-def flash_build_report(torch, backend) -> dict:
-    """What was built for the tensor-core flash kernel: whether its SASS
-    holds HGMMA, registers and local memory (spills) per template from
-    ``cuobjdump -res-usage``, and the seconds its build took."""
+def flash_build_report(torch, backend, source="flash_attention_wgmma",
+                       kernel="flash_fwd_wgmma", templates=3,
+                       line="setup.flash_sass",
+                       consumer_regs="240 (setmaxnreg)") -> dict:
+    """What was built for a tensor-core flash kernel: how many wgmma
+    instructions (HGMMA) its SASS holds, registers and local memory
+    (spills) per template from ``cuobjdump -res-usage``, and the seconds
+    its build took.  Fails the run without HGMMA."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(backend.library_path("flash_attention_wgmma"))
+    lib = str(backend.library_path(source))
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
                          text=True, timeout=300, check=True).stdout
     usage = [dict(template=m.group(1), regs=int(m.group(2)),
                   stack=int(m.group(3)), local=int(m.group(4)))
-             for m in re.finditer(r"flash_fwd_wgmmaILi(\d+)ELi\d+E\S*:\s*"
+             for m in re.finditer(kernel + r"ILi(\d+)E\S*:\s*"
                                   r"REG:(\d+) STACK:(\d+) \S+ LOCAL:(\d+)",
                                   res)]
-    out = dict(hgmma=sass.count("HGMMA"), templates=usage,
+    hgmma = re.findall(r"HGMMA\.\S+", sass)
+    out = dict(hgmma=len(hgmma), hgmma_kinds=sorted(set(hgmma)),
+               templates=usage,
                build_seconds=backend.last_build_seconds_by_source.get(
-                   "flash_attention_wgmma"))
-    say("setup.flash_sass", hgmma=out["hgmma"],
+                   source))
+    say(line, hgmma=out["hgmma"], kinds=",".join(out["hgmma_kinds"]),
         regs="/".join(f"D{u['template']}:{u['regs']}" for u in usage),
         spill_bytes=sum(u["stack"] + u["local"] for u in usage),
-        consumer_regs="240 (setmaxnreg)",
+        consumer_regs=consumer_regs,
         build_s=("cached" if out["build_seconds"] is None
                  else f"{out['build_seconds']:.2f}"))
-    check(out["hgmma"] > 0, "flash_attention_wgmma: no HGMMA in its SASS")
-    check(len(usage) == 3, f"flash_attention_wgmma: res-usage unparsed: "
+    check(out["hgmma"] > 0, f"{source}: no HGMMA in its SASS")
+    check(len(usage) == templates, f"{source}: res-usage unparsed: "
           f"{res[-500:]}")
     return out
 
@@ -866,10 +909,11 @@ def lm_phase(torch, timer, dev, seed, report, clock_mhz,
                                    positions)
         rows.append(time_flash(torch, timer, f"{name} w={window}", q, k, v,
                                window, cfg.attn_softcap, True, clock_mhz))
-        if window == 0:      # the float32 kernel on the same inputs
-            rows.append(time_flash(torch, timer, f"f32 {name} w={window}",
-                                   q.float(), k.float(), v.float(), window,
-                                   cfg.attn_softcap, False, clock_mhz))
+        # the float32 kernel on the same inputs; compiled flex_attention in
+        # float32 beside the global layer's
+        rows.append(time_flash(torch, timer, f"f32 {name} w={window}",
+                               q.float(), k.float(), v.float(), window,
+                               cfg.attn_softcap, window == 0, clock_mhz))
         del q, k, v
         if li == 0:
             x = apply_layer(lp, cfg, x, positions, window)[0]
@@ -1044,9 +1088,11 @@ def time_embedding_bag(torch, timer, name, table, ids, weights, seg=None,
     ``embedding_bag_sorted`` against its plain version (bit-exact for
     one-slot bags, else within rtol 1e-5 of a float64 sum and bit-identical
     on a repeat), timed beside the plain version,
-    ``torch.nn.functional.embedding_bag`` and the bytes bound."""
+    ``torch.nn.functional.embedding_bag`` and the bytes bound; the row names
+    the kernel the shape is routed to (short bags or a warp per bag)."""
     from repro_torch.kernels.embedding_bag.ops import (embedding_bag,
-                                                       embedding_bag_sorted)
+                                                       embedding_bag_sorted,
+                                                       kernel_route)
     from repro_torch.kernels.embedding_bag.ref import (
         embedding_bag_ref, embedding_bag_sorted_ref)
     V, F = table.shape
@@ -1054,7 +1100,9 @@ def time_embedding_bag(torch, timer, name, table, ids, weights, seg=None,
         B, L = ids.shape
         kern = functools.partial(embedding_bag, table, ids, weights)
         plain = functools.partial(embedding_bag_ref, table, ids, weights)
-        flat_w = weights.expand(B, L).reshape(-1)
+        w_t = weights if isinstance(weights, torch.Tensor) else \
+            torch.tensor(weights, dtype=torch.float32, device=table.device)
+        flat_w = w_t.expand(B, L).reshape(-1)
         offsets = None
     else:
         B, L = num_bags, 0
@@ -1073,7 +1121,7 @@ def time_embedding_bag(torch, timer, name, table, ids, weights, seg=None,
         check(torch.equal(got, ref), f"embedding_bag {name}: one-slot bags "
               f"differ from the plain version")
     else:
-        ref = (embedding_bag_ref(table.double(), ids, weights.double())
+        ref = (embedding_bag_ref(table.double(), ids, w_t.double())
                if seg is None else
                embedding_bag_sorted_ref(table.double(), ids, seg,
                                         weights.double(), num_bags))
@@ -1089,18 +1137,25 @@ def time_embedding_bag(torch, timer, name, table, ids, weights, seg=None,
     emb_bag = torch.nn.functional.embedding_bag
     n_live = int(live.sum())
     rows_read = int(torch.unique(flat[live].clamp(max=V - 1)).numel())
-    # each live row the ids name read once, ids and weights read once, the
-    # output written once; two flops per live element
-    b_ms, b_by = bound_ms(rows_read * F * 4 + flat.numel() * 8 + B * F * 4,
-                          2 * n_live * F)
+    # each live row the ids name read once, the ids and a weight tensor read
+    # once (a number weight is no bytes), the output written once; two flops
+    # per live element
+    w_bytes = weights.numel() * 4 if isinstance(weights, torch.Tensor) else 0
+    b_ms, b_by = bound_ms(rows_read * F * 4 + flat.numel() * 4 + w_bytes
+                          + B * F * 4, 2 * n_live * F)
     row = dict(
-        name="embedding_bag", shape=name, bags=B, slots=flat.numel(),
+        name="embedding_bag", shape=name, kernel=kernel_route(B, L, F),
+        bags=B, slots=flat.numel(),
         live_slots=n_live, rows_read=rows_read, F=F,
         max_abs_err=float(err.max()), bit_identical_repeat=True,
-        ms=timer.ms(kern), plain_ms=timer.ms(plain),
+        # 100 calls a timing: at 0.04 ms a call, 5 would also time the
+        # wrapper's host launch cost before the first one reaches the card
+        ms=timer.ms(kern, EMB_TIMED_CALLS),
+        plain_ms=timer.ms(plain, EMB_TIMED_CALLS),
         library_ms=timer.ms(lambda: emb_bag(lib_ids, table, offsets,
                                             mode="sum",
-                                            per_sample_weights=lib_w)),
+                                            per_sample_weights=lib_w),
+                            EMB_TIMED_CALLS),
         bound_ms=b_ms, bound_by=b_by)
     say("recsys.kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                             for k, v in row.items()})
@@ -1112,9 +1167,8 @@ def recsys_kernel_checks(torch, timer, dev, gen, table, bulk_seq, cands,
     """Each recsys kernel against its plain version at the path's shapes."""
     rows = []
     ids = torch.where(bulk_seq == 0, -1, bulk_seq).reshape(-1, 1)
-    w = torch.full((), d ** 0.5, dtype=torch.float32, device=dev)
     rows.append(time_embedding_bag(torch, timer, "serve_bulk chunk lookup",
-                                   table, ids, w))
+                                   table, ids, d ** 0.5))
     V = table.shape[0]
     B, L = BAG_CHECK_BAGS, BAG_CHECK_SLOTS
     ids = torch.randint(1, V, (B, L), generator=gen, device=dev,
@@ -1364,6 +1418,9 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
         nvcc_seconds=f"{backend.last_build_seconds:.2f}")
     report["build_seconds"] = backend.last_build_seconds
     report["flash_build"] = flash_build_report(torch, backend)
+    report["flash_f32_build"] = flash_build_report(
+        torch, backend, "flash_attention", "flash_fwd_tf32", 4,
+        "setup.flash_f32_sass", "as ptxas gives them")
     clock_mhz = float(smi_line("clocks.max.sm", "csv,noheader,nounits"))
     report["sm_clock_max_mhz"] = clock_mhz
 

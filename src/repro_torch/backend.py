@@ -49,10 +49,11 @@ _SIGNATURES = {
                                                           _VP)),
     "block_gather": ("block_gather_f32", (_VP, _VP, _VP, _I64, _I64, _I64,
                                           _VP)),
-    # float32 on the CUDA cores: q, k, v, o, B, H, KVH, S, D, (batch, head,
-    # row) strides of q, k and v, scale, causal, window, softcap, stream
+    # float32 on the tensor cores (split TF32): q, k, v, o, workspace,
+    # workspace floats, B, H, KVH, S, D, (batch, head, row) strides of q, k
+    # and v, scale, causal, window, softcap, stream
     "flash_attention": ("flash_attention_fwd",
-                        (_VP,) * 4 + (_I32,) * 5 + (_I64,) * 9
+                        (_VP,) * 5 + (_I64,) + (_I32,) * 5 + (_I64,) * 9
                         + (_F32, _I32, _I32, _F32, _VP)),
     # bf16 on the tensor cores: q, k, v, o, B, H, KVH, S, D, (batch, head,
     # row) strides of q, k and v, scale, causal, window, softcap, stream
@@ -64,10 +65,20 @@ _SIGNATURES = {
     # stream
     "paged_attention": ("paged_attention_fwd",
                         (_VP,) * 8 + (_I32,) * 9 + (_F32, _I32, _F32, _VP)),
-    # table, ids, weights (or NULL), row_ptr (or NULL), out, num_bags,
-    # bag_len, F, V, stream
+    # table, ids, weights (one a slot, or NULL), weight (every slot's when
+    # NULL), row_ptr (or NULL), out, num_bags, bag_len, F, V, stream
     "embedding_bag": ("embedding_bag_f32",
-                      (_VP,) * 5 + (_I64, _I64, _I32, _I64, _VP)),
+                      (_VP,) * 3 + (_F32, _VP, _VP, _I64, _I64, _I32, _I64,
+                                    _VP)),
+}
+
+# C functions that size a kernel's buffers and launch nothing: name ->
+# (source, symbol, argument types), each returning a 64-bit count
+_QUERIES = {
+    # floats of the float32 flash kernel's workspace: B, H, KVH, S, D
+    "flash_attention_workspace": ("flash_attention",
+                                  "flash_attention_workspace_floats",
+                                  (_I32,) * 5),
 }
 
 # the element-type flag of the attention kernels' entry points
@@ -79,6 +90,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 PLAN_BUILDS = 0
 
 _kernels: Dict[str, ctypes._CFuncPtr] = {}
+_queries: Dict[str, ctypes._CFuncPtr] = {}
 last_build_seconds: Optional[float] = None
 # seconds from the start of the last build to each source's library
 last_build_seconds_by_source: Dict[str, float] = {}
@@ -178,7 +190,19 @@ def load_kernels() -> Dict[str, ctypes._CFuncPtr]:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _kernels[name] = fn
+    for name, (source, symbol, argtypes) in _QUERIES.items():
+        fn = getattr(ctypes.CDLL(str(libs[source])), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_longlong
+        _queries[name] = fn
     return _kernels
+
+
+def query(name: str, *args) -> int:
+    """Call the sizing function ``name`` of :data:`_QUERIES` (no launch,
+    no launch count)."""
+    load_kernels()
+    return int(_queries[name](*args))
 
 
 def launch(name: str, *args) -> None:

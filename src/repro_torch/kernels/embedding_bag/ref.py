@@ -11,12 +11,15 @@ def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def embedding_bag_ref(table: torch.Tensor, bag_ids: torch.Tensor,
                       weights=None) -> torch.Tensor:
-    """bag_ids [B, L] (-1 = padding), weights broadcastable to [B, L] or
-    None (sum mode) -> [B, F]."""
+    """bag_ids [B, L] (-1 = padding), weights broadcastable to [B, L], a
+    number, or None (sum mode) -> [B, F]."""
     B, L = bag_ids.shape
     if weights is None:
-        weights = torch.ones((), dtype=table.dtype, device=table.device)
-    w = weights.expand(B, L) * (bag_ids >= 0)
+        weights = 1.0
+    if isinstance(weights, torch.Tensor):
+        w = weights.expand(B, L) * (bag_ids >= 0)
+    else:        # a number, applied in the table's type (no host copy)
+        w = (bag_ids >= 0).to(table.dtype) * weights
     return (_rows(table, bag_ids) * w[:, :, None]).sum(1)
 
 

@@ -6,7 +6,9 @@ kernels (``csrc/flash_attention_wgmma.cu`` for bf16,
 ``impl="xla"``); ``impl="cuda"`` goes through :func:`flash_attention`, which
 runs the plain version for a CPU tensor and launches a kernel for a CUDA
 tensor.  Unlike the Pallas kernel, the CUDA ones take any S (they mask the
-ragged tile) and q / k / v views whose last axis is contiguous.
+ragged tile) and q / k / v views whose last axis is contiguous.  Both run
+on the tensor cores: bf16 as it is, float32 through split TF32 (each
+operand as a TF32 high part and a TF32 remainder, three products for one).
 """
 from __future__ import annotations
 
@@ -57,11 +59,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, H, S, D]; k, v [B, KVH, S, D] with H % KVH == 0 -> o [B, H, S, D].
 
     A CPU tensor takes the plain version; a CUDA tensor launches a kernel,
-    chosen by dtype: bfloat16 goes to the tensor-core kernel
-    (``flash_attention_wgmma``: wgmma and TMA, D a multiple of 8), float32
-    to the CUDA-core kernel (``flash_attention``).  That is a dispatch on the
-    type, not a fallback: a bf16 call that cannot build or launch its kernel
-    raises.
+    chosen by dtype: bfloat16 goes to ``flash_attention_wgmma`` (wgmma and
+    TMA, D a multiple of 8), float32 to ``flash_attention`` (split TF32 on
+    wgmma: its prep kernels write hi / lo copies of q and k and of v
+    transposed, zero-padded to the head-dim template, into a workspace this
+    wrapper allocates at the size the C side gives, then the attention
+    kernel runs).  That is a dispatch
+    on the type, not a fallback: a call that cannot build or launch its
+    kernel raises.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -83,8 +88,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    n_ws = backend.query("flash_attention_workspace", B, H, k.shape[1], S,
+                         D)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     backend.launch("flash_attention", q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), o.data_ptr(), B, H, k.shape[1], S, D,
+                   v.data_ptr(), o.data_ptr(), ws.data_ptr(), n_ws, B, H,
+                   k.shape[1], S, D,
                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                    float(scale), int(bool(causal)), int(window),
                    float(softcap))

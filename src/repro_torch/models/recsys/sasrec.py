@@ -86,14 +86,15 @@ def embed(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
     """``item_emb[seq] * sqrt(d) + pos_emb``, zero at the pads: [B, S, d].
 
     The lookup is an EmbeddingBag of one slot per position, weight sqrt(d)
-    rounded to float32 (as JAX rounds ``d ** 0.5``), id -1 at the pads.
+    rounded to float32 (as JAX rounds ``d ** 0.5``; the wrapper takes the
+    number as it is, with no [B*S, 1] weight tensor), id -1 at the pads.
     """
     B, S = seq.shape
     d = cfg.embed_dim
     table = params["item_emb"]
     pad = seq == 0
     ids = torch.where(pad, -1, seq).reshape(B * S, 1)
-    w = torch.full((), d ** 0.5, dtype=torch.float32, device=table.device)
+    w = d ** 0.5
     lookup = embedding_bag if resolve_impl(impl) == "cuda" \
         else embedding_bag_ref
     h = lookup(table, ids, w).reshape(B, S, d) + params["pos_emb"][None, :S]

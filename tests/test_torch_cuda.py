@@ -259,6 +259,48 @@ def test_embedding_bag_kernel_one_slot_bags_are_exact(gen, offset):
     assert not got[ids[:, 0] < 0].any()
 
 
+@pytest.mark.parametrize("F", [50, 49, 64])
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
+def test_embedding_bag_short_kernel_is_exact(gen, L, F):
+    """Fixed-length bags of 1-4 slots go to the short-bag kernel: one-slot
+    bags bit for bit the plain version; 2-4 slots within rtol 1e-5 of a
+    float64 sum and bit for bit the warp-per-bag kernel (both fmaf in slot
+    order; the plain version rounds each product before it adds).  Ids -1
+    and >= V among the slots; a number, a one-element tensor and a tensor
+    of weights; bit-identical on a repeat."""
+    from repro_torch import backend
+    from repro_torch.kernels import (embedding_bag, embedding_bag_ref,
+                                     embedding_bag_sorted)
+    from repro_torch.kernels.embedding_bag.ops import kernel_route
+    V, B = 4_000, 20_001
+    assert kernel_route(B, L, F) == "short_bags"
+    assert kernel_route(B, 0, F) == "warp_per_bag"
+    table = torch.rand((V, F), generator=gen, device="cuda")
+    ids = torch.randint(-1, V + 5, (B, L), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w_bag = torch.rand((B, L), generator=gen, device="cuda")
+    seg = torch.arange(B, dtype=torch.int32,
+                       device="cuda").repeat_interleave(L)
+    for w in (None, 7.0710678, torch.full((), 0.37, device="cuda"), w_bag):
+        before = backend.LAUNCHES["embedding_bag"]
+        got = embedding_bag(table, ids, w)
+        assert backend.LAUNCHES["embedding_bag"] == before + 1
+        assert torch.equal(got, embedding_bag(table, ids, w))
+        assert not got[(ids < 0).all(dim=1)].any()
+        if L == 1:
+            assert torch.equal(got, embedding_bag_ref(table, ids, w))
+        wd = w.double() if isinstance(w, torch.Tensor) else w
+        torch.testing.assert_close(
+            got.double(), embedding_bag_ref(table.double(), ids, wd),
+            **BAG_TOL)
+        w_flat = torch.ones((B, L), device="cuda") if w is None else (
+            torch.tensor(w, dtype=torch.float32, device="cuda")
+            if not isinstance(w, torch.Tensor) else w).expand(B, L)
+        warp = embedding_bag_sorted(table, ids.reshape(-1), seg,
+                                    w_flat.reshape(-1).contiguous(), B)
+        assert torch.equal(got, warp)
+
+
 def test_sasrec_on_the_card_matches_the_host(gen):
     """SASRec at the smoke config: the same weights and histories on the
     card (both kernels) and on the host (plain versions)."""
@@ -390,6 +432,78 @@ def test_flash_attention_bf16_tile_edges(gen, S, D):
     """bf16 through the tensor-core kernel around the 128-row query tile
     and the 128-key (64 at D 256) kv tile, every head width template."""
     _flash_case(gen, torch.bfloat16, 1, 4, 2, S, D, True, 0, 50.0)
+
+
+@pytest.mark.parametrize("S", [32, 33, 64, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("D", [16, 20, 32, 64, 96, 128, 256])
+def test_flash_attention_f32_tile_edges(gen, S, D):
+    """float32 through the split-TF32 kernel around its query tiles (64
+    rows a warpgroup, 128 a CTA; 64 at D 256) and its kv tiles (64 keys at
+    D <= 64, 32 above), every head-dim template (DP 32, 64, 128, 256) and a
+    D off the 8-column grid."""
+    _flash_case(gen, torch.float32, 1, 4, 2, S, D, True, 0, 50.0)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("window", [100, 4096])
+def test_flash_attention_f32_groups_and_windows(gen, G, window):
+    """float32: windows inside S and past it, 1, 2 and 4 query heads to a
+    kv head, the model's strided [B, S, H, D] views."""
+    _flash_case(gen, torch.float32, 2, 2 * G, 2, 700, 128, True, window,
+                50.0, strided=True)
+
+
+def _attention_f64(q, k, v, *, scale, causal, window, softcap):
+    """The plain attention in float64: the exact answer to hold float32
+    results to."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    qg = q.double().reshape(B, KVH, H // KVH, S, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.double()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)
+    live = pos[:, None] >= pos[None, :] if causal else \
+        torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if window > 0:
+        live &= (pos[:, None] - pos[None, :]) < window
+    p = torch.softmax(torch.where(live, s, -1e30), dim=-1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, v.double()) \
+        .reshape(B, H, S, D)
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,window,cap", [
+    (2, 4, 2, 64, 16, 8, 50.0),        # the Gemma-2 smoke config, local
+    (2, 4, 2, 64, 16, 0, 50.0),        # and global layer
+    (1, 4, 2, 512, 128, 0, 50.0),      # the 27B head
+    (1, 2, 1, 300, 64, 96, 0.0),       # a window, no softcap
+    (1, 2, 2, 512, 256, 0, 50.0),      # the widest head
+])
+def test_flash_attention_f32_twice_the_input_scale(gen, B, H, KVH, S, D,
+                                                   window, cap):
+    """float32 at twice standard-normal inputs (logits four times as
+    large): the split-TF32 kernel within 1e-4 |exact| + 1e-5 of the float64
+    answer.  Split TF32 keeps 22 of float32's 24 bits, so its margin shrinks
+    with the logits; float32 done plainly loses margin the same way (at
+    D 256 the plain version misses this bound).  With every S product in
+    one accumulator the kernel missed it at D 128 and 256: this holds the
+    separate accumulator of the small products.  Prints the worst err /
+    bound of the kernel and of the float32 plain version against the
+    float64 answer."""
+    from repro_torch.kernels import attention_ref, flash_attention
+    q, k, v = (2 * torch.randn((B, n, S, D), generator=gen, device="cuda")
+               for n in (H, KVH, KVH))
+    kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=cap)
+    exact = _attention_f64(q, k, v, **kw)
+    bound = 1e-4 * exact.abs() + 1e-5
+    got = flash_attention(q, k, v, **kw)
+    kernel = float(((got.double() - exact).abs() / bound).max())
+    plain = float(((attention_ref(q, k, v, **kw).double() - exact).abs()
+                   / bound).max())
+    print(f"x2 S={S} D={D} window={window}: worst err/bound kernel "
+          f"{kernel:.3f}, float32 plain {plain:.3f}")
+    assert kernel <= 1.0, f"kernel err/bound {kernel:.3f}"
+    assert torch.equal(got, flash_attention(q, k, v, **kw))
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])

@@ -17,6 +17,7 @@ from repro.kernels.embedding_bag.kernel import \
     embedding_bag_sorted as j_sorted  # noqa: E402
 from repro_torch import backend  # noqa: E402
 from repro_torch.kernels import embedding_bag, embedding_bag_sorted  # noqa
+from repro_torch.kernels.embedding_bag.ops import kernel_route  # noqa: E402
 
 from torch_parity import assert_exact, t  # noqa: E402
 
@@ -98,6 +99,36 @@ def test_sorted_drops_slots_outside_the_bags():
     assert torch.equal(got, torch.stack([table[2], torch.zeros(3), table[3]]))
 
 
+@pytest.mark.parametrize("num_bags,bag_len,F,route", [
+    (204_800, 1, 50, "short_bags"),     # the SASRec bulk-chunk lookup
+    (512 * 50, 1, 50, "short_bags"),    # a serve_p99 request's lookup
+    (10, 4, 49, "short_bags"),          # the longest short bag, odd F
+    (65_536, 32, 50, "warp_per_bag"),   # long weighted bags
+    (65_536, 5, 50, "warp_per_bag"),
+    (65_536, 0, 50, "warp_per_bag"),    # a ragged stream (sorted wrapper)
+    (0, 1, 50, "warp_per_bag"),         # nothing to launch
+])
+def test_kernel_route_is_a_function_of_the_shape(num_bags, bag_len, F, route):
+    assert kernel_route(num_bags, bag_len, F) == route
+
+
+@pytest.mark.parametrize("L", [1, 3])
+def test_scalar_weight_gives_the_expanded_weights_bits(L):
+    """A number, a one-element tensor and the weights expanded to [B, L]
+    give the same bits (the number rounded to float32 first)."""
+    rng = np.random.default_rng(8 + L)
+    table = t(rng.standard_normal((500, 50)).astype(np.float32))
+    ids = t(rng.integers(-1, 520, (300, L)).astype(np.int32))
+    w = 50 ** 0.5
+    full = embedding_bag(table, ids, torch.full((300, L), w))
+    assert torch.equal(embedding_bag(table, ids, w), full)
+    assert torch.equal(embedding_bag(table, ids, torch.tensor(w)), full)
+    assert torch.equal(embedding_bag(table, ids, torch.full((1, 1), w)),
+                       full)
+    assert torch.equal(embedding_bag(table, ids, 1), embedding_bag(table,
+                                                                   ids))
+
+
 def test_wrappers_reject_bad_inputs():
     ids = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -109,6 +140,8 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         embedding_bag(torch.zeros(4, 2), ids, torch.ones(2, 3,
                                                          dtype=torch.float64))
+    with pytest.raises(TypeError):
+        embedding_bag(torch.zeros(4, 2), ids, "1.0")
     with pytest.raises(ValueError):
         embedding_bag(torch.zeros(4, 2), ids.reshape(-1))
     with pytest.raises(ValueError):
