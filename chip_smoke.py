@@ -26,10 +26,33 @@ Phases, one report line each:
    ``apply`` + ``flush`` with point reads of just-inserted and just-deleted
    pairs after each, then the same analytics warm;
 5. checks: ranks sum to 1, PageRank with ``impl="torch"`` agrees with the
-   kernel path, both kernels launched on the main path; a cold PageRank
-   through each route, the kernel route building one sweep plan and
-   launching each graph kernel once per iteration, and the plan's build
-   time;
+   kernel path, both kernels launched on the main path and ``chain_walk``
+   on its flushes and reads (flush s per 1 M updates and read pairs/s
+   printed beside the host-loop walk's); a cold PageRank through each route, the kernel
+   route building one sweep plan and launching each graph kernel once per
+   iteration, and the plan's build time.  Then ``chain_walk`` against its
+   plain version at the service graph's shapes: locate on 2^20 queries
+   (half live pairs, half random, the longest chain's vertex among both)
+   and the rank walk on 2^16 vertices x 15 draws, each bit-identical to the
+   plain version and on a repeat, timed beside it, with its bound (the
+   blocks the walks read over the memory rate, or the longest walk's
+   dependent steps at WALK_STEP_NS each, whichever is larger); and
+   ``read_edges`` under ``torch.cuda.set_sync_debug_mode("error")``;
+5b. the serve phase: the same graph behind a serving ``GraphService``
+   (log of 8,192 records) and ``ServeFrontend`` with the plan of
+   ``choose_serve_plan(2000, ...)``.  Two tenants, ``fraud``
+   (read-your-writes, interactive) and ``dashboard`` (standard), send
+   20,000 requests on the host-made trace of ``serve_trace`` (Poisson at
+   2,000 a second: 60/20/20 point reads, degree reads and update batches
+   of 4-32 lanes, a 8-seed (15, 10) k-hop sample every 100 requests, a
+   batch-class PageRank every 2,000), replayed open loop on the wall
+   clock after an untimed warm replay of 1,000, with every launch counter
+   at 0.  It prints QPS, p50 / p99 by kind and tenant, flushes, epoch
+   advances, bucket shapes, launches, peak memory and one replica's
+   closed-loop read lanes/s.  Checks: every ticket completes, none shed,
+   versions never decrease per tenant and kind in submission order, the
+   walk and graph kernels launched, and once, with a pending window,
+   overlay point and degree reads equal to flush-then-read bit for bit;
 6. LM serving, once the graph state is freed: Gemma-2 27B at full width
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
@@ -110,6 +133,25 @@ LM_LAYERS, LM_REQUESTS, LM_DECODE, LM_CHECK_STEPS = 8, 8, 64, 4
 LM_PROMPT_MIN, LM_PROMPT_MAX = 2048, 7168
 FLASH_CHECK_HEADS = 4
 GRAPH_KERNELS = ("segment_sum", "block_gather")
+# the FindNeighbor chain walk's two entry points (point reads and the
+# flush's delete locate; the k-hop sampler's rank walk)
+WALK_KERNELS = ("chain_walk_locate", "chain_walk_rank")
+# serve phase: the trace of benchmarks/bench_serve.py and
+# examples/dynamic_graph_pagerank.py at LiveJournal size
+SERVE_REQUESTS, SERVE_WARM, SERVE_QPS = 20_000, 1_000, 2000.0
+SERVE_KHOP_EVERY, SERVE_PAGERANK_EVERY = 100, 2_000
+SERVE_KHOP_SEEDS, SERVE_FANOUT = 8, (15, 10)
+SERVE_LOG_CAPACITY = 8192
+SERVE_PROFILE_REQUESTS = 2_000
+WALK_QUERIES = 1 << 20
+# the least time of one dependent step of a chain walk: an L2 hit's round
+# trip on an H100 (~ 260-300 SM cycles at 1.755-1.98 GHz); a DRAM miss
+# takes ~ 2-3x that
+WALK_STEP_NS = 150.0
+# the flush and point reads while the walk was a host loop with one device
+# sync a chain step (this script, NVIDIA H100 80GB HBM3, 700 W)
+HOST_LOOP_FLUSH_S_PER_1M, HOST_LOOP_READ_PAIRS_PER_S = ("1.97-2.52",
+                                                        "0.5e5-1.5e5")
 # the bf16 serve path; the float32 kernel is driven by a float32 serve at
 # the smoke config
 LM_KERNELS = ("flash_attention_wgmma", "paged_attention")
@@ -539,6 +581,7 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
     say("service.warm", **{k: f"{v['seconds']:.3f}s/{v['iterations']}it"
                            for k, v in warm.items()})
     out["launches"] = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
+    out["walk_launches"] = {k: backend.LAUNCHES[k] for k in WALK_KERNELS}
     out["plan_builds"] = backend.PLAN_BUILDS
     report["service"] = out
     return ranks, ranks_warm
@@ -1386,7 +1429,22 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
           f"PageRank impl=torch vs cuda: max rel diff {rel:.3e}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the main path")
+    check(report["service"]["walk_launches"]["chain_walk_locate"] > 0,
+          "chain_walk never launched on the service's flushes and reads")
     report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rounds = report["service"]["rounds"]
+    vs = dict(
+        flush_s_per_1M=[r["flush_s"] * 1e6 / r["updates"] for r in rounds],
+        read_pairs_per_s=[r["read_pairs_per_s"] for r in rounds],
+        walk_launches=report["service"]["walk_launches"])
+    report["service_vs_host_loop"] = vs
+    say("service.vs_host_loop",
+        flush_s_per_1M="/".join(f"{x:.4g}" for x in vs["flush_s_per_1M"]),
+        host_loop_flush_s_per_1M=HOST_LOOP_FLUSH_S_PER_1M,
+        read_pairs_per_s="/".join(f"{x:.4g}"
+                                  for x in vs["read_pairs_per_s"]),
+        host_loop_read_pairs_per_s=HOST_LOOP_READ_PAIRS_PER_S,
+        walk_launches=vs["walk_launches"])
     say("checks", ranks_sum=f"{total:.6f}", torch_vs_cuda_max_rel=f"{rel:.3e}",
         launches=launches, plan_builds=report["service"]["plan_builds"])
     say("pagerank.routes",
@@ -1397,6 +1455,415 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
         plan_builds=kern["plan_builds"], launches=kern["launches"])
     report["checks"] = dict(ranks_sum=total, torch_vs_cuda_max_rel=rel)
     report["pagerank_routes"] = per_it
+
+    torch.cuda.reset_peak_memory_stats()
+    report["walk_kernels"] = walk_kernel_checks(torch, timer, dev,
+                                                svc.snapshot.cbl, seed)
+    serve_phase(torch, timer, dev, svc, seed, report, profile)
+
+
+# ---------------------------------------------------------------------------
+# the FindNeighbor chain walk against its plain version
+# ---------------------------------------------------------------------------
+
+def live_edges(torch, cbl):
+    """Every live (src, dst) of ``cbl`` on the device, in GTChain order."""
+    from repro_torch.core.cblist import to_coo
+    src, dst, _, _ = to_coo(cbl)
+    return src, dst
+
+
+def walk_bound(torch, cbl, rows, steps, n_bytes_io):
+    """(bound ms, bound_by, bytes bound ms, latency bound ms): the blocks
+    the walks must read (per distinct vertex its longest walk, a key row
+    and a next pointer each) with the queries and outputs over the memory
+    rate, against the longest walk's dependent round trips (one a block,
+    one for the head) at WALK_STEP_NS each."""
+    st = cbl.store
+    per_vertex = torch.zeros(cbl.capacity_vertices, dtype=torch.long,
+                             device=rows.device)
+    per_vertex.scatter_reduce_(0, rows, steps.long(), "amax")
+    blocks = int(per_vertex.sum())
+    heads = int((per_vertex > 0).sum())
+    nbytes = blocks * (st.block_width * 4 + 4) + heads * 4 + n_bytes_io
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    latency_ms = (int(steps.max()) + 1) * WALK_STEP_NS * 1e-6
+    return max(bytes_ms, latency_ms), "bytes", bytes_ms, latency_ms, blocks
+
+
+def walk_kernel_checks(torch, timer, dev, cbl, seed):
+    """``chain_walk`` at the service graph's shapes: locate on 2^20 queries
+    (half live pairs, half random pairs, the longest chain's vertex among
+    both) and the rank walk on k-hop draws, each bit-identical to its plain
+    version and on a repeat, timed beside it; ``read_edges`` under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.core.updates import read_edges
+    from repro_torch.graph.sampler import draw_ranks
+    from repro_torch.kernels.chain_walk import (locate, locate_ref,
+                                                rank_walk, rank_walk_ref)
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    st = cbl.store
+    nv = cbl.capacity_vertices
+    ls, ld = live_edges(torch, cbl)
+    half = WALK_QUERIES // 2
+    pick = torch.randint(0, ls.numel(), (half,), generator=gen, device=dev)
+    hub = int(torch.argmax(cbl.v_level))
+    qs = torch.cat([ls[pick], torch.randint(0, nv, (half,), generator=gen,
+                                            device=dev, dtype=torch.int32)])
+    qd = torch.cat([ld[pick], torch.randint(0, nv, (half,), generator=gen,
+                                            device=dev, dtype=torch.int32)])
+    on_hub = (ls == hub).nonzero().squeeze(1)
+    k = min(256, on_hub.numel())
+    qs[:k], qd[:k] = hub, ld[on_hub[-k:]]      # the chain's far end
+    qs[half:half + 256] = hub                   # mostly absent: all of it
+    del ls, ld, pick, on_hub
+    active = torch.ones(WALK_QUERIES, dtype=torch.bool, device=dev)
+    args = (st.keys, st.nxt, cbl.v_head, qs, qd, active)
+    got = locate(*args)
+    ref = locate_ref(*args)
+    for a, b in zip(got, ref):
+        check(torch.equal(a, b), "chain_walk locate differs from its plain "
+                                 "version")
+    check(all(torch.equal(a, b) for a, b in zip(got, locate(*args))),
+          "chain_walk locate differs on a repeat")
+    found = got[0] != -1
+    rows = qs.long().clamp(0, nv - 1)
+    steps = torch.where(found, st.seq[got[0].clamp(min=0).long()] + 1,
+                        cbl.v_level[rows])
+    b_ms, b_by, bytes_ms, lat_ms, blocks = walk_bound(
+        torch, cbl, rows, steps, WALK_QUERIES * (4 + 4 + 1 + 8))
+    rows_out = [dict(
+        name="chain_walk", shape=f"locate, {WALK_QUERIES} queries "
+        f"(half live pairs), width {st.block_width}",
+        found=int(found.sum()), longest_walk=int(steps.max()),
+        blocks_read=blocks, max_abs_err=0.0,
+        ms=timer.ms(lambda: locate(*args)),
+        plain_ms=timer.ms(lambda: locate_ref(*args), 1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        bytes_bound_ms=bytes_ms, latency_bound_ms=lat_ms,
+        latency_ns_per_step=WALK_STEP_NS)]
+    say("kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                     for k, v in rows_out[0].items()})
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        read_edges(cbl, qs[:65536], qd[:65536])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    say("checks.read_edges_sync", sync_debug_mode="error", raised=False)
+
+    verts = torch.cat([qs[:16], qs[half:half + (1 << 16) - 16]])
+    kk = SERVE_FANOUT[0]
+    ranks = draw_ranks(cbl, verts, gen, kk)
+    rrows = verts.long()
+    deg = cbl.v_deg[rrows]
+    heads = torch.where(deg > 0, cbl.v_head[rrows], -1).to(torch.int32)
+    rargs = (st.keys, st.count, st.nxt, heads, ranks)
+    rgot = rank_walk(*rargs)
+    check(torch.equal(rgot, rank_walk_ref(*rargs)),
+          "chain_walk rank walk differs from its plain version")
+    check(torch.equal(rgot, rank_walk(*rargs)),
+          "chain_walk rank walk differs on a repeat")
+    ok = (deg > 0)[:, None].expand_as(ranks)
+    rsteps = torch.where(ok, ranks // st.block_width + 1, 0)
+    b_ms, b_by, bytes_ms, lat_ms, blocks = walk_bound(
+        torch, cbl, rrows[:, None].expand_as(ranks).reshape(-1),
+        rsteps.reshape(-1), ranks.numel() * 8 + verts.numel() * 4)
+    rows_out.append(dict(
+        name="chain_walk_rank", shape=f"rank walk, {verts.numel()} vertices "
+        f"x {kk} draws, width {st.block_width}",
+        found=int((rgot != -1).sum()), longest_walk_at_least=int(
+            rsteps.max()), blocks_read_at_least=blocks, max_abs_err=0.0,
+        ms=timer.ms(lambda: rank_walk(*rargs)),
+        plain_ms=timer.ms(lambda: rank_walk_ref(*rargs), 1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        bytes_bound_ms=bytes_ms, latency_bound_ms=lat_ms,
+        latency_ns_per_step=WALK_STEP_NS))
+    say("kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                     for k, v in rows_out[1].items()})
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
+# serving: the two-tenant trace through ServeFrontend
+# ---------------------------------------------------------------------------
+
+def serve_trace(torch, dev, cbl, n, seed):
+    """``n`` (arrival s, request) pairs on the host from ``seed``: Poisson
+    arrivals at SERVE_QPS; a KHopSample every SERVE_KHOP_EVERY requests
+    (alternately fraud and dashboard), a batch-class PageRank every
+    SERVE_PAGERANK_EVERY; the rest 60/20/20 point reads, degree reads and
+    update batches of 4-32 lanes.  Updates are fraud's (batch class): 20 %
+    deletes of live edges (without replacement), 80 % fresh inserts.  Half
+    the point reads ask for pairs the trace updated earlier, the rest for
+    live edges; reads are fraud's (interactive, read-your-writes) or the
+    dashboard's (standard) at even odds."""
+    import numpy as np
+    from repro_torch.core.updates import read_edges
+    from repro_torch.serve import (Analytics, DegreeRead, KHopSample,
+                                   PointRead, UpdateBatch)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    nv = cbl.capacity_vertices
+    arrivals = np.cumsum(rng.exponential(1.0 / SERVE_QPS, n))
+    sizes = rng.integers(4, 33, n)
+    kinds = rng.choice(3, n, p=[0.6, 0.2, 0.2])
+    pos = np.arange(n)
+    kinds[pos % SERVE_KHOP_EVERY == SERVE_KHOP_EVERY - 1] = 3
+    kinds[pos % SERVE_PAGERANK_EVERY == SERVE_PAGERANK_EVERY - 1] = 4
+    n_upd = int(sizes[kinds == 2].sum())
+    is_del = rng.random(n_upd) < DELETE_FRAC
+    n_del, n_ins = int(is_del.sum()), int((~is_del).sum())
+    n_live = n_del + int(sizes[kinds == 0].sum()) + 8 * int((kinds == 3).sum())
+    ls, ld = live_edges(torch, cbl)
+    pick = torch.randperm(ls.numel(), generator=gen, device=dev)[:n_live]
+    live_s, live_d = ls[pick].cpu().numpy(), ld[pick].cpu().numpy()
+    del ls, ld, pick
+    ins_s = rng.integers(0, nv, n_ins).astype(np.int32)
+    ins_d = rng.integers(0, nv, n_ins).astype(np.int32)
+    while True:                      # fresh: absent from the graph and once
+        found, _ = read_edges(cbl, torch.from_numpy(ins_s).to(dev),
+                              torch.from_numpy(ins_d).to(dev))
+        dup = np.zeros(n_ins, bool)
+        key = ins_s.astype(np.int64) * nv + ins_d
+        _, first = np.unique(key, return_index=True)
+        dup[np.setdiff1d(np.arange(n_ins), first)] = True
+        redo = found.cpu().numpy() | dup
+        if not redo.any():
+            break
+        ins_s[redo] = rng.integers(0, nv, int(redo.sum()))
+        ins_d[redo] = rng.integers(0, nv, int(redo.sum()))
+    upd_s = np.empty(n_upd, np.int32)
+    upd_d = np.empty(n_upd, np.int32)
+    upd_s[is_del], upd_d[is_del] = live_s[:n_del], live_d[:n_del]
+    upd_s[~is_del], upd_d[~is_del] = ins_s, ins_d
+    upd_op = np.where(is_del, -1, 1).astype(np.int32)
+    upd_w = (0.1 + 0.9 * rng.random(n_upd)).astype(np.float32)
+    lp, up, khops, trace = n_del, 0, 0, []
+    for i in range(n):
+        m = int(sizes[i])
+        tenant = "fraud" if rng.random() < 0.5 else "dashboard"
+        cls = "interactive" if tenant == "fraud" else "standard"
+        if kinds[i] == 0:
+            if up and rng.random() < 0.5:
+                j = rng.integers(0, up, m)
+                qs, qd = upd_s[j], upd_d[j]
+            else:
+                qs, qd = live_s[lp:lp + m], live_d[lp:lp + m]
+                lp += m
+            req = PointRead(qsrc=qs, qdst=qd, tenant=tenant,
+                            latency_class=cls)
+        elif kinds[i] == 1:
+            req = DegreeRead(verts=rng.integers(0, nv, m), tenant=tenant,
+                             latency_class=cls)
+        elif kinds[i] == 2:
+            sl = slice(up, up + m)
+            up += m
+            req = UpdateBatch(src=upd_s[sl], dst=upd_d[sl], w=upd_w[sl],
+                              op=upd_op[sl], tenant="fraud",
+                              latency_class="batch")
+        elif kinds[i] == 3:
+            tenant = ("fraud", "dashboard")[khops % 2]
+            khops += 1
+            req = KHopSample(seeds=live_s[lp:lp + SERVE_KHOP_SEEDS], seed=i,
+                             tenant=tenant, latency_class=(
+                                 "interactive" if tenant == "fraud"
+                                 else "standard"))
+            lp += SERVE_KHOP_SEEDS
+        else:
+            req = Analytics(name="pagerank", tenant="dashboard",
+                            latency_class="batch")
+        trace.append((float(arrivals[i]), req))
+    return trace
+
+
+def serve_frontend(svc, clock=None):
+    from repro_torch.serve import ServeFrontend, choose_serve_plan
+    plan = choose_serve_plan(SERVE_QPS, mean_lanes_per_request=18.0,
+                             log_capacity=svc._log.capacity,
+                             high_watermark=svc._high_watermark)
+    front = ServeFrontend(svc, plan, clock=clock, fanout=SERVE_FANOUT)
+    front.register_tenant("fraud", read_your_writes=True)
+    front.register_tenant("dashboard")
+    return front
+
+
+def serve_replay(torch, front, trace):
+    """Open loop on the wall clock: each request submitted at its arrival
+    time with ``step()`` pumped in between; a ticket's latency runs from
+    its arrival to the end of the step that completed it.  Returns
+    ([(arrival, ticket, latency s)], wall s)."""
+    clock = front.clock
+    t0 = clock()
+    out, waiting = [], []
+
+    def pump():
+        if front.step() and waiting:
+            t = clock()
+            for w in [w for w in waiting if w[1].done]:
+                out.append((w[0], w[1], t - w[0]))
+                waiting.remove(w)
+
+    for arr, req in trace:
+        due = t0 + arr
+        while clock() < due:
+            pump()
+        waiting.append((due, front.submit(req)))
+        pump()
+    while waiting:
+        pump()
+    torch.cuda.synchronize()
+    return out, clock() - t0
+
+
+def warm_replay(svc, trace):
+    """The trace on a virtual clock, drained and flushed: every request
+    kind and bucket shape once before the timed replay."""
+    from repro_torch.serve import ManualClock
+    clock = ManualClock()
+    front = serve_frontend(svc, clock)
+    for arr, req in trace:
+        clock.advance(max(arr - clock.t, 0.0))
+        front.submit(req)
+        front.step()
+    front.drain(flush=True)
+
+
+def replica_capacity(front, trace, batches: int = 50) -> float:
+    """Point-read lanes a second one replica serves closed loop: the
+    trace's point reads in largest-bucket batches through the read plane,
+    each collected (one sync and host copy) before the next."""
+    import numpy as np
+    from repro_torch.serve.scheduler import _fetch
+    reads = [r for _, r in trace if r.kind == "point_read"]
+    qs = np.concatenate([r.qsrc for r in reads])
+    qd = np.concatenate([r.qdst for r in reads])
+    cap = front.plan.bucket_set[-1]
+    n = min(batches, qs.size // cap)
+    plane = front.read_plane
+    _fetch(plane.query_edges(qs[:cap], qd[:cap])[1])
+    t0 = time.perf_counter()
+    for i in range(n):
+        sl = slice(i * cap, (i + 1) * cap)
+        _fetch(plane.query_edges(qs[sl], qd[sl])[1])
+    return n * cap / (time.perf_counter() - t0)
+
+
+def _pcts(xs):
+    import numpy as np
+    xs = np.asarray(xs) * 1e3
+    return dict(n=int(xs.size), p50_ms=float(np.percentile(xs, 50)),
+                p99_ms=float(np.percentile(xs, 99))) if xs.size else dict(n=0)
+
+
+def serve_phase(torch, timer, dev, svc, seed, report, profile=False):
+    """The serve phase: the graph of phases 4-5 behind a serving
+    GraphService (the example's log size) and ServeFrontend; a warm replay
+    on a virtual clock, the timed open-loop replay with every launch
+    counter at 0, its checks, and the overlay against flush-then-read."""
+    import numpy as np
+    from repro_torch import backend
+    from repro_torch.serve import overlay as ov
+    from repro_torch.stream.service import GraphService
+    cbl = svc.snapshot.cbl
+    serve_svc = GraphService(cbl, log_capacity=SERVE_LOG_CAPACITY)
+    (trace, warm), gen_s = timer.wall(lambda: (
+        serve_trace(torch, dev, cbl, SERVE_REQUESTS, seed + 23),
+        serve_trace(torch, dev, cbl, SERVE_WARM, seed + 29)))
+    _, warm_s = timer.wall(lambda: warm_replay(serve_svc, warm))
+    front = serve_frontend(serve_svc, time.perf_counter)
+    epoch0, flushes0 = serve_svc.epoch, serve_svc.stats.flushes
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    done, wall = serve_replay(torch, front, trace)
+    launches = {k: backend.LAUNCHES[k] for k in WALK_KERNELS + GRAPH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    tickets = [t for _, t, _ in done]
+    check(len(done) == len(trace) and all(t.done for t in tickets),
+          "serve: a ticket did not complete")
+    check(not any(t.shed for t in tickets), "serve: a ticket was shed")
+    by_submit = sorted(done, key=lambda r: r[1].id)
+    last = {}
+    for _, t, _ in by_submit:
+        key = (t.request.tenant, t.request.kind)
+        check(last.get(key, (-1, -1)) <= t.version,
+              f"serve: {key} versions went from {last.get(key)} to "
+              f"{t.version}")
+        last[key] = t.version
+    lat_kind, lat_tenant = {}, {}
+    for _, t, lat in done:
+        lat_kind.setdefault(t.request.kind, []).append(lat)
+        lat_tenant.setdefault(t.request.tenant, []).append(lat)
+    rep = front.report()
+    out = dict(
+        requests=len(trace), wall_s=wall, qps=len(trace) / wall,
+        trace_seconds=gen_s, warm_replay_s=warm_s,
+        latency_by_kind={k: _pcts(v) for k, v in sorted(lat_kind.items())},
+        latency_by_tenant={k: _pcts(v) for k, v in
+                           sorted(lat_tenant.items())},
+        flushes=serve_svc.stats.flushes - flushes0,
+        epoch_advances=serve_svc.epoch - epoch0,
+        interleaved_flushes=rep["service"]["interleaved_flushes"],
+        bucket_shapes={k: v["buckets"] for k, v in rep["kinds"].items()},
+        dispatches={k: v["dispatches"] for k, v in rep["kinds"].items()},
+        plan=dict(buckets=list(front.plan.bucket_set),
+                  windows=front.plan.windows,
+                  flush_pending_max=front.plan.flush_pending_max),
+        launches=launches, max_memory_allocated=peak)
+    check(launches["chain_walk_locate"] > 0 and launches["chain_walk_rank"]
+          > 0, "serve: chain_walk not launched on the serve path")
+    check(launches["segment_sum"] > 0 and launches["block_gather"] > 0,
+          "serve: PageRank did not go through the graph kernels")
+    point_lanes = sum(t.request.size for t in tickets
+                      if t.request.kind == "point_read")
+    out["point_read_lanes_per_s"] = point_lanes / wall
+    out["replica_read_lanes_per_s"] = replica_capacity(front, trace)
+
+    # once, with a pending window: the overlay against flush-then-read
+    rng = np.random.default_rng(seed + 31)
+    upd = [r for _, r in trace if r.kind == "update"][-64:]
+    us = np.concatenate([r.src for r in upd])
+    ud = np.concatenate([r.dst for r in upd])
+    op = -np.concatenate([r.op for r in upd])          # undo them
+    serve_svc.apply(us, ud, np.concatenate([r.w for r in upd]), op)
+    check(serve_svc.pending_updates > 0, "serve: no pending window")
+    nvq = cbl.capacity_vertices
+    qs = torch.from_numpy(np.concatenate([us, rng.integers(0, nvq, 512)])
+                          .astype(np.int32)).to(dev)
+    qd = torch.from_numpy(np.concatenate([ud, rng.integers(0, nvq, 512)])
+                          .astype(np.int32)).to(dev)
+    pend = serve_svc.pending_view()
+    o_found, o_w = ov.overlay_point_reads(serve_svc.snapshot, pend, qs, qd)
+    o_deg = ov.overlay_degrees(serve_svc.snapshot, pend, qs)
+    serve_svc.flush()
+    f_found, f_w = serve_svc.query_edges(qs, qd)
+    check(torch.equal(o_found, f_found) and torch.equal(o_w, f_w),
+          "serve: overlay point reads differ from flush-then-read")
+    check(torch.equal(o_deg, serve_svc.query_degrees(qs)),
+          "serve: overlay degrees differ from flush-then-read")
+    out["overlay_checked_lanes"] = int(qs.numel())
+    if profile:
+        pfront = serve_frontend(serve_svc, time.perf_counter)
+        _, prof = profiled(torch, lambda: serve_replay(
+            torch, pfront, trace[:SERVE_PROFILE_REQUESTS]))
+        out["profile"] = prof
+        report["profile_serve"] = prof
+    report["serve"] = out
+    say("serve", qps=f"{out['qps']:.5g}", wall_s=f"{wall:.3f}",
+        **{f"{k}_p50_p99_ms": f"{v['p50_ms']:.3g}/{v['p99_ms']:.3g}"
+           for k, v in out["latency_by_kind"].items()},
+        **{f"{k}_p50_p99_ms": f"{v['p50_ms']:.3g}/{v['p99_ms']:.3g}"
+           for k, v in out["latency_by_tenant"].items()},
+        flushes=out["flushes"], epoch_advances=out["epoch_advances"],
+        bucket_shapes={k: len(v) for k, v in out["bucket_shapes"].items()},
+        launches=launches, max_memory_allocated=peak,
+        point_read_lanes_per_s=f"{out['point_read_lanes_per_s']:.4g}",
+        replica_read_lanes_per_s=f"{out['replica_read_lanes_per_s']:.4g}",
+        **({"device_busy_share": f"{out['profile']['device_busy_share']:.3f}"}
+           if profile else {}),
+        checks="complete,no_shed,versions,overlay")
+
 
 
 def run(report: dict, scale: float = 1.0, seed: int = 0,
@@ -1467,6 +1934,16 @@ def kernels_line(report: dict) -> dict:
         "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag/kernel.py:38"),
     }
+    # no Pallas kernel: the JAX package walks chains in lax.while_loops
+    walk_meta = {
+        "chain_walk": ("src/repro_torch/csrc/chain_walk.cu",
+                       "src/repro/core/updates.py:49"),
+        "chain_walk_rank": ("src/repro_torch/csrc/chain_walk.cu",
+                            "src/repro/graph/sampler.py:35"),
+    }
+    serve_launches = report["serve"]["launches"]
+    walk_launches = {"chain_walk": serve_launches["chain_walk_locate"],
+                     "chain_walk_rank": serve_launches["chain_walk_rank"]}
     out = []
     for table, rows_key, main_shape, launch_counts in (
             (meta, "kernels", "push", launches),
@@ -1474,7 +1951,8 @@ def kernels_line(report: dict) -> dict:
             (lm_f32_meta, "lm_kernels", "f32 global",
              report["lm_f32"]["launches"]),
             (recsys_meta, "recsys_kernels", "serve_bulk",
-             report["recsys"]["launches"])):
+             report["recsys"]["launches"]),
+            (walk_meta, "walk_kernels", "", walk_launches)):
         for name, (source, replaces) in table.items():
             rows = [r for r in report[rows_key] if r["name"] == name]
             main = next(r for r in rows if r["shape"].startswith(main_shape))
@@ -1485,6 +1963,12 @@ def kernels_line(report: dict) -> dict:
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"], shape=main["shape"]))
+        if table is walk_meta:       # the bound's two terms, as measured
+            for row, name in zip(out[-2:], walk_meta):
+                main = next(r for r in report[rows_key] if r["name"] == name)
+                row.update(bytes_bound_ms=main["bytes_bound_ms"],
+                           latency_bound_ms=main["latency_bound_ms"],
+                           latency_ns_per_step=WALK_STEP_NS)
     return {"kernels": out}
 
 
@@ -1494,8 +1978,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0,
                     help="fraction of the LiveJournal-size graph")
     ap.add_argument("--profile", action="store_true",
-                    help="profile the last flush, the warm PageRank, the "
-                         "LM check's prefill, one replayed and one eager "
+                    help="profile the last flush, the warm PageRank, "
+                         "2,000 requests of the serve trace, the LM "
+                         "check's prefill, one replayed and one eager "
                          "paged decode step and one serve_bulk chunk of "
                          "SASRec (their times then include the profiler's "
                          "cost)")

@@ -6,7 +6,8 @@
 * :func:`resolve_impl` — the port's ``impl=`` convention: ``"torch"`` is the
   plain tensor-op oracle (the JAX package's ``"xla"``), ``"cuda"`` routes the
   ``combine="sum"`` sweeps, the LM's attention and the SASRec item
-  lookups through the hand-written kernels.  A kernel
+  lookups through the hand-written kernels (the chain walks of point
+  reads, deletes and the sampler always take theirs on the card).  A kernel
   wrapper handed a CPU tensor runs the kernel's plain version (the analogue
   of Pallas interpret mode); handed a CUDA tensor it launches the kernel.
 * :func:`load_kernels` — builds every ``csrc/*.cu`` with ``nvcc`` into
@@ -70,7 +71,17 @@ _SIGNATURES = {
     "embedding_bag": ("embedding_bag_f32",
                       (_VP,) * 3 + (_F32, _VP, _VP, _I64, _I64, _I32, _I64,
                                     _VP)),
+    # keys, nxt, v_head, qsrc, qdst, active, fblk, flane, n, width, NV,
+    # stream
+    "chain_walk_locate": ("chain_walk_locate",
+                          (_VP,) * 8 + (_I64, _I32, _I32, _VP)),
+    # keys, count, nxt, heads, ranks, out, V, k, width, stream
+    "chain_walk_rank": ("chain_walk_rank",
+                        (_VP,) * 6 + (_I64, _I32, _I32, _VP)),
 }
+# the source of a kernel whose name is not its source's stem
+_SOURCES = {"chain_walk_locate": "chain_walk",
+            "chain_walk_rank": "chain_walk"}
 
 # C functions that size a kernel's buffers and launch nothing: name ->
 # (source, symbol, argument types), each returning a 64-bit count
@@ -185,7 +196,7 @@ def load_kernels() -> Dict[str, ctypes._CFuncPtr]:
         return _kernels
     libs = build_kernels()
     for name, (symbol, argtypes) in _SIGNATURES.items():
-        lib = ctypes.CDLL(str(libs[name]))
+        lib = ctypes.CDLL(str(libs[_SOURCES.get(name, name)]))
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

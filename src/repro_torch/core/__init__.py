@@ -1,1 +1,26 @@
-"""CBList storage, updates, engine and vertex-program executor."""
+"""GastCoCo core in torch: CBList storage, batched updates, the engine's
+sweeps and the vertex-program executor (the port's share of
+``repro.core``'s public API)."""
+from repro_torch.core.blockstore import (NULL, PAD, BlockStore, alloc_blocks,
+                                         compact, free_blocks,
+                                         free_blocks_left, grow_store,
+                                         gtchain_contiguity, gtchain_order,
+                                         make_store, sort_blocks)
+from repro_torch.core.cblist import (CBList, block_fences, build_from_coo,
+                                     compact_cbl, degrees, empty, grow,
+                                     rebuild, to_coo)
+from repro_torch.core.updates import (DELETE, INSERT, NOP, UpdateStats,
+                                      add_vertices, batch_update,
+                                      batch_update_stats, delete_vertices,
+                                      read_edges, upsert_edges)
+from repro_torch.core.engine import (SEMIRINGS, Semiring, in_degrees,
+                                     out_degrees, process_edge_pull,
+                                     process_edge_push,
+                                     process_edge_push_feat, process_vertex)
+from repro_torch.core.program import (ProgramContext, Sweep, VertexProgram,
+                                      get_program, has_program,
+                                      register_program,
+                                      registered_programs, run_program)
+from repro_torch.core.traversal import (lane_mask, read_vertex, scan_edges,
+                                        scan_vertices)
+from repro_torch.core.tuner import choose_engine_impl

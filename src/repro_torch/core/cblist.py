@@ -37,6 +37,28 @@ class CBList(NamedTuple):
     def device(self) -> torch.device:
         return self.v_deg.device
 
+    @property
+    def num_edges(self) -> torch.Tensor:
+        return self.v_deg.sum()
+
+    @property
+    def max_chain(self) -> int:
+        """Static upper bound on chain length (every block on one vertex)."""
+        return self.store.num_blocks
+
+
+def empty(num_vertices: int, num_blocks: int, block_width: int = 128,
+          vertex_capacity: Optional[int] = None, device=None) -> CBList:
+    """A CBList with no edges; every block on the free stack."""
+    nv = vertex_capacity or num_vertices
+    return CBList(store=bs.make_store(num_blocks, block_width, device),
+                  v_deg=torch.zeros(nv, dtype=I32, device=device),
+                  v_level=torch.zeros(nv, dtype=I32, device=device),
+                  v_head=full32(nv, NULL, device),
+                  v_tail=full32(nv, NULL, device),
+                  n_vertices=torch.tensor(num_vertices, dtype=I32,
+                                          device=device))
+
 
 def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
     out = torch.zeros_like(x)
@@ -200,6 +222,10 @@ def blocks_needed(src: torch.Tensor, num_vertices: int,
     """Ceil-per-vertex block demand of a COO edge list (a host int)."""
     deg = torch.bincount(src.long(), minlength=num_vertices)
     return int((-(-deg // block_width)).sum())
+
+
+def degrees(cbl: CBList) -> torch.Tensor:
+    return cbl.v_deg
 
 
 def block_fences(store: BlockStore):

@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core.blockstore import arange32
 from repro_torch.core.engine import (SEMIRINGS, process_edge_pull,
                                      process_edge_push, process_edge_push_feat,
@@ -151,6 +152,10 @@ def register_program(prog: VertexProgram, *,
     return prog
 
 
+def has_program(name: str) -> bool:
+    return name in _REGISTRY
+
+
 def get_program(name: str) -> VertexProgram:
     try:
         return _REGISTRY[name]
@@ -262,6 +267,9 @@ def run_program(cbl, prog: VertexProgram, *, warm=None,
         warm = None
     for k, v in prog.defaults:
         params.setdefault(k, v)
+    # locality profile at the host-side entry point (one flag check when
+    # observability is off)
+    obs.record_sweep(cbl, task=prog.task)
 
     nv = cbl.capacity_vertices
     live = arange32(nv, cbl.device) < cbl.n_vertices

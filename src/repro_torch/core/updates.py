@@ -23,6 +23,7 @@ import torch
 from repro_torch.core import blockstore as bs
 from repro_torch.core.blockstore import I32, NULL, PAD, arange32, full32
 from repro_torch.core.cblist import CBList, exclusive_cumsum
+from repro_torch.kernels import chain_walk
 
 INSERT = 1
 DELETE = -1
@@ -44,44 +45,22 @@ class UpdateStats(NamedTuple):
 def _locate(cbl: CBList, qsrc: torch.Tensor, qdst: torch.Tensor,
             active: torch.Tensor):
     """Chain-walk locate of (src, dst) -> (found_blk, found_lane), NULL when
-    absent.
-
-    Each step binary-searches one block per query and follows the chain.
-    A host loop with one device sync per chain step (the ``nonzero`` that
-    keeps the queries still walking), so a step over a long hub chain
-    touches just the queries on it.
-    """
+    absent: the ``chain_walk`` kernel on the card, its plain host loop on
+    the CPU (first hit in chain order wins)."""
     st = cbl.store
-    B = st.block_width
-    dev = cbl.device
-    n = qsrc.shape[0]
-    fblk = full32(n, NULL, dev)
-    flane = full32(n, NULL, dev)
-    cur = cbl.v_head[qsrc.clamp(0, cbl.capacity_vertices - 1).long()]
-    q = torch.nonzero(active & (cur != NULL)).squeeze(1)
-    cur = cur[q]
-    while q.numel() > 0:
-        blk = cur.long()
-        rows = st.keys[blk]
-        d = qdst[q]
-        pos = torch.searchsorted(rows, d[:, None].contiguous()).squeeze(1)
-        val = torch.gather(rows, 1, pos.clamp(max=B - 1)[:, None]).squeeze(1)
-        hit = (pos < B) & (val == d)
-        # a query leaves the walk at its hit, so its slots are NULL until then
-        fblk[q] = torch.where(hit, cur, NULL)
-        flane[q] = torch.where(hit, pos.to(I32), NULL)
-        nxt = st.nxt[blk]
-        go = torch.nonzero(~hit & (nxt != NULL)).squeeze(1)
-        q, cur = q[go], nxt[go]
-    return fblk, flane
+    return chain_walk.locate(st.keys, st.nxt, cbl.v_head, qsrc.contiguous(),
+                             qdst.contiguous(), active.contiguous())
 
 
-def read_edges(cbl: CBList, qsrc: torch.Tensor, qdst: torch.Tensor
+def read_edges(cbl: CBList, qsrc: torch.Tensor, qdst: torch.Tensor,
+               active: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched read_edge(v_src, v_dst): (found, weight)."""
-    fblk, flane = _locate(cbl, qsrc, qdst,
-                          torch.ones(qsrc.shape, dtype=torch.bool,
-                                     device=qsrc.device))
+    """Batched read_edge(v_src, v_dst): (found, weight).  Lanes with
+    ``active`` False report not found without walking.  Makes no host sync
+    on the card."""
+    if active is None:
+        active = torch.ones(qsrc.shape, dtype=torch.bool, device=qsrc.device)
+    fblk, flane = _locate(cbl, qsrc, qdst, active)
     found = fblk != NULL
     w = cbl.store.vals[fblk.clamp(min=0).long(), flane.clamp(min=0).long()]
     return found, torch.where(found, w, 0.0)
@@ -254,6 +233,17 @@ def batch_update_stats(cbl: CBList, src: torch.Tensor, dst: torch.Tensor,
     n_ins = (op == INSERT).sum().to(I32) - dropped
     return cbl, UpdateStats(dropped_edges=dropped, applied_inserts=n_ins,
                             applied_deletes=n_del)
+
+
+def batch_update(cbl: CBList, src: torch.Tensor, dst: torch.Tensor,
+                 w: Optional[torch.Tensor] = None,
+                 op: Optional[torch.Tensor] = None) -> CBList:
+    """Apply a batch of edge updates (paper's BatchUpdate): all deletes,
+    then all inserts, whatever their position in the batch; inserts past
+    the allocator's capacity are dropped consistently
+    (:func:`batch_update_stats` counts them)."""
+    cbl, _ = batch_update_stats(cbl, src, dst, w, op)
+    return cbl
 
 
 def upsert_edges(cbl: CBList, src, dst, w=None,

@@ -3,10 +3,13 @@
 Each wrapper checks its inputs, runs the plain version for a CPU tensor and
 launches its CUDA kernel (``repro_torch/csrc``) for a CUDA tensor: the
 GTChain segment sum and block gather of the graph path, flash (prefill) and
-paged (decode) attention of the LM serving path, and EmbeddingBag (the
-SASRec item lookup).
+paged (decode) attention of the LM serving path, EmbeddingBag (the
+SASRec item lookup), and the FindNeighbor chain walks (point reads,
+deletes and the sampler's draws).
 """
 from repro_torch.kernels.block_gather import block_gather_ref, gather_rows
+from repro_torch.kernels.chain_walk import (locate, locate_ref, rank_walk,
+                                            rank_walk_ref)
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_ref,
                                                embedding_bag_sorted,

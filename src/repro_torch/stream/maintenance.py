@@ -16,7 +16,9 @@ ways, each with its repair action:
 
 The decision runs on the host between device steps (it reads concrete
 statistics); the actions are pure CBList -> CBList transforms.  Priority:
-grow > rebuild > compact.
+grow > rebuild > compact.  The tiered storage's seal action and the
+churn-adapted seal threshold (``MaintenancePolicy.adapted``) come with the
+tiered slice.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import blockstore as bs
 from repro_torch.core.blockstore import NULL
 from repro_torch.core.cblist import (CBList, block_fences, compact_cbl, grow,
@@ -73,7 +76,24 @@ def decide(cbl: CBList, pending_inserts: int = 0,
     feeds the headroom projection, so the service grows *before* a flush
     would overflow.  ``headroom_only`` skips the two full-store statistic
     scans (the proactive pre-flush call only ever acts on a grow).
+
+    Under :mod:`repro_torch.obs` every call emits one
+    ``maint.decision{kind=...,phase=...}`` counter increment (phase
+    "proactive" for the headroom-only call, "full" otherwise) and a decide
+    span; an action other than "none" also lands in the decision log.
     """
+    phase = "proactive" if headroom_only else "full"
+    with obs.span("maint.decide", cat="maint", phase=phase):
+        action = _decide(cbl, pending_inserts, policy, headroom_only)
+    obs.counter("maint.decision", kind=action.kind, phase=phase).inc()
+    if action.kind != "none":
+        obs.decision("maint.decide", action=action.kind, phase=phase,
+                     reason=action.reason)
+    return action
+
+
+def _decide(cbl: CBList, pending_inserts: int, policy: MaintenancePolicy,
+            headroom_only: bool) -> MaintenanceAction:
     return _decide_from_stats(
         nb=cbl.store.num_blocks, free=int(bs.free_blocks_left(cbl.store)),
         n_live=int(cbl.n_vertices), nv_cap=cbl.capacity_vertices,
@@ -115,9 +135,25 @@ def _decide_from_stats(*, nb: int, free: int, n_live: int, nv_cap: int,
 
 def apply_action(cbl: CBList, action: MaintenanceAction,
                  policy: MaintenancePolicy = MaintenancePolicy()) -> CBList:
-    """Execute a scheduled action (pure; 'none' is the identity)."""
+    """Execute a scheduled action (pure; 'none' is the identity).
+
+    Under :mod:`repro_torch.obs` each applied action gets a
+    ``maint.action{kind=...}`` counter and a ``maint.apply`` span that
+    waits for the device, so the span holds the action's device time.
+    """
     if action.kind == "none":
         return cbl
+    obs.counter("maint.action", kind=action.kind).inc()
+    with obs.span("maint.apply", cat="maint", kind=action.kind,
+                  reason=action.reason):
+        out = _apply_action(cbl, action, policy)
+        if obs.enabled() and out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+    return out
+
+
+def _apply_action(cbl: CBList, action: MaintenanceAction,
+                  policy: MaintenancePolicy) -> CBList:
     if action.kind == "compact":
         return compact_cbl(cbl)
     if action.kind == "rebuild":

@@ -16,20 +16,25 @@ per key wins), frames the result as a delete phase plus an insert phase
 retry on the pre-update CBList; the maintenance policy then schedules
 compact/rebuild/grow.  Analytics dispatch through the program registry with
 per-epoch caching and warm starts gated by each program's
-``warm_validity``.
+``warm_validity``; :meth:`GraphService.register_program` opens
+user-defined workloads to the same loop.  Under :mod:`repro_torch.obs` a
+flush is broken into phase spans (admission, coalesce, upsert, grow
+retries, maintenance) with matching counters.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.backend import resolve_device
 from repro_torch.core.blockstore import I32
 from repro_torch.core.cblist import CBList, blocks_needed, build_from_coo
-from repro_torch.core.program import get_program, run_program
+from repro_torch.core.program import (VertexProgram, get_program,
+                                      has_program, run_program)
 from repro_torch.core.tuner import choose_engine_impl
 from repro_torch.core.updates import (DELETE, INSERT, NOP, UpdateStats,
                                       batch_update_stats, read_edges)
@@ -74,6 +79,14 @@ def _host(x):
         else np.asarray(x)
 
 
+def _receipt_counts(receipt: LogReceipt) -> Tuple[bool, int, int]:
+    """(admitted, appended, coalesced) of a log receipt in one host read."""
+    admitted, appended, coalesced = torch.stack(
+        [receipt.admitted.to(I32), receipt.appended,
+         receipt.coalesced]).tolist()
+    return bool(admitted), int(appended), int(coalesced)
+
+
 class FlushReport(NamedTuple):
     epoch: int                    # snapshot epoch after the flush
     watermark: int                # log sequence applied through
@@ -95,6 +108,7 @@ class _ShadowFlush:
     ustats: UpdateStats
     batch: Tuple[torch.Tensor, ...]       # (src2, dst2, w2, op2)
     net_deletes: int
+    done: Optional[torch.cuda.Event]      # recorded after the upsert's launch
 
 
 @dataclasses.dataclass
@@ -119,18 +133,25 @@ class GraphService:
     def __init__(self, cbl: CBList, *, log_capacity: int = 4096,
                  high_watermark: float = 0.75,
                  policy: MaintenancePolicy = MaintenancePolicy(),
-                 auto_flush: bool = True):
+                 auto_flush: bool = True, signals=None):
+        """``signals=`` attaches a :class:`repro_torch.obs.SignalBus`: every
+        flush ticks it after its counters land.  (The churn-adapted seal
+        threshold it also drives in the JAX package belongs to tiered
+        storage, which the port does not have yet.)"""
         self._snap = snap.snapshot_of(cbl)
         self._shadow: Optional[_ShadowFlush] = None
         self._log: UpdateLog = ulog.make_log(log_capacity, cbl.device)
         self._high_watermark = float(high_watermark)
         self._policy = policy
         self._auto_flush = auto_flush
+        self._signals = signals
+        self._pending = 0             # records in the log (host count)
         self.stats = ServiceStats()
         # analytics cache: (name, source) -> (epoch, delete_count, kw, result)
         self._cache: Dict[Tuple, Tuple[int, int, dict, torch.Tensor]] = {}
         self._deletes_applied = 0     # net topology removals (lattice-split signal)
         self.last_iterations = 0      # fixpoint iterations of the last analytics run
+        self._programs: Dict[str, VertexProgram] = {}  # service-local registry
 
     @classmethod
     def from_coo(cls, src, dst, w=None, *, num_vertices: int,
@@ -170,12 +191,22 @@ class GraphService:
     @property
     def pending_updates(self) -> int:
         """Admitted records waiting in the log (not those of an in-flight
-        flush)."""
-        return int(ulog.log_pending(self._log))
+        flush): a host count kept beside the log, so reading it waits for
+        nothing on the device."""
+        return self._pending
 
     @property
     def flush_in_flight(self) -> bool:
         return self._shadow is not None
+
+    def flush_ready(self) -> bool:
+        """Non-blocking: has the in-flight flush's device work completed?
+        (False when nothing is in flight.)  The scheduler polls this to
+        publish without stalling a read step on the upsert."""
+        if self._shadow is None:
+            return False
+        done = self._shadow.done
+        return True if done is None else done.query()
 
     def pending_view(self) -> PendingView:
         """Coalesced, non-destructive view of the not-yet-visible records
@@ -194,6 +225,11 @@ class GraphService:
     def query_degrees(self, verts):
         return snap.query_degrees(self._snap, self._as(verts, I32))
 
+    def sample_khop(self, seeds, generator: torch.Generator,
+                    fanout: Sequence[int] = (15, 10)):
+        return snap.sample_khop(self._snap, self._as(seeds, I32), generator,
+                                fanout)
+
     # ---- write path -------------------------------------------------------
 
     def apply(self, src, dst, w=None, op=None, valid=None) -> LogReceipt:
@@ -206,22 +242,30 @@ class GraphService:
                 None if w is None else self._as(w, torch.float32),
                 None if op is None else self._as(op, I32),
                 None if valid is None else self._as(valid, torch.bool))
-        self._log, receipt = ulog.append(
-            self._log, *args, high_watermark=self._high_watermark)
-        if not bool(receipt.admitted):
-            self.stats.rejected_batches += 1
-            if not self._auto_flush:
-                return receipt
-            self.flush()
+        with obs.span("service.apply", cat="flush",
+                      records=int(args[0].shape[0])):
             self._log, receipt = ulog.append(
                 self._log, *args, high_watermark=self._high_watermark)
-            if not bool(receipt.admitted):
-                raise ValueError(
-                    f"update batch of {args[0].shape[0]} records cannot "
-                    f"fit an empty log of capacity {self._log.capacity} "
-                    f"at watermark {self._high_watermark}")
-        self.stats.admitted += int(receipt.appended)
-        self.stats.coalesced += int(receipt.coalesced)
+            admitted, appended, coalesced = _receipt_counts(receipt)
+            if not admitted:
+                self.stats.rejected_batches += 1
+                obs.counter("log.rejected_batches").inc()
+                if not self._auto_flush:
+                    return receipt
+                self.flush()
+                self._log, receipt = ulog.append(
+                    self._log, *args, high_watermark=self._high_watermark)
+                admitted, appended, coalesced = _receipt_counts(receipt)
+                if not admitted:
+                    raise ValueError(
+                        f"update batch of {args[0].shape[0]} records cannot "
+                        f"fit an empty log of capacity {self._log.capacity} "
+                        f"at watermark {self._high_watermark}")
+            self._pending += appended
+            self.stats.admitted += appended
+            self.stats.coalesced += coalesced
+            obs.counter("log.admitted").inc(appended)
+            obs.counter("log.coalesced").inc(coalesced)
         return receipt
 
     def flush(self) -> FlushReport:
@@ -231,46 +275,59 @@ class GraphService:
         the log still holds; after it returns everything admitted so far is
         visible.
         """
-        if self._shadow is None:
-            self._begin()
-            return self._finish()
-        report = self._finish()
-        if int(ulog.log_pending(self._log)) > 0:
-            self._begin()
+        with obs.span("service.flush", cat="flush", epoch=self.epoch):
+            if self._shadow is None:
+                self._begin()
+                return self._finish()
             report = self._finish()
-        return report
+            if self._pending > 0:
+                self._begin()
+                report = self._finish()
+            return report
 
     def begin_flush(self) -> None:
         """Drain the log and build the next epoch against a shadow buffer;
         readers keep the pinned snapshot until :meth:`finish_flush`."""
         if self._shadow is not None:
             self._finish()
-        self._begin()
+        with obs.span("service.flush_begin", cat="flush", epoch=self.epoch):
+            self._begin()
 
     def finish_flush(self) -> Optional[FlushReport]:
         """Publish the in-flight shadow flush (no-op when none)."""
         if self._shadow is None:
             return None
-        return self._finish()
+        with obs.span("service.flush_publish", cat="flush", epoch=self.epoch):
+            return self._finish()
 
     def _begin(self) -> None:
-        self._log, (s, d, w, op, valid) = ulog.drain(self._log)
-        watermark = int(self._log.head)
+        with obs.span("flush.admission", cat="flush") as adm_rec:
+            self._log, (s, d, w, op, valid) = ulog.drain(self._log)
+            watermark = int(self._log.head)
+            self._pending = 0
+        obs.histogram("flush.phase_s", obs.LATENCY_BUCKETS_S,
+                      phase="admission").observe(adm_rec.get("dur", 0.0))
         cbl = self._snap.cbl
 
-        # cross-append coalescing: the drained stream is FIFO, the last op
-        # per key is the net effect
-        keep = ulog._coalesce_mask(s, d, valid)
-        n_ins = int((keep & (op == INSERT)).sum())
+        with obs.span("flush.coalesce", cat="flush") as coal_rec:
+            # cross-append coalescing: the drained stream is FIFO, the last
+            # op per key is the net effect
+            keep = ulog._coalesce_mask(s, d, valid)
+            n_ins = int((keep & (op == INSERT)).sum())
 
-        # net topology removals = final-op DELETE keys that currently exist
-        # (the upsert framing also "deletes" every re-inserted key, which
-        # must not count as a lattice split); only those keys are looked up
-        del_keys = torch.nonzero(keep & (op == DELETE)).squeeze(1)
-        net_deletes = 0
-        if del_keys.numel():
-            found, _ = read_edges(cbl, s[del_keys], d[del_keys])
-            net_deletes = int(found.sum())
+            # net topology removals = final-op DELETE keys that currently
+            # exist (the upsert framing also "deletes" every re-inserted
+            # key, which must not count as a lattice split); only those
+            # keys are looked up
+            del_keys = torch.nonzero(keep & (op == DELETE)).squeeze(1)
+            net_deletes = 0
+            if del_keys.numel():
+                found, _ = read_edges(cbl, s[del_keys], d[del_keys])
+                net_deletes = int(found.sum())
+        obs.histogram("flush.phase_s", obs.LATENCY_BUCKETS_S,
+                      phase="coalesce").observe(coal_rec.get("dur", 0.0))
+        obs.counter("flush.pending_inserts").inc(n_ins)
+        obs.counter("flush.net_deletes").inc(net_deletes)
 
         # proactive grow: worst case every pending insert opens a block
         action = maint.decide(cbl, pending_inserts=n_ins, policy=self._policy,
@@ -285,11 +342,17 @@ class GraphService:
         batch = (torch.cat([s, s]), torch.cat([d, d]), torch.cat([w, w]),
                  torch.cat([torch.where(keep, DELETE, nop),
                             torch.where(keep & (op == INSERT), INSERT, nop)]))
-        new_cbl, ustats = batch_update_stats(cbl, *batch)
+        with obs.span("flush.upsert", cat="flush",
+                      lanes=int(batch[0].shape[0]), retry=0):
+            new_cbl, ustats = batch_update_stats(cbl, *batch)
+        done = None
+        if new_cbl.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
         self._shadow = _ShadowFlush(
             records=(s, d, w, op, valid), watermark=watermark, pre_cbl=cbl,
             new_cbl=new_cbl, ustats=ustats, batch=batch,
-            net_deletes=net_deletes)
+            net_deletes=net_deletes, done=done)
 
     def _finish(self) -> FlushReport:
         sh = self._shadow
@@ -298,7 +361,7 @@ class GraphService:
 
         grow_retries = 0
         while True:
-            dropped = int(ustats.dropped_edges)
+            dropped = int(obs.wait(ustats.dropped_edges, "flush.upsert.sync"))
             if dropped == 0:
                 break
             if grow_retries >= MAX_GROW_RETRIES:
@@ -307,31 +370,40 @@ class GraphService:
                     f"{grow_retries} capacity doublings")
             # retry the whole batch on the pre-update cbl: updates are
             # pure, so this is exact (no partial application to reconcile)
-            cbl = maint.apply_action(
-                cbl, MaintenanceAction(
-                    kind="grow", reason=f"overflow: {dropped} dropped",
-                    num_blocks=cbl.store.num_blocks * self._policy.grow_factor),
-                self._policy)
+            with obs.span("flush.grow_retry", cat="flush", dropped=dropped):
+                cbl = maint.apply_action(
+                    cbl, MaintenanceAction(
+                        kind="grow", reason=f"overflow: {dropped} dropped",
+                        num_blocks=(cbl.store.num_blocks
+                                    * self._policy.grow_factor)),
+                    self._policy)
+            obs.counter("flush.grow_retries").inc()
             grow_retries += 1
             self.stats.grows += 1
-            new_cbl, ustats = batch_update_stats(cbl, *sh.batch)
+            with obs.span("flush.upsert", cat="flush",
+                          lanes=int(sh.batch[0].shape[0]),
+                          retry=grow_retries):
+                new_cbl, ustats = batch_update_stats(cbl, *sh.batch)
         cbl = new_cbl
 
         # post-apply maintenance; policy.stats_period > 1 runs the
         # headroom-only decide on off-cycle flushes
-        policy = self._policy
-        period = max(1, int(policy.stats_period))
-        off_cycle = (self.stats.flushes + 1) % period != 0
-        action = maint.decide(cbl, pending_inserts=0, policy=policy,
-                              headroom_only=off_cycle)
-        if action.kind in ("compact", "rebuild", "grow"):
-            cbl = maint.apply_action(cbl, action, policy)
-            if action.kind == "compact":
-                self.stats.compacts += 1
-            elif action.kind == "rebuild":
-                self.stats.rebuilds += 1
-            else:
-                self.stats.grows += 1
+        with obs.span("flush.maintenance", cat="flush") as maint_rec:
+            policy = self._policy
+            period = max(1, int(policy.stats_period))
+            off_cycle = (self.stats.flushes + 1) % period != 0
+            action = maint.decide(cbl, pending_inserts=0, policy=policy,
+                                  headroom_only=off_cycle)
+            if action.kind in ("compact", "rebuild", "grow"):
+                cbl = maint.apply_action(cbl, action, policy)
+                if action.kind == "compact":
+                    self.stats.compacts += 1
+                elif action.kind == "rebuild":
+                    self.stats.rebuilds += 1
+                else:
+                    self.stats.grows += 1
+        obs.histogram("flush.phase_s", obs.LATENCY_BUCKETS_S,
+                      phase="maintenance").observe(maint_rec.get("dur", 0.0))
 
         self._snap = snap.advance(self._snap, cbl, sh.watermark)
         applied_inserts = int(ustats.applied_inserts)
@@ -340,6 +412,12 @@ class GraphService:
         self.stats.applied_deletes += sh.net_deletes
         self.stats.dropped_retries += grow_retries
         self._deletes_applied += sh.net_deletes
+        obs.counter("flush.count").inc()
+        obs.counter("flush.applied_inserts").inc(applied_inserts)
+        obs.gauge("service.epoch").set(int(self._snap.epoch))
+        if self._signals is not None:
+            # flush-cadence signals, after this flush's counters landed
+            self._signals.tick_flush()
         return FlushReport(epoch=int(self._snap.epoch),
                            watermark=sh.watermark,
                            applied_inserts=applied_inserts,
@@ -347,6 +425,25 @@ class GraphService:
                            grow_retries=grow_retries, maintenance=action)
 
     # ---- incremental analytics -------------------------------------------
+
+    def register_program(self, prog: VertexProgram, *,
+                         overwrite: bool = False) -> VertexProgram:
+        """Open a user-defined :class:`~repro_torch.core.program.
+        VertexProgram` to the serving loop (snapshots, per-epoch caching,
+        warm starts); service-local, shadowing a global program of the same
+        name for this service only."""
+        if not overwrite and (prog.name in self._programs
+                              or has_program(prog.name)):
+            raise ValueError(f"program {prog.name!r} is already registered "
+                             "(pass overwrite=True to shadow it)")
+        self._programs[prog.name] = prog
+        # cached fixpoints belong to the program that computed them
+        for key in [k for k in self._cache if k[0] == prog.name]:
+            del self._cache[key]
+        return prog
+
+    def _resolve_program(self, name: str) -> VertexProgram:
+        return self._programs.get(name) or get_program(name)
 
     def analytics(self, name: str, source: Optional[int] = None,
                   **kw) -> torch.Tensor:
@@ -358,7 +455,7 @@ class GraphService:
         tuner's choice for the storage's device.  The fixpoint's iteration
         count is kept in :attr:`last_iterations`.
         """
-        prog = get_program(name)
+        prog = self._resolve_program(name)
         cbl = self._snap.cbl
         epoch = int(self._snap.epoch)
         source = (0 if source is None else int(source)) \

@@ -4,23 +4,43 @@ Every CBList mutator returns new tensors, so a snapshot is a pinned
 reference: readers holding a :class:`Snapshot` see one consistent graph
 however many flushes or maintenance passes replace the service's head
 version.  ``epoch`` counts flushes; ``watermark`` is the absolute log
-sequence number applied into this version.
+sequence number applied into this version; ``run_version`` is the sealed
+tier's generation, 0 for the untiered storage the port serves.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.blockstore import I32
 from repro_torch.core.cblist import CBList
 from repro_torch.core.updates import read_edges
+from repro_torch.graph.sampler import SampledGraph, sample_subgraph
 
 
 class Snapshot(NamedTuple):
     cbl: CBList
     epoch: torch.Tensor      # i32[] version counter (bumps per flush)
     watermark: torch.Tensor  # i32[] log sequence applied into this version
+    run_version: int = 0     # sealed-tier generation (0: untiered)
+
+    @property
+    def num_edges(self) -> torch.Tensor:
+        return self.cbl.num_edges
+
+    @property
+    def version(self) -> Tuple[int, int]:
+        """Concrete ``(epoch, watermark)`` of this view, as the serve
+        scheduler stamps it on responses (one host read)."""
+        epoch, watermark = torch.stack([self.epoch, self.watermark]).tolist()
+        return int(epoch), int(watermark)
+
+    @property
+    def tier_version(self) -> Tuple[int, int, int]:
+        """``(run_version, epoch, watermark)``: the tiered identity; untiered
+        storage pins run_version 0."""
+        return int(self.run_version), int(self.epoch), int(self.watermark)
 
 
 def snapshot_of(cbl: CBList, epoch: int = 0, watermark: int = 0) -> Snapshot:
@@ -33,7 +53,28 @@ def advance(snap: Snapshot, cbl: CBList, watermark) -> Snapshot:
     """New version: updated storage, bumped epoch, new applied watermark."""
     return Snapshot(cbl=cbl, epoch=snap.epoch + 1,
                     watermark=torch.as_tensor(watermark, dtype=I32,
-                                              device=cbl.device))
+                                              device=cbl.device),
+                    run_version=snap.run_version)
+
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device, non_blocking=True)
+    if isinstance(x, tuple):             # CBList and BlockStore
+        return type(x)(*(_to(v, device) for v in x))
+    return x
+
+
+def device_replica(snap: Snapshot, device) -> Snapshot:
+    """The same pinned version with its storage tensors copied to
+    ``device`` (asynchronous copies: the first read on the replica waits
+    for them on its stream).  Epoch, watermark and run_version identify the
+    same view, so every read path answers bit-identically from the copy."""
+    device = torch.device(device)
+    return Snapshot(cbl=_to(snap.cbl, device),
+                    epoch=snap.epoch.to(device, non_blocking=True),
+                    watermark=snap.watermark.to(device, non_blocking=True),
+                    run_version=snap.run_version)
 
 
 def query_edges(snap: Snapshot, qsrc: torch.Tensor, qdst: torch.Tensor
@@ -49,3 +90,11 @@ def query_degrees(snap: Snapshot, verts: torch.Tensor) -> torch.Tensor:
     in_range = (verts >= 0) & (verts < nv)
     return torch.where(in_range, snap.cbl.v_deg[verts.clamp(0, nv - 1).long()],
                        0)
+
+
+def sample_khop(snap: Snapshot, seeds: torch.Tensor,
+                generator: torch.Generator,
+                fanout: Sequence[int] = (15, 10)) -> SampledGraph:
+    """K-hop fanout neighbourhood sample over the pinned version: every hop
+    reads the same epoch."""
+    return sample_subgraph(snap.cbl, seeds, generator, fanout=tuple(fanout))

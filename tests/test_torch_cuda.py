@@ -705,3 +705,244 @@ def test_lm_serve_graph_matches_the_eager_loop(gen):
             assert torch.equal(getattr(c_graph, name), getattr(c_eager, name))
         torch.testing.assert_close(c_graph.k_pages, c_eager.k_pages,
                                    **ATTN_TOL[torch.float32])
+
+
+# ---- the FindNeighbor chain walks ------------------------------------------
+
+def _walk_store(width, hub_blocks=0, seed=0):
+    """A CBList on the host with overlapping chains (parallel and re-inserted
+    edges after two update batches) and, with ``hub_blocks``, vertex 0
+    holding a chain of that many blocks; its edges and the card's copy."""
+    from repro_torch.core.cblist import build_from_coo
+    from repro_torch.core.updates import batch_update_stats
+    from repro_torch.data.synthetic import rmat_edges
+    from repro_torch.stream.snapshot import device_replica, snapshot_of
+    g = torch.Generator().manual_seed(seed)
+    nv = 3000
+    src, dst = rmat_edges(nv, 20_000, seed=seed, device="cpu")
+    if hub_blocks:
+        hub = torch.arange(1, hub_blocks * width + 1, dtype=torch.int32) % nv
+        keep = src != 0
+        src = torch.cat([src[keep], torch.zeros_like(hub)])
+        dst = torch.cat([dst[keep], hub])
+    cbl = build_from_coo(src, dst, None, num_vertices=nv,
+                         num_blocks=40_000 + 2 * hub_blocks,
+                         block_width=width)
+    for _ in range(2):
+        n = 4000
+        us = torch.cat([src[torch.randint(0, src.numel(), (n // 2,),
+                                          generator=g)],
+                        torch.randint(0, nv, (n // 2,), generator=g,
+                                      dtype=torch.int32)])
+        ud = torch.cat([dst[torch.randint(0, dst.numel(), (n // 2,),
+                                          generator=g)],
+                        torch.randint(0, nv, (n // 2,), generator=g,
+                                      dtype=torch.int32)])
+        op = torch.where(torch.rand(n, generator=g) < 0.3, -1, 1).to(
+            torch.int32)
+        cbl, stats = batch_update_stats(cbl, us, ud, None, op)
+        assert int(stats.dropped_edges) == 0
+    return cbl, (src, dst), device_replica(snapshot_of(cbl), "cuda").cbl
+
+
+@pytest.mark.parametrize("width,hub_blocks", [(8, 1100), (32, 1100),
+                                              (128, 0), (10, 0), (256, 0),
+                                              (1030, 0)])
+def test_chain_walk_locate_matches_plain(gen, width, hub_blocks):
+    """Widths 8-128 take one pass of 16-byte loads, 256 two chunks a lane,
+    10 and 1030 single keys (1030: several passes)."""
+    from repro_torch import backend
+    from repro_torch.kernels.chain_walk import locate, locate_ref
+    cbl, (src, dst), card = _walk_store(width, hub_blocks)
+    g = torch.Generator().manual_seed(1)
+    n = 50_000
+    pick = torch.randint(0, src.numel(), (n // 2,), generator=g)
+    qs = torch.cat([src[pick], torch.randint(-5, 3010, (n // 2,),
+                                             generator=g, dtype=torch.int32)])
+    qd = torch.cat([dst[pick], torch.randint(0, 3000, (n // 2,),
+                                             generator=g, dtype=torch.int32)])
+    if hub_blocks:                       # keys at the hub chain's far end
+        qs[:64] = 0
+        qd[:64] = torch.arange(hub_blocks * width - 64, hub_blocks * width,
+                               dtype=torch.int32) % 3000 + 1
+        qs[64:96], qd[64:96] = 0, 5000       # absent: the whole chain
+    active = torch.rand(n, generator=g) < 0.9
+    st, cst = cbl.store, card.store
+    ref = locate_ref(st.keys, st.nxt, cbl.v_head, qs, qd, active)
+    assert int((ref[0] != -1).sum()) > n // 4
+    before = backend.LAUNCHES["chain_walk_locate"]
+    args = (cst.keys, cst.nxt, card.v_head, qs.cuda(), qd.cuda(),
+            active.cuda())
+    got = locate(*args)
+    assert backend.LAUNCHES["chain_walk_locate"] == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    assert all(torch.equal(a, b) for a, b in zip(got, locate(*args)))
+
+
+@pytest.mark.parametrize("width,hub_blocks", [(8, 1100), (32, 0), (128, 0)])
+def test_chain_walk_rank_matches_plain(gen, width, hub_blocks):
+    from repro_torch import backend
+    from repro_torch.kernels.chain_walk import rank_walk, rank_walk_ref
+    cbl, _, card = _walk_store(width, hub_blocks, seed=3)
+    g = torch.Generator().manual_seed(4)
+    verts = torch.randint(0, 3000, (4000,), generator=g)
+    verts[:8] = 0
+    deg = cbl.v_deg[verts]
+    heads = torch.where(deg > 0, cbl.v_head[verts], -1).to(torch.int32)
+    k = 15
+    ranks = (torch.rand((4000, k), generator=g)
+             * (deg.clamp(min=1)[:, None] + 2)).to(torch.int32)   # some past
+    st, cst = cbl.store, card.store
+    ref = rank_walk_ref(st.keys, st.count, st.nxt, heads, ranks)
+    before = backend.LAUNCHES["chain_walk_rank"]
+    got = rank_walk(cst.keys, cst.count, cst.nxt, heads.cuda(), ranks.cuda())
+    assert backend.LAUNCHES["chain_walk_rank"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    assert int((ref != -1).sum()) > ref.numel() // 3
+
+
+def test_read_edges_on_the_card_makes_no_host_sync(gen):
+    from repro_torch.core.updates import read_edges
+    cbl, (src, dst), card = _walk_store(32, 200)
+    qs, qd = src[:5000].cuda(), dst[:5000].cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        found, w = read_edges(card, qs, qd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = read_edges(cbl, src[:5000], dst[:5000])
+    assert torch.equal(found.cpu(), ref[0]) and torch.equal(w.cpu(), ref[1])
+
+
+# ---- the serving frontend on the card --------------------------------------
+
+def _serve_trace(nv, src, dst, n=300, seed=0):
+    """(dt, request) pairs of all five kinds over two tenants."""
+    import numpy as np
+
+    from repro_torch.serve import (Analytics, DegreeRead, KHopSample,
+                                   PointRead, UpdateBatch)
+    rng = np.random.default_rng(seed)
+    s, d = src.numpy(), dst.numpy()
+    out = []
+    for i in range(n):
+        m = int(rng.integers(4, 33))
+        tenant = "fraud" if rng.random() < 0.5 else "dashboard"
+        cls = "interactive" if tenant == "fraud" else "standard"
+        k = int(rng.choice(5, p=[0.45, 0.2, 0.25, 0.07, 0.03]))
+        j = rng.integers(0, len(s), m)
+        if k == 0:
+            req = PointRead(qsrc=s[j], qdst=d[j], tenant=tenant,
+                            latency_class=cls)
+        elif k == 1:
+            req = DegreeRead(verts=rng.integers(0, nv, m), tenant=tenant,
+                             latency_class=cls)
+        elif k == 2:
+            req = UpdateBatch(src=np.where(rng.random(m) < 0.5, s[j],
+                                           rng.integers(0, nv, m)),
+                              dst=np.where(rng.random(m) < 0.5, d[j],
+                                           rng.integers(0, nv, m)),
+                              op=np.where(rng.random(m) < 0.2, -1, 1),
+                              w=rng.random(m).astype(np.float32),
+                              tenant="fraud", latency_class="batch")
+        elif k == 3:
+            req = KHopSample(seeds=s[j[:4]], seed=i, tenant=tenant,
+                             latency_class=cls)
+        else:
+            req = Analytics(name="pagerank", kw=(("max_iters", 8),),
+                            tenant="dashboard", latency_class="batch")
+        out.append((float(rng.exponential(1 / 2000)), req))
+    return out
+
+
+def _serve_run(device, nv, src, dst, trace):
+    from repro_torch.serve import (ManualClock, ServeFrontend,
+                                   choose_serve_plan)
+    from repro_torch.stream.service import GraphService
+    svc = GraphService.from_coo(src, dst, num_vertices=nv, block_width=8,
+                                log_capacity=1024, device=device)
+    clock = ManualClock()
+    front = ServeFrontend(svc, choose_serve_plan(
+        2000.0, 16.0, log_capacity=1024), clock=clock, fanout=(4, 3))
+    front.register_tenant("fraud", read_your_writes=True)
+    front.register_tenant("dashboard")
+    tickets = []
+    for dt, req in trace:
+        clock.advance(dt)
+        tickets.append(front.submit(req))
+        front.step()
+    front.drain(flush=True)
+    return front, tickets
+
+
+def test_serve_trace_on_the_card_matches_the_host(gen):
+    """The same trace through ServeFrontend on the card and on the host:
+    point and degree values, update receipts and every version bit for bit,
+    PageRank within rtol 1e-5, the same report counts; k-hop samples (drawn
+    from each device's generator) hold their invariants."""
+    import numpy as np
+
+    from repro_torch import backend
+    from repro_torch.core.updates import read_edges
+    from repro_torch.data.synthetic import rmat_edges
+    src, dst = rmat_edges(800, 6000, seed=4, device="cpu")
+    trace = _serve_trace(800, src, dst)
+    backend.reset_launch_counts()
+    card, card_t = _serve_run("cuda", 800, src, dst, trace)
+    assert backend.LAUNCHES["chain_walk_locate"] > 0
+    assert backend.LAUNCHES["chain_walk_rank"] > 0
+    host, host_t = _serve_run("cpu", 800, src, dst, trace)
+    for a, b in zip(card_t, host_t):
+        assert a.done and b.done and a.version == b.version
+        kind = a.request.kind
+        if kind in ("point_read", "degree_read"):
+            for k in a.value:
+                np.testing.assert_array_equal(a.value[k], b.value[k])
+        elif kind == "update":
+            assert a.value == b.value
+        elif kind == "analytics":
+            torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5,
+                                       atol=1e-8)
+        else:
+            v = a.value
+            ok = torch.as_tensor(v["valid"])
+            found, _ = read_edges(card.service.snapshot.cbl,
+                                  torch.as_tensor(v["src"]).cuda(),
+                                  torch.as_tensor(v["dst"]).cuda())
+            # edges sampled at an older version may since be deleted
+            assert int((found.cpu() & ok).sum()) >= int(ok.sum()) // 2
+    a, b = card.report(), host.report()
+    for k in ("kinds", "service", "completed", "admission"):
+        assert a[k] == b[k], k
+
+
+def test_serve_dispatch_on_the_card_makes_no_host_sync(gen):
+    """A point-read micro-batch's dispatch (snapshot replica, chain walk)
+    runs under sync debug mode "error"; the collect pass then syncs once."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import rmat_edges
+    from repro_torch.serve import (ManualClock, PointRead, ServeFrontend,
+                                   choose_serve_plan)
+    from repro_torch.stream.service import GraphService
+    src, dst = rmat_edges(800, 6000, seed=5, device="cpu")
+    svc = GraphService.from_coo(src, dst, num_vertices=800, block_width=32,
+                                device="cuda")
+    clock = ManualClock()
+    front = ServeFrontend(svc, choose_serve_plan(2000.0, 16.0), clock=clock)
+    t = front.submit(PointRead(qsrc=src[:40].numpy(), qdst=dst[:40].numpy()))
+    clock.advance(1.0)
+    front.read_plane.broadcast(svc.snapshot)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        front._pump((("point_read", False),), clock())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not t.done and len(front._inflight) == 1
+    front._collect(clock())
+    assert t.done and bool(np.all(t.value["found"]))

@@ -206,3 +206,21 @@ def test_port_imports_neither_jax_nor_the_reference():
             bad += [f"{path.name}: {n}" for n in names
                     if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+def test_snapshot_versions_and_replica(fragmented):
+    import repro.stream.snapshot as jsnap
+
+    from repro_torch.stream import snapshot as tsnap
+    j, p = fragmented
+    js = jsnap.advance(jsnap.snapshot_of(j, epoch=3, watermark=40), j, 77)
+    ps = tsnap.advance(tsnap.snapshot_of(p, epoch=3, watermark=40), p, 77)
+    assert ps.version == js.version == (4, 77)
+    assert ps.tier_version == js.tier_version == (0, 4, 77)
+    assert int(ps.num_edges) == int(js.num_edges)
+    rep = tsnap.device_replica(ps, "cpu")
+    assert rep.version == ps.version and rep.run_version == 0
+    assert_cbl_equal(j, rep.cbl)
+    q = t(np.arange(-2, NV + 2, dtype=np.int32))
+    assert torch.equal(tsnap.query_degrees(rep, q),
+                       tsnap.query_degrees(ps, q))

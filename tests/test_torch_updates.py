@@ -134,3 +134,23 @@ def test_update_log_append_drain_peek_merge():
     for ref, got in zip(jlog.merge_views(*jrec, jl3),
                         tlog.merge_views(*prec, pl3)):
         assert_exact(got, ref)
+
+
+def test_batch_update_empty_degrees_and_chain_bounds():
+    coo, j, p = _build()
+    rng = np.random.default_rng(12)
+    us = rng.integers(0, NV, 80).astype(np.int32)
+    ud = rng.integers(0, NV, 80).astype(np.int32)
+    op = np.where(rng.random(80) < 0.3, -1, 1).astype(np.int32)
+    j = jup.batch_update(j, *map(jnp.asarray, (us, ud)), None,
+                         jnp.asarray(op))
+    p = tup.batch_update(p, t(us), t(ud), None, t(op))
+    assert_cbl_equal(j, p)
+    assert_exact(tcb.degrees(p), jcb.degrees(j))
+    assert int(p.num_edges) == int(j.num_edges)
+    assert p.max_chain == j.max_chain == NB
+    je = jcb.empty(NV, 64, block_width=BW, vertex_capacity=NV + 8)
+    pe = tcb.empty(NV, 64, block_width=BW, vertex_capacity=NV + 8,
+                   device="cpu")
+    assert_cbl_equal(je, pe)
+    assert int(pe.n_vertices) == NV and int(pe.num_edges) == 0
