@@ -53,6 +53,27 @@ Phases, one report line each:
    versions never decrease per tenant and kind in submission order, the
    walk and graph kernels launched, and once, with a pending window,
    overlay point and degree reads equal to flush-then-read bit for bit;
+5c. the tier phase (sealed CSR runs under the CBList delta).  From
+   ``tier_from_cbl`` of the service's final CBList, seal 0.5, 0.9 and 1.0
+   of the edges (low-degree vertices first, ``benchmarks/bench_tier.py``'s
+   rule) and print, beside the all-delta graph in the same call: the seal's
+   wall time, the real sealed fraction, the run's lanes and the delta's
+   blocks, the run's destination stream's build time, one push sweep
+   through the kernels (the run tier's sweep launching each graph kernel
+   once, checked), PageRank ms per iteration and iterations, 2^20 point
+   reads (half live pairs).  Checks: the push within rtol 1e-5 of the
+   float64 all-delta sum, PageRank within rtol 1e-4 and one sweep plan (the
+   delta's), point reads bit for bit, every edge of a (15, 10) k-hop from
+   4,096 sealed seeds live; at 1.0, unseal half the sealed vertices (time,
+   reads again).  The run's push stream at 0.9 gives the graph kernels'
+   tier rows.  Then, the untiered service freed, its tiered twin:
+   ``GraphService.from_coo(..., seal_after_epochs=2)`` over the same graph
+   with the counters at 0, a cold PageRank, the same three rounds of
+   1,000,000 updates (flush s per 1 M, seals / unseals, ``tier_version``,
+   sealed fraction, delta blocks), flush reports (epoch, watermark, applied
+   inserts and deletes) and point reads bit for bit the untiered service's,
+   the warm PageRank within rtol 1e-4 of its, both graph kernels and the
+   locate walk launched;
 6. LM serving, once the graph state is freed: Gemma-2 27B at full width
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
@@ -133,6 +154,11 @@ LM_LAYERS, LM_REQUESTS, LM_DECODE, LM_CHECK_STEPS = 8, 8, 64, 4
 LM_PROMPT_MIN, LM_PROMPT_MAX = 2048, 7168
 FLASH_CHECK_HEADS = 4
 GRAPH_KERNELS = ("segment_sum", "block_gather")
+# tier phase: sealed edge fractions (low-degree vertices first), the one
+# whose run push stream gives the kernel rows, point reads, k-hop seeds and
+# the tiered service's seal threshold (flushes a vertex stays unwritten)
+TIER_FRACTIONS, TIER_KERNEL_FRACTION = (0.5, 0.9, 1.0), 0.9
+TIER_READS, TIER_KHOP_SEEDS, TIER_K = 1 << 20, 4096, 2
 # the FindNeighbor chain walk's two entry points (point reads and the
 # flush's delete locate; the k-hop sampler's rank walk)
 WALK_KERNELS = ("chain_walk_locate", "chain_walk_rank")
@@ -505,10 +531,21 @@ def agreement_phase(torch, dev, seed):
 # the service's main path
 # ---------------------------------------------------------------------------
 
+def read_pairs(s, d, w, op):
+    """The point reads after a round: up to READ_PAIRS just-inserted pairs
+    (with their weights) and just-deleted pairs."""
+    ins = op == 1
+    return (s[ins][:READ_PAIRS], d[ins][:READ_PAIRS], w[ins][:READ_PAIRS],
+            s[~ins][:READ_PAIRS], d[~ins][:READ_PAIRS])
+
+
 def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
+    """The service's main path; returns the cold and warm ranks and, per
+    round, the flush report and point-read results (the tiered twin's
+    reference)."""
     from repro_torch import backend
     from repro_torch.data.synthetic import update_stream
-    out = {}
+    out, record = {}, []
     backend.reset_launch_counts()
     (ranks, pr_s) = timer.wall(lambda: svc.analytics("pagerank"))
     out["pagerank_cold"] = dict(seconds=pr_s, iterations=svc.last_iterations)
@@ -533,14 +570,12 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
             report["profile_flush"] = prof
         else:
             rep, flush_s = timer.wall(svc.flush)
-        ins = op == 1
-        qs_i, qd_i, w_i = s[ins][:READ_PAIRS], d[ins][:READ_PAIRS], \
-            w[ins][:READ_PAIRS]
-        qs_d, qd_d = s[~ins][:READ_PAIRS], d[~ins][:READ_PAIRS]
+        qs_i, qd_i, w_i, qs_d, qd_d = read_pairs(s, d, w, op)
         (found_i, got_w), read_i_s = timer.wall(
             lambda: svc.query_edges(qs_i, qd_i))
-        (found_d, _), read_d_s = timer.wall(
+        (found_d, w_d), read_d_s = timer.wall(
             lambda: svc.query_edges(qs_d, qd_d))
+        record.append((rep, found_i, got_w, found_d, w_d))
         check(bool(found_i.all()), f"round {r}: an inserted pair is missing")
         check(torch.equal(got_w, w_i), f"round {r}: inserted weights differ")
         check(not bool(found_d.any()), f"round {r}: a deleted pair is found")
@@ -584,7 +619,7 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
     out["walk_launches"] = {k: backend.LAUNCHES[k] for k in WALK_KERNELS}
     out["plan_builds"] = backend.PLAN_BUILDS
     report["service"] = out
-    return ranks, ranks_warm
+    return ranks, ranks_warm, record
 
 
 # ---------------------------------------------------------------------------
@@ -1364,7 +1399,8 @@ def recsys_phase(torch, timer, dev, seed, report, profile=False) -> None:
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
-    """Phases 1-5: the GraphService at LiveJournal size."""
+    """Phases 1-5b and the tier phase: the GraphService at LiveJournal
+    size."""
     from repro_torch import backend
     from repro_torch.core.engine import sweep_plan
     from repro_torch.data.synthetic import rmat_edges
@@ -1395,8 +1431,8 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     del small, ssrc, sdst
 
     torch.cuda.reset_peak_memory_stats()
-    ranks, _ = service_phase(torch, timer, dev, svc, (src, dst), seed,
-                             report, profile)
+    ranks, ranks_warm, untiered = service_phase(
+        torch, timer, dev, svc, (src, dst), seed, report, profile)
     launches = report["service"]["launches"]
 
     total = float(ranks.double().sum())
@@ -1460,6 +1496,266 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     report["walk_kernels"] = walk_kernel_checks(torch, timer, dev,
                                                 svc.snapshot.cbl, seed)
     serve_phase(torch, timer, dev, svc, seed, report, profile)
+
+    # the tier phase: sealed fractions of the final CBList, then (with the
+    # untiered service freed) the tiered twin of the service
+    t0 = time.perf_counter()
+    report["tier"] = tier_fractions(torch, timer, dev, svc.snapshot.cbl,
+                                    seed)
+    del svc, cbl0, ranks, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["tier"]["service"] = tier_service(
+        torch, timer, dev, (src, dst, w), nv, untiered, ranks_warm,
+        report["service"], seed)
+    report["tier_seconds"] = time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# tiered storage: sealed CSR runs under the CBList delta
+# ---------------------------------------------------------------------------
+
+def cold_mask_for_fraction(torch, v_deg, n_live, frac):
+    """Seal the low-degree tail of the ``n_live`` live vertices first until
+    ``frac`` of the edges are cold (the rule of
+    ``benchmarks/bench_tier.py:_cold_mask_for_fraction``: a degree-1 vertex
+    frees a whole delta block per edge sealed, a hub one per block
+    width)."""
+    deg = v_deg[:n_live].long()
+    order = torch.sort(deg, stable=True)[1]            # low degree first
+    cum = torch.cumsum(deg[order], 0).double()
+    take = int(torch.searchsorted(cum, torch.tensor(
+        [frac * float(cum[-1])], dtype=torch.float64,
+        device=cum.device))) + 1
+    mask = torch.zeros(v_deg.numel(), dtype=torch.bool, device=deg.device)
+    mask[order[:take]] = True
+    return mask
+
+
+def tier_fractions(torch, timer, dev, cbl, seed):
+    """Seal TIER_FRACTIONS of the graph cell's final CBList's edges
+    (low-degree vertices first) and hold each tiered graph against the
+    all-delta one: a push sweep through the kernels (the run tier's
+    launches counted), PageRank, 2^20 point reads and a (15, 10) k-hop from
+    sealed seeds; the run tier's kernel rows at the 0.9 push stream; at
+    the last fraction, unseal half the sealed vertices."""
+    from repro_torch import backend
+    from repro_torch.core import csr as C
+    from repro_torch.core.cblist import to_coo
+    from repro_torch.core.engine import process_edge_push, sweep_plan
+    from repro_torch.core.tiered import seal, tier_from_cbl, unseal
+    from repro_torch.core.updates import read_edges
+    from repro_torch.graph.algorithms import pagerank
+    from repro_torch.graph.sampler import sample_subgraph
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    nv = cbl.capacity_vertices
+    x = torch.rand(nv, generator=gen, device=dev)
+    msg = lambda xs, w: xs      # noqa: E731 — PageRank's message
+    plan = sweep_plan(cbl, pull=False)
+    ref_push = process_edge_push(cbl, x, dense_f=msg, impl="cuda", plan=plan)
+    ref64 = process_edge_push(cbl, x.double(), dense_f=msg, impl="torch")
+    delta_push_ms = timer.ms(lambda: process_edge_push(
+        cbl, x, dense_f=msg, impl="cuda", plan=plan))
+    del plan
+    (ref_ranks, ref_iters), ref_pr_s = timer.wall(
+        lambda: pagerank(cbl, impl="cuda", return_stats=True))
+    # 2^20 point reads: half live pairs, half random pairs
+    ls, ld, _, _ = to_coo(cbl)
+    pick = torch.randint(0, ls.numel(), (TIER_READS // 2,), generator=gen,
+                         device=dev)
+    qs = torch.cat([ls[pick], torch.randint(0, nv, (TIER_READS // 2,),
+                                            generator=gen, device=dev,
+                                            dtype=torch.int32)])
+    qd = torch.cat([ld[pick], torch.randint(0, nv, (TIER_READS // 2,),
+                                            generator=gen, device=dev,
+                                            dtype=torch.int32)])
+    del ls, ld, pick
+    ref_f, ref_w = read_edges(cbl, qs, qd)
+    delta_read_ms = timer.ms(lambda: read_edges(cbl, qs, qd))
+    out = dict(all_delta=dict(
+        push_ms=delta_push_ms, pagerank_s=ref_pr_s, pagerank_iters=ref_iters,
+        pagerank_ms_per_it=ref_pr_s * 1e3 / ref_iters,
+        read_ms=delta_read_ms, num_blocks=cbl.store.num_blocks,
+        found=int(ref_f.sum())), fractions=[], kernels=[])
+    say("tier.all_delta", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                             for k, v in out["all_delta"].items()})
+    tg0 = tier_from_cbl(cbl)
+    n_live = int(cbl.n_vertices)
+    for frac in TIER_FRACTIONS:
+        tg, seal_s = timer.wall(lambda: seal(
+            tg0, cold_mask_for_fraction(torch, cbl.v_deg, n_live, frac)))
+        run = tg.runs
+        _, stream_s = timer.wall(lambda: C._push_stream(run))
+        dplan, dplan_s = timer.wall(lambda: sweep_plan(tg.delta, pull=False))
+        before = dict(backend.LAUNCHES)
+        y = process_edge_push(tg, x, dense_f=msg, impl="cuda", plan=dplan)
+        for name in GRAPH_KERNELS:       # the delta's launch and the run's
+            check(backend.LAUNCHES[name] == before[name] + 2,
+                  f"tier {frac}: the tiered push launched {name} "
+                  f"{backend.LAUNCHES[name] - before[name]} times, not 2")
+        before = dict(backend.LAUNCHES)
+        C.csr_push(run, x, dense_f=msg, impl="cuda")
+        for name in GRAPH_KERNELS:
+            check(backend.LAUNCHES[name] == before[name] + 1,
+                  f"tier {frac}: the run-tier push did not launch {name}")
+        err = float((y.double() - ref64).abs().max())
+        check(torch.allclose(y.double(), ref64, rtol=SEG_RTOL, atol=SEG_ATOL),
+              f"tier {frac}: the tiered push is off the float64 all-delta "
+              f"sum by {err:.3e}")
+        push_ms = timer.ms(lambda: process_edge_push(
+            tg, x, dense_f=msg, impl="cuda", plan=dplan))
+        run_push_ms = timer.ms(lambda: C.csr_push(run, x, dense_f=msg,
+                                                  impl="cuda"))
+        if frac == TIER_KERNEL_FRACTION:
+            xs = x.reshape(nv, 1)
+            n = run.n_live
+            out["kernels"] = [
+                time_gather(torch, timer, f"tier run push x[src] ({frac} "
+                            f"sealed)", xs, run.push_src),
+                time_segment_sum(
+                    torch, timer, f"tier run push ({frac} sealed)",
+                    x[run.push_src.long()][:, None].contiguous(),
+                    run.push_ptr, run.partition("push", 1),
+                    x[run.row[:n].long()][:, None].contiguous(),
+                    run.indices[:n].contiguous())]
+        del dplan
+        backend.reset_launch_counts()
+        (ranks, iters), pr_s = timer.wall(
+            lambda: pagerank(tg, impl="cuda", return_stats=True))
+        check(backend.PLAN_BUILDS == 1, f"tier {frac}: PageRank built "
+              f"{backend.PLAN_BUILDS} sweep plans, not the delta's one")
+        rel = float(((ranks - ref_ranks).abs()
+                     / ref_ranks.abs().clamp(min=1e-30)).max())
+        check(torch.allclose(ranks, ref_ranks, rtol=1e-4, atol=0.0),
+              f"tier {frac}: PageRank off the all-delta ranks by {rel:.3e}")
+        f, w = read_edges(tg, qs, qd)
+        check(torch.equal(f, ref_f) and torch.equal(w, ref_w),
+              f"tier {frac}: point reads differ from the all-delta reads")
+        read_ms = timer.ms(lambda: read_edges(tg, qs, qd))
+        cold = torch.nonzero(tg.sealed & (tg.v_deg > 0)).squeeze(1)
+        seeds = cold[torch.randint(0, cold.numel(), (TIER_KHOP_SEEDS,),
+                                   generator=gen, device=dev)].to(torch.int32)
+        sg = sample_subgraph(tg, seeds, torch.Generator(device=dev)
+                             .manual_seed(seed + 43), fanout=(15, 10))
+        found, _ = read_edges(tg, sg.src, sg.dst)
+        check(bool(found[sg.valid].all()) and int(sg.valid.sum()) > 0,
+              f"tier {frac}: a k-hop edge from sealed seeds is not live")
+        row = dict(
+            fraction=frac, seal_s=seal_s,
+            sealed_fraction=float(tg.sealed_fraction),
+            sealed_vertices=int((tg.sealed & (tg.v_deg > 0)).sum()),
+            run_lanes=run.n_live,
+            run_capacity=run.capacity, delta_blocks=tg.num_blocks,
+            stream_build_ms=stream_s * 1e3, delta_plan_ms=dplan_s * 1e3,
+            push_ms=push_ms, run_push_ms=run_push_ms,
+            all_delta_push_ms=delta_push_ms, push_max_abs_err=err,
+            pagerank_ms_per_it=pr_s * 1e3 / iters, pagerank_iters=iters,
+            all_delta_pagerank_ms_per_it=ref_pr_s * 1e3 / ref_iters,
+            pagerank_max_rel=rel, read_ms=read_ms,
+            all_delta_read_ms=delta_read_ms,
+            khop_valid=int(sg.valid.sum()),
+            launches={k: backend.LAUNCHES[k] for k in GRAPH_KERNELS})
+        if frac == TIER_FRACTIONS[-1]:
+            half = tg.sealed & (torch.arange(nv, device=dev) % 2 == 0)
+            half &= tg.v_deg > 0
+            back, unseal_s = timer.wall(lambda: unseal(tg, half))
+            check(int(back.num_edges) == int(tg.num_edges)
+                  and back.run_version == tg.run_version + 1,
+                  "tier: unseal lost edges")
+            f, w = read_edges(back, qs, qd)
+            check(torch.equal(f, ref_f) and torch.equal(w, ref_w),
+                  "tier: point reads after the unseal differ")
+            row.update(unseal_s=unseal_s,
+                       unsealed_vertices=int(half.sum()),
+                       unseal_sealed_fraction=float(back.sealed_fraction))
+            del back
+        out["fractions"].append(row)
+        say("tier", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                       for k, v in row.items()})
+        del tg, run, ranks, y, sg
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def tier_service(torch, timer, dev, coo, nv, untiered, untiered_warm, plain,
+                 seed):
+    """The tiered twin of the graph cell's service:
+    ``GraphService.from_coo(..., seal_after_epochs=TIER_K)`` over the same
+    graph, fed the same three rounds of updates with every launch counter
+    at 0: flush reports and point reads bit for bit the untiered service's
+    (``untiered``, recorded by service_phase), the warm PageRank within
+    rtol 1e-4 of its."""
+    from repro_torch import backend
+    from repro_torch.core.tiered import TieredGraph
+    from repro_torch.data.synthetic import update_stream
+    from repro_torch.stream.service import GraphService
+    src, dst, w = coo
+    torch.cuda.reset_peak_memory_stats()
+    svc, build_s = timer.wall(lambda: GraphService.from_coo(
+        src, dst, w, num_vertices=nv,
+        log_capacity=2 ** 21, seal_after_epochs=TIER_K, device=dev))
+    backend.reset_launch_counts()
+    _, cold_s = timer.wall(lambda: svc.analytics("pagerank"))
+    out = dict(from_coo_s=build_s, pagerank_cold_s=cold_s,
+               pagerank_cold_iters=svc.last_iterations, rounds=[])
+    stream = update_stream(svc.snapshot.cbl.capacity_vertices, (src, dst),
+                           UPDATES_PER_ROUND, ROUNDS,
+                           delete_frac=DELETE_FRAC, seed=seed + 1, device=dev)
+    for r, (s, d, uw, op) in enumerate(stream):
+        _, apply_s = timer.wall(lambda: svc.apply(s, d, uw, op))
+        rep, flush_s = timer.wall(svc.flush)
+        ref_rep, ref_fi, ref_wi, ref_fd, ref_wd = untiered[r]
+        check(rep[:4] == ref_rep[:4],
+              f"tier round {r}: flush report {rep[:4]} differs from the "
+              f"untiered service's {ref_rep[:4]}")
+        qs_i, qd_i, _, qs_d, qd_d = read_pairs(s, d, uw, op)
+        (fi, wi), read_s = timer.wall(lambda: svc.query_edges(qs_i, qd_i))
+        fd, wd = svc.query_edges(qs_d, qd_d)
+        check(all(torch.equal(a, b) for a, b in
+                  ((fi, ref_fi), (wi, ref_wi), (fd, ref_fd), (wd, ref_wd))),
+              f"tier round {r}: point reads differ from the untiered "
+              f"service's")
+        tg = svc.snapshot.cbl
+        check(isinstance(tg, TieredGraph), "tier: the service is untiered")
+        row = dict(round=r, flush_s=flush_s,
+                   flush_s_per_1M=flush_s * 1e6 / s.numel(),
+                   untiered_flush_s_per_1M=plain["rounds"][r]["flush_s"]
+                   * 1e6 / s.numel(), apply_s=apply_s,
+                   maintenance=rep.maintenance.kind,
+                   untiered_maintenance=ref_rep.maintenance.kind,
+                   grow_retries=rep.grow_retries, seals=svc.stats.seals,
+                   unseals=svc.stats.unseals,
+                   tier_version=list(svc.snapshot.tier_version),
+                   sealed_fraction=float(tg.sealed_fraction),
+                   delta_blocks=tg.num_blocks, read_s=read_s)
+        out["rounds"].append(row)
+        say("tier.flush", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                             for k, v in row.items()})
+    check(svc.stats.seals >= 1 and svc.stats.unseals >= 1,
+          f"tier: {svc.stats.seals} seals and {svc.stats.unseals} unseals "
+          f"in {ROUNDS} rounds (K = {TIER_K})")
+    ranks, warm_s = timer.wall(lambda: svc.analytics("pagerank"))
+    iters = svc.last_iterations
+    rel = float(((ranks - untiered_warm).abs()
+                 / untiered_warm.abs().clamp(min=1e-30)).max())
+    check(torch.allclose(ranks, untiered_warm, rtol=1e-4, atol=0.0),
+          f"tier: warm PageRank off the untiered service's by {rel:.3e}")
+    plain_warm = plain["pagerank_warm"]
+    out.update(pagerank_warm_s=warm_s, pagerank_warm_iters=iters,
+               pagerank_warm_ms_per_it=warm_s * 1e3 / max(iters, 1),
+               untiered_pagerank_warm_ms_per_it=plain_warm["seconds"] * 1e3
+               / max(plain_warm["iterations"], 1),
+               pagerank_max_rel=rel, max_memory_allocated=(
+                   torch.cuda.max_memory_allocated()),
+               launches={k: backend.LAUNCHES[k]
+                         for k in GRAPH_KERNELS + WALK_KERNELS})
+    for name in GRAPH_KERNELS + ("chain_walk_locate",):
+        check(out["launches"][name] > 0,
+              f"tier: {name} never launched on the tiered service's path")
+    say("tier.warm", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                        for k, v in out.items() if k != "rounds"})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1910,7 +2206,10 @@ def kernels_line(report: dict) -> dict:
     """The ``kernels`` JSON object: each kernel at its path's dominant shape
     (the push sweep's first row: x[src] over the sweep plan and the CSR sum
     of its stream; the global attention layer; the serve_bulk lookup),
-    errors over every shape checked, launches on its own path's run."""
+    errors over every shape checked, launches on its own path's run.  The
+    graph kernels' ``tier`` entry holds the same numbers at the sealed
+    run's push stream (0.9 of the edges sealed), launches on the tiered
+    service's run."""
     launches = report["service"]["launches"]
     meta = {
         "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
@@ -1963,6 +2262,18 @@ def kernels_line(report: dict) -> dict:
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"], shape=main["shape"]))
+        if table is meta:            # the sealed run's push stream
+            for row in out[-2:]:
+                main = next(r for r in report["tier"]["kernels"]
+                            if r["name"] == row["name"])
+                row["tier"] = dict(
+                    shape=main["shape"],
+                    launches=report["tier"]["service"]["launches"][
+                        row["name"]],
+                    max_abs_err=main["max_abs_err"], ms=main["ms"],
+                    plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                    bound_by=main["bound_by"],
+                    library_ms=main["library_ms"])
         if table is walk_meta:       # the bound's two terms, as measured
             for row, name in zip(out[-2:], walk_meta):
                 main = next(r for r in report[rows_key] if r["name"] == name)
@@ -2009,6 +2320,7 @@ def main(argv=None) -> int:
         lm_max_memory_allocated=report["lm"]["max_memory_allocated"],
         recsys_max_memory_allocated=report["recsys"]["max_memory_allocated"],
         graph_seconds=f"{report['graph_seconds']:.1f}",
+        tier_seconds=f"{report['tier_seconds']:.1f}",
         lm_seconds=f"{report['lm_seconds']:.1f}",
         recsys_seconds=f"{report['recsys_seconds']:.1f}",
         file=f"chiprun_out/{name}")

@@ -1,6 +1,7 @@
-"""GastCoCo core in torch: CBList storage, batched updates, the engine's
-sweeps and the vertex-program executor (the port's share of
-``repro.core``'s public API)."""
+"""GastCoCo core in torch: CBList storage, sealed CSR runs and the tiered
+store over both, batched updates, the engine's sweeps and the
+vertex-program executor (the port's share of ``repro.core``'s public
+API)."""
 from repro_torch.core.blockstore import (NULL, PAD, BlockStore, alloc_blocks,
                                          compact, free_blocks,
                                          free_blocks_left, grow_store,
@@ -24,3 +25,10 @@ from repro_torch.core.program import (ProgramContext, Sweep, VertexProgram,
 from repro_torch.core.traversal import (lane_mask, read_vertex, scan_edges,
                                         scan_vertices)
 from repro_torch.core.tuner import choose_engine_impl
+from repro_torch.core.csr import (CSRGraph, csr_build, csr_build_counted,
+                                  csr_degrees, csr_empty, csr_in_degrees,
+                                  csr_pagerank_sweep, csr_pull, csr_push,
+                                  csr_push_feat, csr_query,
+                                  csr_sample_neighbors, csr_to_coo)
+from repro_torch.core.tiered import (TieredGraph, cold_mask, seal,
+                                     tier_from_cbl, tiered_grow, unseal)

@@ -23,10 +23,17 @@ stream.  Without a plan each sum sweep sorts its segment ids itself.
 
 ``min``/``max`` combines always use ``scatter_reduce`` (the sum kernel is
 additive), as the JAX package keeps them off its kernels.
+
+Every sweep entry point also takes a
+:class:`~repro_torch.core.tiered.TieredGraph`: the delta sweeps as above
+(through ``plan``, the delta's plan), the sealed run through the CSR sweeps
+of :mod:`repro_torch.core.csr`, and the two partials merge through the
+semiring.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -193,8 +200,9 @@ def sweep_plan(cbl: CBList, *, push: bool = True,
 
 def _planned_sum(plan: SweepPlan, name: str,
                  data: torch.Tensor) -> torch.Tensor:
-    """Segment sum of a stream already in the plan's order."""
-    flat = data.reshape(data.shape[0], -1).contiguous()
+    """Segment sum of a stream already in the plan's order (an empty stream
+    too: a delta whose every vertex is sealed)."""
+    flat = data.reshape(data.shape[0], math.prod(data.shape[1:])).contiguous()
     out = segment_sum_csr(flat, plan.stream(name),
                           plan.partition(name, flat.shape[1]))
     return out.reshape((out.shape[0],) + tuple(data.shape[1:]))
@@ -233,6 +241,11 @@ def process_edge_push(cbl: CBList, x: torch.Tensor,
     in destination order instead and summed as one sorted stream.
     """
     impl = resolve_impl(impl)
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_process_edge_push
+        return tiered_process_edge_push(cbl, x, active, dense_f=dense_f,
+                                        combine=combine, impl=impl,
+                                        plan=plan)
     if plan is not None and impl == "cuda" and combine == "sum":
         plan.check(cbl)
         plan.stream("lanes")
@@ -270,6 +283,11 @@ def process_edge_pull(cbl: CBList, x: torch.Tensor,
     order by the plan's block order and summed as one sorted stream.
     """
     impl = resolve_impl(impl)
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_process_edge_pull
+        return tiered_process_edge_pull(cbl, x, active_dst, dense_f=dense_f,
+                                        combine=combine, impl=impl,
+                                        plan=plan)
     planned = plan is not None and impl == "cuda" and combine == "sum"
     if planned:
         plan.check(cbl)
@@ -310,6 +328,11 @@ def process_edge_push_feat(cbl: CBList, x: torch.Tensor,
     and summed as one sorted stream.
     """
     impl = resolve_impl(impl)
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_process_edge_push_feat
+        return tiered_process_edge_push_feat(cbl, x, active,
+                                             weighted=weighted, impl=impl,
+                                             plan=plan)
     if plan is not None and impl == "cuda":
         plan.check(cbl)
         plan.stream("lanes")
@@ -335,6 +358,9 @@ def out_degrees(cbl: CBList) -> torch.Tensor:
 
 
 def in_degrees(cbl: CBList) -> torch.Tensor:
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_in_degrees
+        return tiered_in_degrees(cbl)
     st = cbl.store
     nv = cbl.capacity_vertices
     seg = torch.where(lane_mask(st), st.keys, nv).reshape(-1)

@@ -21,6 +21,7 @@ import torch
 
 import repro_torch.obs as obs
 from repro_torch.core.blockstore import arange32
+from repro_torch.core.cblist import CBList
 from repro_torch.core.engine import (SEMIRINGS, process_edge_pull,
                                      process_edge_push, process_edge_push_feat,
                                      sweep_plan)
@@ -186,12 +187,16 @@ def _run_sweep(ctx: ProgramContext, sw: Sweep, x, active, impl: str):
 
 
 def _plan_for(cbl, prog: VertexProgram, impl: str):
-    """The sweep plan the kernel route's sum sweeps share, or None."""
+    """The sweep plan the kernel route's sum sweeps share, or None.  On a
+    TieredGraph it is the delta's: the sealed run keeps its own
+    destination-ordered stream from the time it was built."""
     if impl != "cuda":
         return None
     dirs = {sw.direction for sw in prog.sweeps if sw.combine == "sum"}
     if not dirs:
         return None
+    if not isinstance(cbl, CBList):
+        cbl = cbl.delta
     return sweep_plan(cbl, push=bool(dirs & {"push", "push_feat"}),
                       pull="pull" in dirs)
 

@@ -228,8 +228,10 @@ def choose_serve_plan(arrival_qps: float, mean_lanes_per_request: float = 8.0,
 
 
 def choose_engine_impl(cbl, task="scan_all") -> str:
-    """The ``impl=`` for the engine sweeps over ``cbl``: ``"cuda"`` when its
-    tensors lie on a CUDA device, else ``"torch"``.  ``task`` (a task string
-    or a VertexProgram) is accepted for signature parity and not read."""
+    """The ``impl=`` for the engine sweeps over ``cbl`` (a CBList or a
+    TieredGraph, whose sealed run then takes the same route): ``"cuda"``
+    when its tensors lie on a CUDA device, else ``"torch"``.  ``task`` (a
+    task string or a VertexProgram) is accepted for signature parity and
+    not read."""
     del task
-    return "cuda" if cbl.v_deg.is_cuda else "torch"
+    return "cuda" if cbl.device.type == "cuda" else "torch"

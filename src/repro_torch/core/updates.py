@@ -12,7 +12,9 @@ data parallelism over the batch.
 
 Mutators are pure: they clone before they write, so a caller's CBList (a
 pinned snapshot, or the service's pre-update state kept for the grow-retry)
-is never changed.
+is never changed.  Every entry point also takes a
+:class:`~repro_torch.core.tiered.TieredGraph` and dispatches to its
+``tiered_*`` counterpart (writes to sealed vertices unseal them first).
 """
 from __future__ import annotations
 
@@ -58,6 +60,9 @@ def read_edges(cbl: CBList, qsrc: torch.Tensor, qdst: torch.Tensor,
     """Batched read_edge(v_src, v_dst): (found, weight).  Lanes with
     ``active`` False report not found without walking.  Makes no host sync
     on the card."""
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_read_edges
+        return tiered_read_edges(cbl, qsrc, qdst, active)
     if active is None:
         active = torch.ones(qsrc.shape, dtype=torch.bool, device=qsrc.device)
     fblk, flane = _locate(cbl, qsrc, qdst, active)
@@ -227,6 +232,9 @@ def batch_update_stats(cbl: CBList, src: torch.Tensor, dst: torch.Tensor,
     ``stats.dropped_edges > 0`` means the free stack ran out mid-batch: grow
     capacity and re-apply the batch to the *pre-update* CBList.
     """
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_batch_update_stats
+        return tiered_batch_update_stats(cbl, src, dst, w, op)
     w, op = _defaults(src, w, op)
     cbl, n_del = _apply_deletes(cbl, src, dst, op == DELETE)
     cbl, dropped = _apply_inserts(cbl, src, dst, w, op == INSERT)
@@ -249,6 +257,9 @@ def batch_update(cbl: CBList, src: torch.Tensor, dst: torch.Tensor,
 def upsert_edges(cbl: CBList, src, dst, w=None,
                  valid: Optional[torch.Tensor] = None) -> CBList:
     """Insert-or-replace: deletes any existing (src, dst) first."""
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_upsert_edges
+        return tiered_upsert_edges(cbl, src, dst, w, valid)
     w, _ = _defaults(src, w, None)
     if valid is None:
         valid = torch.ones(src.shape, dtype=torch.bool, device=src.device)
@@ -301,9 +312,15 @@ def _sweep_in_edges(cbl: CBList, vids: torch.Tensor) -> CBList:
 def delete_vertices(cbl: CBList, vids: torch.Tensor) -> CBList:
     """UpdateVertex(delete): frees the out-chains of ``vids`` (NULL entries
     ignored) and sweeps their in-edges out of every block."""
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_delete_vertices
+        return tiered_delete_vertices(cbl, vids)
     return _sweep_in_edges(_delete_vertex_chains(cbl, vids), vids)
 
 
 def add_vertices(cbl: CBList, k) -> CBList:
     """UpdateVertex(add): append-only (aligned to max logical id)."""
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_add_vertices
+        return tiered_add_vertices(cbl, k)
     return cbl._replace(n_vertices=cbl.n_vertices + int(k))

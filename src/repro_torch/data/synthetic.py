@@ -1,4 +1,5 @@
-"""Synthetic graph data on the device: RMAT graphs and dynamic update streams.
+"""Synthetic data on the device: RMAT graphs, dynamic update streams, LM
+token batches and SASRec training batches.
 
 The port's own copy of the generators (the JAX package's are numpy on the
 host and take minutes at LiveJournal size).  Same semantics, drawn from a
@@ -11,6 +12,11 @@ the same seed:
 * :func:`update_stream` — vectorised: deletes drawn without replacement
   from the live edges, inserts drawn uniformly and redrawn until they are
   fresh, checked by ``searchsorted`` against the sorted int64 live keys.
+* :func:`token_stream` — Zipf(1.3) tokens by numpy's rejection rule for
+  ``Generator.zipf``, drawn in float64 on the device.
+* :func:`sasrec_batches` — (seq, pos, neg) batches with item 0 as padding,
+  right-padded to lengths uniform in ``seq // 2 .. seq`` as the JAX
+  package's generator pads them.
 """
 from __future__ import annotations
 
@@ -137,3 +143,62 @@ def _fresh_keys(live: torch.Tensor, n: int, n_vertices: int,
         unique[order] = first
         got = cand[fresh & unique]
     return got[:n]
+
+
+ZIPF_A = 1.3
+
+
+def _zipf(n: int, a: float, gen: torch.Generator,
+          device: torch.device) -> torch.Tensor:
+    """``n`` Zipf(a) draws as int64: numpy's rejection rule (Devroye's),
+    vectorised, redrawing the rejected lanes until none is left."""
+    am1 = a - 1.0
+    b = 2.0 ** am1
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    todo = torch.arange(n, device=device)
+    while todo.numel():
+        m = todo.numel()
+        u = 1.0 - torch.rand(m, generator=gen, dtype=torch.float64,
+                             device=device)
+        v = torch.rand(m, generator=gen, dtype=torch.float64, device=device)
+        x = torch.floor(u ** (-1.0 / am1))
+        t = (1.0 + 1.0 / x) ** am1
+        ok = (x >= 1.0) & (x <= 2.0 ** 62) \
+            & (v * x * (t - 1.0) / (b - 1.0) <= t / b)
+        out[todo[ok]] = x[ok].to(torch.int64)
+        todo = todo[~ok]
+    return out
+
+
+def token_stream(vocab: int, batch: int, seq: int, *, seed: int = 0,
+                 device=None) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Zipf-ish token batches ``(tokens, labels)``, int32 [batch, seq], for
+    LM training: labels are the tokens shifted by one."""
+    device = resolve_device(device)
+    gen = _generator(seed, device)
+    while True:
+        z = _zipf(batch * (seq + 1), ZIPF_A, gen, device)
+        toks = torch.minimum(z - 1, torch.tensor(vocab - 1, device=device))
+        toks = toks.to(torch.int32).view(batch, seq + 1)
+        yield toks[:, :-1], toks[:, 1:]
+
+
+def sasrec_batches(n_items: int, batch: int, seq: int, *, seed: int = 0,
+                   device=None
+                   ) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]]:
+    """``(seq, pos, neg)`` int32 [batch, seq] training batches; item 0 is
+    padding, histories right-padded (``pos`` is ``seq`` shifted by one)."""
+    device = resolve_device(device)
+    gen = _generator(seed, device)
+    while True:
+        s = torch.randint(1, n_items + 1, (batch, seq + 1), generator=gen,
+                          device=device, dtype=torch.int32)
+        lengths = torch.randint(seq // 2, seq + 1, (batch,), generator=gen,
+                                device=device)
+        mask = torch.arange(seq, device=device)[None, :] < lengths[:, None]
+        seq_in = torch.where(mask, s[:, :-1], 0)
+        pos = torch.where(mask, s[:, 1:], 0)
+        neg = torch.randint(1, n_items + 1, (batch, seq), generator=gen,
+                            device=device, dtype=torch.int32)
+        yield seq_in, pos, neg

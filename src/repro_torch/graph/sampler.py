@@ -62,7 +62,11 @@ def rank_neighbors(cbl: CBList, verts: torch.Tensor, ranks: torch.Tensor
 def _sample_neighbors(cbl: CBList, verts: torch.Tensor,
                       generator: torch.Generator, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Draw up to k neighbours (with replacement) per vertex in ``verts``."""
+    """Draw up to k neighbours (with replacement) per vertex in ``verts``
+    (over both tiers of a :class:`~repro_torch.core.tiered.TieredGraph`)."""
+    if not isinstance(cbl, CBList):
+        from repro_torch.core.tiered import tiered_sample_neighbors
+        return tiered_sample_neighbors(cbl, verts, generator, k)
     return rank_neighbors(cbl, verts, draw_ranks(cbl, verts, generator, k))
 
 

@@ -1,9 +1,9 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
-The JAX package's ``CBList``, ``BlockStore``, ``UpdateLog`` and program
-outputs are NamedTuples of arrays; anything with the same field names whose
-leaves ``np.asarray`` accepts converts here (nothing of the JAX package is
-imported).  Values are copied unchanged — int32 stays int32 — so a layout
+The JAX package's ``CBList``, ``BlockStore``, ``UpdateLog``, ``CSRGraph``,
+``TieredGraph`` and program outputs are NamedTuples or dataclasses of
+arrays; anything with the same field names whose leaves ``np.asarray``
+accepts converts here (nothing of the JAX package is imported).  Values are copied unchanged — int32 stays int32 — so a layout
 moved across and back compares bit for bit.  ``lm_params_from_jax`` turns
 the JAX LM's period-stacked parameter tree into the port's layer list;
 ``sasrec_params_from_jax`` carries a SASRec tree over as it is.
@@ -18,6 +18,8 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.core.blockstore import BlockStore
 from repro_torch.core.cblist import CBList
+from repro_torch.core.csr import CSRGraph
+from repro_torch.core.tiered import TieredGraph
 from repro_torch.stream.log import UpdateLog
 
 
@@ -60,6 +62,30 @@ def cbl_to_numpy(cbl: CBList) -> Dict[str, Any]:
     out["store"] = {k: to_numpy(getattr(cbl.store, k))
                     for k in BlockStore._fields}
     return out
+
+
+_CSR_FIELDS = ("offsets", "indices", "weights", "row", "nv")
+_TIER_FIELDS = ("delta", "runs", "sealed", "v_epoch", "wgen", "run_version")
+
+
+def csr_from_arrays(csr, device=None) -> CSRGraph:
+    """A port CSRGraph from a JAX ``CSRGraph`` (or a dict of its fields);
+    the run's point-read keys and push stream are built on the way."""
+    f = _fields(csr, _CSR_FIELDS)
+    return CSRGraph(nv=int(f.pop("nv")),
+                    **{k: from_numpy(v, device) for k, v in f.items()})
+
+
+def tiered_from_arrays(tg, device=None) -> TieredGraph:
+    """A port TieredGraph from a JAX ``TieredGraph`` (or a dict of its
+    fields) over an unsharded delta."""
+    f = _fields(tg, _TIER_FIELDS)
+    return TieredGraph(delta=cbl_from_arrays(f["delta"], device),
+                       runs=csr_from_arrays(f["runs"], device),
+                       sealed=from_numpy(f["sealed"], device),
+                       v_epoch=from_numpy(f["v_epoch"], device),
+                       wgen=int(np.asarray(f["wgen"])),
+                       run_version=int(np.asarray(f["run_version"])))
 
 
 def log_from_arrays(log, device=None) -> UpdateLog:

@@ -7,9 +7,9 @@ deep the per-vertex chains it must hop.  Per sweep this module computes:
   * **delta chain hops** — blocks per live vertex chain (``v_level``):
     mean and max.  Every hop past the first is a dependent fetch (the
     quantity the paper's coroutine schedule exists to cover);
-  * **run-vs-delta lane mix** — the fraction of live edges served by a
-    sealed CSR tier vs the mutable delta (the port's storage is untiered:
-    every lane is a delta lane);
+  * **run-vs-delta lane mix** — the fraction of live edges served by the
+    sealed CSR tier of a :class:`~repro_torch.core.tiered.TieredGraph` vs
+    the mutable delta (an untiered CBList: every lane is a delta lane);
   * **blocks-touched-per-edge** — blocks a full sweep visits over live
     edges (1/block_width is the dense ideal; near 1.0 is pointer chasing).
 
@@ -38,18 +38,27 @@ def _chain_stats(v_level: torch.Tensor, v_deg: torch.Tensor):
 
 
 def sweep_profile(storage) -> dict:
-    """Locality statistics of one sweep over ``storage`` (a CBList) as a
-    flat host-side dict."""
+    """Locality statistics of one sweep over ``storage`` (a CBList or a
+    TieredGraph) as a flat host-side dict."""
     from repro_torch.core import blockstore as bs
-    blocks, hops_max, n_live, edges = _chain_stats(storage.v_level,
-                                                   storage.v_deg)
-    contiguity = float(bs.gtchain_contiguity(storage.store))
+    from repro_torch.core.cblist import CBList
+    run_edges = 0.0
+    delta = storage
+    if not isinstance(storage, CBList):
+        delta = storage.delta
+        run_edges = float(storage.runs.n_live)
+    blocks, hops_max, n_live, delta_edges = _chain_stats(delta.v_level,
+                                                         delta.v_deg)
+    contiguity = float(bs.gtchain_contiguity(delta.store))
+    edges = delta_edges + run_edges
+    # the sealed tier is one contiguous stream: ceil(lanes / width) blocks
+    run_blocks = -(-run_edges // storage.block_width) if run_edges else 0.0
     return {
         "chain_hops_mean": blocks / n_live if n_live else 0.0,
         "chain_hops_max": hops_max,
-        "delta_lane_fraction": 1.0 if edges else 0.0,
-        "run_lane_fraction": 0.0,
-        "blocks_per_edge": blocks / edges if edges else 0.0,
+        "delta_lane_fraction": delta_edges / edges if edges else 0.0,
+        "run_lane_fraction": run_edges / edges if edges else 0.0,
+        "blocks_per_edge": (blocks + run_blocks) / edges if edges else 0.0,
         "contiguity": contiguity,
         "live_vertices": n_live,
         "live_edges": edges,

@@ -15,10 +15,16 @@ ways, each with its repair action:
   ===========================  ============================  ================
 
 The decision runs on the host between device steps (it reads concrete
-statistics); the actions are pure CBList -> CBList transforms.  Priority:
-grow > rebuild > compact.  The tiered storage's seal action and the
-churn-adapted seal threshold (``MaintenancePolicy.adapted``) come with the
-tiered slice.
+statistics); the actions are pure storage -> storage transforms.  Priority:
+grow > seal > rebuild > compact.
+
+Tiered storage (:class:`~repro_torch.core.tiered.TieredGraph`) adds the
+``"seal"`` action: vertices with no writes for ``seal_after_epochs`` write
+generations move out of the delta into the immutable CSR run.  Sealing
+shrinks the delta, so it outranks the delta-local repairs (a rebuild of
+chains about to leave the delta would be wasted work); rebuild and compact
+stay local to the delta.  ``MaintenancePolicy.adapted`` raises the seal
+threshold from the measured unseal churn of a signal bus.
 """
 from __future__ import annotations
 
@@ -33,6 +39,15 @@ from repro_torch.core.blockstore import NULL
 from repro_torch.core.cblist import (CBList, block_fences, compact_cbl, grow,
                                      rebuild)
 
+# churn-adaptation knobs for MaintenancePolicy.adapted(): the seal threshold
+# K doubles while the measured unseal-churn ratio (unseals per seal: the
+# share of sealed vertices that writes pull straight back through a
+# repartition) exceeds the target, capped at CHURN_ADAPT_CAP x base K
+SEAL_CHURN_TARGET = 0.25
+CHURN_ADAPT_CAP = 8
+# windowed samples required before churn adaptation fires
+MIN_CHURN_SAMPLES = 3
+
 
 @dataclasses.dataclass(frozen=True)
 class MaintenancePolicy:
@@ -43,11 +58,54 @@ class MaintenancePolicy:
     grow_factor: int = 2              # capacity doubling per grow
     max_edges_hint: Optional[int] = None  # rebuild extraction bound
                                           # (default: num_blocks * block_width)
+    seal_after_epochs: Optional[int] = None  # tiered: vertices unwritten for
+                                             # this many write generations
+                                             # are cold (None = never seal)
+    seal_min_fraction: float = 0.05   # don't repartition for fewer cold
+                                      # vertices than this fraction of live
     stats_period: int = 1             # post-flush full decide every N flushes
+
+    def adapted(self, signals) -> "MaintenancePolicy":
+        """This policy with the seal threshold K adapted from measured
+        unseal churn (a :class:`repro_torch.obs.SignalView`).
+
+        A high ``unseal_churn`` / ``seal_rate`` ratio means K is too eager:
+        vertices get sealed and pulled straight back into the delta by
+        writes, a repartition each way.  K doubles per factor the ratio sits
+        above :data:`SEAL_CHURN_TARGET`, capped at :data:`CHURN_ADAPT_CAP` x
+        base.  Stateless: each call reads the windowed signals afresh, so a
+        subsiding churn window relaxes K back toward the base policy.
+        Returns ``self`` when there is no usable signal.
+        """
+        if signals is None or self.seal_after_epochs is None:
+            return self
+        churn = signals.get("unseal_churn")
+        if churn is None or churn.n < MIN_CHURN_SAMPLES:
+            return self
+        seals = signals.get("seal_rate")
+        per_seal = churn.mean / max(seals.mean if seals else 1.0, 1.0)
+        mult, ratio = 1, per_seal
+        while ratio > SEAL_CHURN_TARGET and mult < CHURN_ADAPT_CAP:
+            mult *= 2
+            ratio /= 2.0
+        if mult == 1:
+            return self
+        k = int(self.seal_after_epochs * mult)
+        obs.decision(
+            "maintenance.adapt_seal", base_k=self.seal_after_epochs,
+            adapted_k=k, multiplier=mult,
+            unseal_churn_mean=round(churn.mean, 4),
+            unseal_churn_last=round(churn.last, 4), churn_n=churn.n,
+            seal_rate_mean=round(seals.mean, 4) if seals else None,
+            churn_per_seal=round(per_seal, 4),
+            rule=f"unseal churn per seal {per_seal:.2f} above target "
+                 f"{SEAL_CHURN_TARGET:g}: double K per excess factor "
+                 f"(cap {CHURN_ADAPT_CAP}x)")
+        return dataclasses.replace(self, seal_after_epochs=k)
 
 
 class MaintenanceAction(NamedTuple):
-    kind: str         # "none" | "compact" | "rebuild" | "grow"
+    kind: str         # "none" | "compact" | "rebuild" | "grow" | "seal"
     reason: str
     num_blocks: int = 0       # grow target (0 = unchanged)
     vertex_capacity: int = 0  # grow target (0 = unchanged)
@@ -67,7 +125,7 @@ def chain_overlap_fraction(cbl: CBList) -> torch.Tensor:
     return ovl.sum().float() / same.sum().clamp(min=1).float()
 
 
-def decide(cbl: CBList, pending_inserts: int = 0,
+def decide(cbl, pending_inserts: int = 0,
            policy: MaintenancePolicy = MaintenancePolicy(),
            headroom_only: bool = False) -> MaintenanceAction:
     """Pick the maintenance action for the current storage state.
@@ -81,6 +139,10 @@ def decide(cbl: CBList, pending_inserts: int = 0,
     ``maint.decision{kind=...,phase=...}`` counter increment (phase
     "proactive" for the headroom-only call, "full" otherwise) and a decide
     span; an action other than "none" also lands in the decision log.
+
+    ``cbl`` may be a :class:`~repro_torch.core.tiered.TieredGraph`; then the
+    delta's rules run first and a large-enough cold set seals (the service
+    passes the policy :meth:`MaintenancePolicy.adapted` to its signals).
     """
     phase = "proactive" if headroom_only else "full"
     with obs.span("maint.decide", cat="maint", phase=phase):
@@ -92,8 +154,10 @@ def decide(cbl: CBList, pending_inserts: int = 0,
     return action
 
 
-def _decide(cbl: CBList, pending_inserts: int, policy: MaintenancePolicy,
+def _decide(cbl, pending_inserts: int, policy: MaintenancePolicy,
             headroom_only: bool) -> MaintenanceAction:
+    if not isinstance(cbl, CBList):
+        return _decide_tiered(cbl, pending_inserts, policy, headroom_only)
     return _decide_from_stats(
         nb=cbl.store.num_blocks, free=int(bs.free_blocks_left(cbl.store)),
         n_live=int(cbl.n_vertices), nv_cap=cbl.capacity_vertices,
@@ -133,8 +197,37 @@ def _decide_from_stats(*, nb: int, free: int, n_live: int, nv_cap: int,
     return MaintenanceAction(kind="none", reason="all statistics in band")
 
 
-def apply_action(cbl: CBList, action: MaintenanceAction,
-                 policy: MaintenancePolicy = MaintenancePolicy()) -> CBList:
+_ACTION_PRIORITY = {"grow": 4, "seal": 3, "rebuild": 2, "compact": 1,
+                    "none": 0}
+
+
+def _decide_tiered(tg, pending_inserts: int, policy: MaintenancePolicy,
+                   headroom_only: bool) -> MaintenanceAction:
+    """Tiered decision: the delta's own statistics rule, then sealing.
+
+    Grow always wins, and the proactive pre-flush call (``headroom_only``)
+    never seals (a repartition right before a write batch would likely
+    unseal straight back).  Otherwise a large-enough cold set outranks the
+    delta-local rebuild / compact.
+    """
+    base = _decide(tg.delta, pending_inserts, policy, headroom_only)
+    if headroom_only or base.kind == "grow" \
+            or policy.seal_after_epochs is None:
+        return base
+    from repro_torch.core.tiered import cold_mask
+    n_cold = int(cold_mask(tg, policy.seal_after_epochs).sum())
+    n_live = max(int(tg.n_vertices), 1)
+    if n_cold and n_cold >= policy.seal_min_fraction * n_live \
+            and _ACTION_PRIORITY[base.kind] < _ACTION_PRIORITY["seal"]:
+        return MaintenanceAction(
+            kind="seal",
+            reason=f"{n_cold}/{n_live} vertices unwritten for "
+                   f">={policy.seal_after_epochs} epochs")
+    return base
+
+
+def apply_action(cbl, action: MaintenanceAction,
+                 policy: MaintenancePolicy = MaintenancePolicy()):
     """Execute a scheduled action (pure; 'none' is the identity).
 
     Under :mod:`repro_torch.obs` each applied action gets a
@@ -152,8 +245,10 @@ def apply_action(cbl: CBList, action: MaintenanceAction,
     return out
 
 
-def _apply_action(cbl: CBList, action: MaintenanceAction,
-                  policy: MaintenancePolicy) -> CBList:
+def _apply_action(cbl, action: MaintenanceAction,
+                  policy: MaintenancePolicy):
+    if not isinstance(cbl, CBList):
+        return _apply_tiered(cbl, action, policy)
     if action.kind == "compact":
         return compact_cbl(cbl)
     if action.kind == "rebuild":
@@ -164,3 +259,19 @@ def _apply_action(cbl: CBList, action: MaintenanceAction,
         return grow(cbl, num_blocks=action.num_blocks or None,
                     vertex_capacity=action.vertex_capacity or None)
     raise ValueError(f"unknown maintenance action {action.kind!r}")
+
+
+def _apply_tiered(tg, action: MaintenanceAction, policy: MaintenancePolicy):
+    """Tiered actions: seal repartitions the tiers, grow extends the tier
+    bookkeeping with the delta, rebuild / compact stay local to the delta
+    (the sealed run is sorted and contiguous by construction)."""
+    from repro_torch.core.tiered import cold_mask, seal, tiered_grow
+    if action.kind == "seal":
+        if policy.seal_after_epochs is None:
+            raise ValueError("seal action without policy.seal_after_epochs")
+        return seal(tg, cold_mask(tg, policy.seal_after_epochs))
+    if action.kind == "grow":
+        return tiered_grow(tg, num_blocks=action.num_blocks or None,
+                           vertex_capacity=action.vertex_capacity or None)
+    return dataclasses.replace(tg, delta=_apply_action(tg.delta, action,
+                                                       policy))

@@ -1,7 +1,8 @@
 """GraphService — the versioned dynamic-graph serving facade, in torch.
 
 One object owns update admission, snapshot versioning, maintenance
-scheduling and incremental analytics over one CBList:
+scheduling and incremental analytics over one CBList, or over a
+:class:`~repro_torch.core.tiered.TieredGraph` (``seal_after_epochs=K``):
 
     service = GraphService.from_coo(src, dst, w, num_vertices=nv)
     service.apply(us, ud, uw, op)          # -> update log (coalesced)
@@ -13,8 +14,9 @@ scheduling and incremental analytics over one CBList:
 per key wins), frames the result as a delete phase plus an insert phase
 (upsert: no parallel edges) and applies one BatchUpdate.  The
 ``dropped_edges`` overflow counter triggers a capacity grow and an exact
-retry on the pre-update CBList; the maintenance policy then schedules
-compact/rebuild/grow.  Analytics dispatch through the program registry with
+retry on the pre-update storage; the maintenance policy then schedules
+compact/rebuild/grow, and on tiered storage seals the vertices unwritten
+for K flushes.  Analytics dispatch through the program registry with
 per-epoch caching and warm starts gated by each program's
 ``warm_validity``; :meth:`GraphService.register_program` opens
 user-defined workloads to the same loop.  Under :mod:`repro_torch.obs` a
@@ -109,6 +111,7 @@ class _ShadowFlush:
     batch: Tuple[torch.Tensor, ...]       # (src2, dst2, w2, op2)
     net_deletes: int
     done: Optional[torch.cuda.Event]      # recorded after the upsert's launch
+    sealed_before: Optional[torch.Tensor]  # tiered: sealed mask pre-update
 
 
 @dataclasses.dataclass
@@ -123,21 +126,43 @@ class ServiceStats:
     grows: int = 0
     compacts: int = 0
     rebuilds: int = 0
+    seals: int = 0                # cold-vertex seal repartitions (tiered)
+    unseals: int = 0              # vertices written back into the delta
+
+
+def _num_blocks(cbl) -> int:
+    """Delta block capacity (a TieredGraph reports its delta's: grow only
+    ever targets the mutable tier)."""
+    return cbl.store.num_blocks if isinstance(cbl, CBList) else cbl.num_blocks
 
 
 class GraphService:
     """Facade over log + snapshot + maintenance + incremental analytics for
-    one CBList on one device.  Host-side orchestrator: every decision that
-    needs concrete statistics runs between device steps."""
+    one CBList (or TieredGraph) on one device.  Host-side orchestrator:
+    every decision that needs concrete statistics runs between device
+    steps."""
 
     def __init__(self, cbl: CBList, *, log_capacity: int = 4096,
                  high_watermark: float = 0.75,
                  policy: MaintenancePolicy = MaintenancePolicy(),
-                 auto_flush: bool = True, signals=None):
-        """``signals=`` attaches a :class:`repro_torch.obs.SignalBus`: every
-        flush ticks it after its counters land.  (The churn-adapted seal
-        threshold it also drives in the JAX package belongs to tiered
-        storage, which the port does not have yet.)"""
+                 auto_flush: bool = True,
+                 seal_after_epochs: Optional[int] = None, signals=None):
+        """``seal_after_epochs=K`` turns on tiered storage: the CBList
+        becomes the hot delta of a :class:`~repro_torch.core.tiered.
+        TieredGraph`, and maintenance seals vertices unwritten for K
+        flushes into the immutable CSR run; a write touching a sealed
+        vertex unseals it.
+
+        ``signals=`` attaches a :class:`repro_torch.obs.SignalBus`: every
+        flush ticks it after its counters land, and the post-flush
+        maintenance decision runs under the churn-adapted policy
+        (:meth:`MaintenancePolicy.adapted`)."""
+        if seal_after_epochs is not None:
+            from repro_torch.core.tiered import TieredGraph, tier_from_cbl
+            if not isinstance(cbl, TieredGraph):
+                cbl = tier_from_cbl(cbl)
+            policy = dataclasses.replace(policy,
+                                         seal_after_epochs=seal_after_epochs)
         self._snap = snap.snapshot_of(cbl)
         self._shadow: Optional[_ShadowFlush] = None
         self._log: UpdateLog = ulog.make_log(log_capacity, cbl.device)
@@ -158,7 +183,8 @@ class GraphService:
                  num_blocks: Optional[int] = None, block_width: int = 32,
                  device=None, **kw) -> "GraphService":
         """Build the service's CBList from COO edges on ``device`` (the card
-        unless another device is named)."""
+        unless another device is named); ``**kw`` go to the constructor
+        (``seal_after_epochs=K`` for tiered storage)."""
         device = resolve_device(device)
         src = torch.as_tensor(src, device=device).to(I32)
         dst = torch.as_tensor(dst, device=device).to(I32)
@@ -342,6 +368,7 @@ class GraphService:
         batch = (torch.cat([s, s]), torch.cat([d, d]), torch.cat([w, w]),
                  torch.cat([torch.where(keep, DELETE, nop),
                             torch.where(keep & (op == INSERT), INSERT, nop)]))
+        sealed_before = None if isinstance(cbl, CBList) else cbl.sealed
         with obs.span("flush.upsert", cat="flush",
                       lanes=int(batch[0].shape[0]), retry=0):
             new_cbl, ustats = batch_update_stats(cbl, *batch)
@@ -352,7 +379,7 @@ class GraphService:
         self._shadow = _ShadowFlush(
             records=(s, d, w, op, valid), watermark=watermark, pre_cbl=cbl,
             new_cbl=new_cbl, ustats=ustats, batch=batch,
-            net_deletes=net_deletes, done=done)
+            net_deletes=net_deletes, done=done, sealed_before=sealed_before)
 
     def _finish(self) -> FlushReport:
         sh = self._shadow
@@ -374,7 +401,7 @@ class GraphService:
                 cbl = maint.apply_action(
                     cbl, MaintenanceAction(
                         kind="grow", reason=f"overflow: {dropped} dropped",
-                        num_blocks=(cbl.store.num_blocks
+                        num_blocks=(_num_blocks(cbl)
                                     * self._policy.grow_factor)),
                     self._policy)
             obs.counter("flush.grow_retries").inc()
@@ -385,21 +412,31 @@ class GraphService:
                           retry=grow_retries):
                 new_cbl, ustats = batch_update_stats(cbl, *sh.batch)
         cbl = new_cbl
+        if sh.sealed_before is not None:
+            # writes into the sealed tier moved their vertices back to the
+            # delta inside batch_update_stats
+            self.stats.unseals += int((sh.sealed_before & ~cbl.sealed).sum())
 
-        # post-apply maintenance; policy.stats_period > 1 runs the
-        # headroom-only decide on off-cycle flushes
+        # post-apply maintenance (fragmentation repair / cold-vertex seal);
+        # policy.stats_period > 1 runs the headroom-only decide on off-cycle
+        # flushes; with a signal bus the policy is churn-adapted first, and
+        # decide and apply run under the same adapted K
         with obs.span("flush.maintenance", cat="flush") as maint_rec:
             policy = self._policy
+            if self._signals is not None:
+                policy = policy.adapted(self._signals.view())
             period = max(1, int(policy.stats_period))
             off_cycle = (self.stats.flushes + 1) % period != 0
             action = maint.decide(cbl, pending_inserts=0, policy=policy,
                                   headroom_only=off_cycle)
-            if action.kind in ("compact", "rebuild", "grow"):
+            if action.kind in ("compact", "rebuild", "grow", "seal"):
                 cbl = maint.apply_action(cbl, action, policy)
                 if action.kind == "compact":
                     self.stats.compacts += 1
                 elif action.kind == "rebuild":
                     self.stats.rebuilds += 1
+                elif action.kind == "seal":
+                    self.stats.seals += 1
                 else:
                     self.stats.grows += 1
         obs.histogram("flush.phase_s", obs.LATENCY_BUCKETS_S,

@@ -4,11 +4,15 @@ Every CBList mutator returns new tensors, so a snapshot is a pinned
 reference: readers holding a :class:`Snapshot` see one consistent graph
 however many flushes or maintenance passes replace the service's head
 version.  ``epoch`` counts flushes; ``watermark`` is the absolute log
-sequence number applied into this version; ``run_version`` is the sealed
-tier's generation, 0 for the untiered storage the port serves.
+sequence number applied into this version; ``run_version`` counts the
+seal / unseal repartitions of a :class:`~repro_torch.core.tiered.
+TieredGraph` (0 for an untiered CBList), so a tiered view is identified by
+``(run_version, epoch, watermark)``.  The read paths dispatch on the
+storage type and union both tiers.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -20,7 +24,7 @@ from repro_torch.graph.sampler import SampledGraph, sample_subgraph
 
 
 class Snapshot(NamedTuple):
-    cbl: CBList
+    cbl: CBList              # or a TieredGraph: the same vertex-table surface
     epoch: torch.Tensor      # i32[] version counter (bumps per flush)
     watermark: torch.Tensor  # i32[] log sequence applied into this version
     run_version: int = 0     # sealed-tier generation (0: untiered)
@@ -43,18 +47,24 @@ class Snapshot(NamedTuple):
         return int(self.run_version), int(self.epoch), int(self.watermark)
 
 
+def _run_version_of(cbl) -> int:
+    return int(getattr(cbl, "run_version", 0))
+
+
 def snapshot_of(cbl: CBList, epoch: int = 0, watermark: int = 0) -> Snapshot:
     dev = cbl.device
     return Snapshot(cbl=cbl, epoch=torch.tensor(epoch, dtype=I32, device=dev),
-                    watermark=torch.tensor(watermark, dtype=I32, device=dev))
+                    watermark=torch.tensor(watermark, dtype=I32, device=dev),
+                    run_version=_run_version_of(cbl))
 
 
 def advance(snap: Snapshot, cbl: CBList, watermark) -> Snapshot:
-    """New version: updated storage, bumped epoch, new applied watermark."""
+    """New version: updated storage, bumped epoch, new applied watermark,
+    the storage's sealed-run generation."""
     return Snapshot(cbl=cbl, epoch=snap.epoch + 1,
                     watermark=torch.as_tensor(watermark, dtype=I32,
                                               device=cbl.device),
-                    run_version=snap.run_version)
+                    run_version=_run_version_of(cbl))
 
 
 def _to(x, device):
@@ -62,6 +72,10 @@ def _to(x, device):
         return x.to(device, non_blocking=True)
     if isinstance(x, tuple):             # CBList and BlockStore
         return type(x)(*(_to(v, device) for v in x))
+    if dataclasses.is_dataclass(x):      # TieredGraph and its CSRGraph run
+        return dataclasses.replace(x, **{
+            f.name: _to(getattr(x, f.name), device)
+            for f in dataclasses.fields(x) if f.init})
     return x
 
 

@@ -182,6 +182,90 @@ def test_pagerank_on_the_card_builds_one_plan(gen):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=0.0)
 
 
+def _card_run(gen, nv=120_000, device="cuda"):
+    """A sealed CSR run on ``device`` (its edges drawn on the card): a hub
+    row of 10^5 edges among short rows, most rows empty, a few parallel
+    edges."""
+    from repro_torch.core.csr import csr_build
+    lens = torch.zeros(nv, dtype=torch.int64, device="cuda")
+    lens[::37] = torch.randint(1, 30, (len(lens[::37]),), generator=gen,
+                               device="cuda")
+    lens[4_321] = 100_000
+    src = torch.repeat_interleave(torch.arange(nv, device="cuda"), lens)
+    dst = torch.randint(0, nv, (src.numel(),), generator=gen, device="cuda")
+    dst[:50] = dst[50:100]
+    src[:50] = src[50:100]
+    w = torch.rand(src.numel(), generator=gen, device="cuda") + 0.1
+    return csr_build(src.to(device, torch.int32), dst.to(device, torch.int32),
+                     w.to(device), nv, capacity=1 << 21)
+
+
+@pytest.mark.parametrize("F", [1, 16])
+def test_run_sweeps_on_the_card_match_their_plain_versions(gen, F):
+    """The sealed run's push / pull / push_feat through ``gather_rows`` and
+    ``segment_sum_csr`` on the card against the same sweeps' plain
+    versions on the host (the kernel route on CPU tensors) and
+    ``impl="torch"`` on the card, with and without an active mask; each
+    sum sweep launches each kernel once."""
+    from repro_torch import backend
+    from repro_torch.core import csr as C
+    run = _card_run(gen)
+    host = _card_run(torch.Generator(device="cuda").manual_seed(0),
+                     device="cpu")
+    nv = run.nv
+    x = torch.rand((nv, F) if F > 1 else nv, generator=gen, device="cuda")
+    active = torch.rand(nv, generator=gen, device="cuda") < 0.5
+    tol = dict(rtol=1e-5, atol=1e-6)
+    sweeps = ((C.csr_push_feat,) if F > 1 else (C.csr_push, C.csr_pull))
+    for fn in sweeps:
+        for act in (None, active):
+            before = dict(backend.LAUNCHES)
+            got = fn(run, x, act, impl="cuda")
+            for name in ("segment_sum", "block_gather"):
+                assert backend.LAUNCHES[name] == before[name] + 1, name
+            host_act = None if act is None else act.cpu()
+            torch.testing.assert_close(
+                got.cpu(), fn(host, x.cpu(), host_act, impl="cuda"), **tol)
+            torch.testing.assert_close(got, fn(run, x, act, impl="torch"),
+                                       **tol)
+            assert torch.equal(got, fn(run, x, act, impl="cuda"))
+    torch.cuda.synchronize()
+
+
+def test_tiered_reads_and_pagerank_on_the_card_match_the_untiered(gen):
+    """Half the vertices sealed on the card: point reads bit for bit the
+    all-delta graph's (no host sync), PageRank within rtol 1e-4 with one
+    plan (the delta's) and the run tier's sweeps through both kernels."""
+    from repro_torch import backend
+    from repro_torch.core.tiered import seal, tier_from_cbl
+    from repro_torch.core.updates import read_edges
+    from repro_torch.graph.algorithms import pagerank
+    cbl = _card_graph()
+    nv = cbl.capacity_vertices
+    tg = seal(tier_from_cbl(cbl), torch.arange(nv, device="cuda") % 2 == 0)
+    assert tg.runs.n_live > 0 and tg.num_blocks < cbl.store.num_blocks
+    from repro_torch.core.cblist import to_coo
+    qs, qd, _, _ = to_coo(cbl)
+    qs = torch.cat([qs, torch.randint(0, nv, (5_000,), generator=gen,
+                                      device="cuda", dtype=torch.int32)])
+    qd = torch.cat([qd, torch.randint(0, nv, (5_000,), generator=gen,
+                                      device="cuda", dtype=torch.int32)])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = read_edges(tg, qs, qd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got, read_edges(cbl, qs, qd)):
+        assert torch.equal(a, b)
+    backend.reset_launch_counts()
+    ranks, iters = pagerank(tg, impl="cuda", return_stats=True)
+    assert backend.PLAN_BUILDS == 1
+    for name in ("segment_sum", "block_gather"):
+        assert backend.LAUNCHES[name] == 2 * iters, name
+    torch.testing.assert_close(ranks, pagerank(cbl, impl="torch"),
+                               rtol=1e-4, atol=0.0)
+
+
 @pytest.mark.parametrize("rows_per_step,F", [(1, 1), (4, 1), (1, 16), (2, 3)])
 def test_block_gather_kernel_matches_index_select(gen, rows_per_step, F):
     from repro_torch.kernels import block_gather_ref, gather_rows

@@ -167,3 +167,27 @@ def test_init_params_shapes():
     assert got_shapes == jax.tree.map(lambda x: tuple(x.shape), ref)
     assert all(x.dtype == torch.float32 for x in jax.tree.leaves(p))
     assert not p["ln_f"]["b"].any() and bool((p["ln_f"]["g"] == 1).all())
+
+
+def test_sasrec_batches_match_the_reference_layout():
+    """The port's (seq, pos, neg) training batches against
+    ``repro.data.sasrec_batches``: the same shapes and dtype, right-padded
+    histories of lengths in ``seq // 2 .. seq`` (the quirk kept), ``pos``
+    the history shifted by one, items in 1..n_items."""
+    from repro.data.synthetic import sasrec_batches as j_batches
+    from repro_torch.data.synthetic import sasrec_batches
+    n_items, B, S = 300, 256, 20
+    seq, pos, neg = next(sasrec_batches(n_items, B, S, seed=1, device="cpu"))
+    rseq, rpos, rneg = next(j_batches(n_items, B, S, seed=1))
+    for got, ref in ((seq, rseq), (pos, rpos), (neg, rneg)):
+        assert got.dtype == torch.int32 and got.shape == ref.shape
+    lens = (seq > 0).sum(1)
+    assert torch.equal(lens, (pos > 0).sum(1))
+    assert int(lens.min()) >= S // 2 and int(lens.max()) <= S
+    mask = torch.arange(S)[None, :] < lens[:, None]
+    assert torch.equal(seq > 0, mask)               # right-padded
+    assert torch.equal(pos[:, :-1][mask[:, 1:]], seq[:, 1:][mask[:, 1:]])
+    assert int(neg.min()) >= 1 and int(neg.max()) <= n_items
+    assert int(seq[mask].min()) >= 1 and int(seq.max()) <= n_items
+    assert abs(float(lens.float().mean()) - float((rseq > 0).sum(1).mean())) \
+        < 1.0
