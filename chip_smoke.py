@@ -74,6 +74,31 @@ Phases, one report line each:
    inserts and deletes) and point reads bit for bit the untiered service's,
    the warm PageRank within rtol 1e-4 of its, both graph kernels and the
    locate walk launched;
+5d. the shard phase, the tier phase's tensors released: the graph cell's
+   graph behind ``GraphService.from_coo(..., n_shards=S)`` for S = 2 and 8
+   (``benchmarks/bench_shard.py``'s sharded counts), every number beside
+   the unsharded service's graph after its three rounds in the same call.
+   With the launch counters at 0: the build (s, blocks a shard,
+   ``cut_fraction``, ``partition_balance`` of the GTChain and vertex
+   partitions, the shards' edge balance), the same three rounds (flush s
+   per 1 M; the route plan's lane cap, rounds and skew, read from
+   ``repro_torch.obs`` enabled around the flush alone), 2^20 point reads
+   (half live pairs), a cold PageRank through the kernels, BFS and CC
+   through the service, ``GraphService.plan("scan_all")`` and
+   ``plan("batch_update")``.  Checks: flush reports (epoch, watermark,
+   applied inserts and deletes) and the rounds' point reads bit for bit
+   the unsharded service's, the 2^20 reads, in-degrees, BFS levels and CC
+   labels bit for bit the unsharded graph's, PageRank within rtol 1e-5 of
+   the same iterations in float64 over the unsharded graph, and
+   ``segment_sum``, ``block_gather`` and ``chain_walk_locate`` launched on
+   the shard path.  At S = 8 a spill batch: 65,536 updates keyed to the top
+   hub (80 % inserts of destinations it does not reach, 20 % deletes of its
+   live edges) through ``batch_update_stats``, its stats and the reads of
+   its pairs bit for bit the unsharded graph's, in >= 2 routed rounds.  At
+   S = 2 a tiered stack: 0.9 of the edges sealed (low degree first), one
+   PageRank (both kernels launched on every shard's delta and run, within
+   rtol 1e-4 of the unsharded ranks) and the 2^20 reads bit for bit.  The
+   phase prints its peak memory;
 6. LM serving, once the graph state is freed: Gemma-2 27B at full width
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
@@ -162,6 +187,13 @@ TIER_READS, TIER_KHOP_SEEDS, TIER_K = 1 << 20, 4096, 2
 # the FindNeighbor chain walk's two entry points (point reads and the
 # flush's delete locate; the k-hop sampler's rank walk)
 WALK_KERNELS = ("chain_walk_locate", "chain_walk_rank")
+# shard phase: the sharded counts of benchmarks/bench_shard.py:SHARD_COUNTS;
+# the spill batch (keyed to the top hub, the graph cell's 20 % deletes) at
+# the larger count; the tiered step's shard count and sealed fraction
+SHARD_COUNTS, SHARD_READS = (2, 8), 1 << 20
+SHARD_SPILL_S, SHARD_SPILL_UPDATES, SHARD_SPILL_DELETE_FRAC = 8, 65_536, 0.2
+SHARD_TIER_S, SHARD_TIER_FRACTION = 2, 0.9
+SHARD_KERNELS = GRAPH_KERNELS + ("chain_walk_locate",)
 # serve phase: the trace of benchmarks/bench_serve.py and
 # examples/dynamic_graph_pagerank.py at LiveJournal size
 SERVE_REQUESTS, SERVE_WARM, SERVE_QPS = 20_000, 1_000, 2000.0
@@ -593,6 +625,10 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
         say("service.flush", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                                 for k, v in row.items()})
     out["rounds"] = rounds
+    # the shard phase's reference: the graph after the rounds (updates are
+    # pure, so later flushes leave these tensors as they are) and the
+    # analytics over it
+    shard_ref = dict(cbl=svc.snapshot.cbl)
     warm = {}
     if profile:
         ranks_warm, prof = profiled(torch, lambda: svc.analytics("pagerank"))
@@ -606,6 +642,7 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
         res, sec = timer.wall(lambda: svc.analytics(name, **kw))
         warm[f"{name}_warm"] = dict(seconds=sec,
                                     iterations=svc.last_iterations)
+        shard_ref[name] = res
         if name == "bfs":
             check(int(res[0]) == 0 and bool((res >= -1).all()),
                   "bfs levels malformed")
@@ -619,7 +656,7 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
     out["walk_launches"] = {k: backend.LAUNCHES[k] for k in WALK_KERNELS}
     out["plan_builds"] = backend.PLAN_BUILDS
     report["service"] = out
-    return ranks, ranks_warm, record
+    return ranks, ranks_warm, record, shard_ref
 
 
 # ---------------------------------------------------------------------------
@@ -1399,8 +1436,8 @@ def recsys_phase(torch, timer, dev, seed, report, profile=False) -> None:
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
-    """Phases 1-5b and the tier phase: the GraphService at LiveJournal
-    size."""
+    """Phases 1-5d: the GraphService at LiveJournal size, its serve, tier
+    and shard phases."""
     from repro_torch import backend
     from repro_torch.core.engine import sweep_plan
     from repro_torch.data.synthetic import rmat_edges
@@ -1431,7 +1468,7 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     del small, ssrc, sdst
 
     torch.cuda.reset_peak_memory_stats()
-    ranks, ranks_warm, untiered = service_phase(
+    ranks, ranks_warm, untiered, shard_ref = service_phase(
         torch, timer, dev, svc, (src, dst), seed, report, profile)
     launches = report["service"]["launches"]
 
@@ -1509,6 +1546,15 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
         torch, timer, dev, (src, dst, w), nv, untiered, ranks_warm,
         report["service"], seed)
     report["tier_seconds"] = time.perf_counter() - t0
+
+    # the shard phase, the tier phase's tensors released: the same graph
+    # behind GraphService(n_shards=S) beside the unsharded service
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["shard"] = shard_phase(torch, timer, dev, (src, dst, w), nv,
+                                  untiered, shard_ref, report, seed, profile)
+    report["shard_seconds"] = time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -1755,6 +1801,340 @@ def tier_service(torch, timer, dev, coo, nv, untiered, untiered_warm, plain,
               f"tier: {name} never launched on the tiered service's path")
     say("tier.warm", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                         for k, v in out.items() if k != "rounds"})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded stack: GTChain-balanced shards stacked on the one card
+# ---------------------------------------------------------------------------
+
+def pagerank64(torch, cbl, iters: int, damping: float = 0.85):
+    """The PageRank program's iteration in float64 over ``cbl`` through the
+    plain route, ``iters`` times from the cold start."""
+    from repro_torch.core.engine import process_edge_push
+    nv = cbl.capacity_vertices
+    live = torch.arange(nv, device=cbl.device) < cbl.n_vertices
+    n = cbl.n_vertices.clamp(min=1).double()
+    deg0 = cbl.v_deg
+    deg = deg0.clamp(min=1).double()
+    dangling = live & (deg0 == 0)
+    r = torch.where(live, 1.0 / n, 0.0).double()
+    for _ in range(iters):
+        x = torch.where(live, r / deg, 0.0)
+        acc = process_edge_push(cbl, x, dense_f=lambda xs, w: xs,
+                                impl="torch")
+        dang = torch.where(dangling, r, 0.0).sum()
+        r = torch.where(live, (1 - damping) / n + damping * (acc + dang / n),
+                        0.0)
+    return r
+
+
+def read_batch(torch, cbl, n, gen):
+    """``n`` point reads: half live pairs of ``cbl``, half random pairs."""
+    from repro_torch.core.cblist import to_coo
+    nv = cbl.capacity_vertices
+    dev = cbl.device
+    ls, ld, _, _ = to_coo(cbl)
+    pick = torch.randint(0, ls.numel(), (n // 2,), generator=gen, device=dev)
+    qs = torch.cat([ls[pick], torch.randint(0, nv, (n // 2,), generator=gen,
+                                            device=dev, dtype=torch.int32)])
+    qd = torch.cat([ld[pick], torch.randint(0, nv, (n // 2,), generator=gen,
+                                            device=dev, dtype=torch.int32)])
+    return qs, qd
+
+
+def last_route(obs):
+    """(lane_cap, n_rounds, skew) of the last sharded write recorded under
+    ``obs``: the route plan its ``flush.upsert.fused`` span carries and the
+    ``flush.shard_skew`` series."""
+    span = [e for e in obs.tracer().events
+            if e["name"] == "flush.upsert.fused"][-1]
+    skew = obs.registry().series("flush.shard_skew").values()[-1]
+    return span["args"]["lane_cap"], span["args"]["rounds"], skew
+
+
+def plan_fields(plan):
+    return dict(strategy=plan.strategy, impl=plan.impl,
+                partition=plan.partition, lookahead=plan.lookahead,
+                contiguity=round(plan.contiguity, 4),
+                cut_fraction=round(plan.cut_fraction, 4),
+                route_lane_cap=plan.route_lane_cap,
+                route_rounds=plan.route_rounds)
+
+
+def spill_batch(torch, cbl, gen):
+    """SHARD_SPILL_UPDATES updates keyed to the top hub of ``cbl``: 80 %
+    inserts of destinations it does not reach, 20 % deletes of its live
+    edges (the graph cell's traffic mix)."""
+    from repro_torch.core.cblist import to_coo
+    nv = cbl.capacity_vertices
+    dev = cbl.device
+    hub = int(torch.argmax(cbl.v_deg))
+    s, d, _, ok = to_coo(cbl)
+    live = torch.unique(d[ok & (s == hub)])
+    n_del = min(int(SHARD_SPILL_UPDATES * SHARD_SPILL_DELETE_FRAC),
+                live.numel())
+    dels = live[torch.randperm(live.numel(), generator=gen,
+                               device=dev)[:n_del]]
+    reach = torch.zeros(nv, dtype=torch.bool, device=dev)
+    reach[live.long()] = True
+    fresh = torch.nonzero(~reach).squeeze(1)
+    n_ins = SHARD_SPILL_UPDATES - n_del
+    ins = fresh[torch.randperm(fresh.numel(), generator=gen,
+                               device=dev)[:n_ins]].to(torch.int32)
+    dst = torch.cat([ins, dels.to(torch.int32)])
+    src = torch.full_like(dst, hub)
+    w = torch.rand(dst.numel(), generator=gen, device=dev)
+    op = torch.cat([torch.ones(ins.numel(), dtype=torch.int32, device=dev),
+                    -torch.ones(n_del, dtype=torch.int32, device=dev)])
+    return hub, (src, dst, w, op)
+
+
+def shard_run(torch, timer, dev, coo, nv, S, untiered, ref, plain, seed,
+              profile=False):
+    """One shard count: ``GraphService.from_coo(..., n_shards=S)`` over the
+    graph cell's graph, its three rounds, reads, PageRank, BFS, CC and
+    plans with every launch counter at 0 (each checked against the
+    unsharded service), then the spill batch (S = SHARD_SPILL_S) or the
+    tiered step (S = SHARD_TIER_S).  With ``profile`` the last flush and
+    the PageRank at S = SHARD_SPILL_S run under ``torch.profiler``."""
+    import repro_torch.obs as obs
+    from repro_torch import backend
+    from repro_torch.core.engine import in_degrees
+    from repro_torch.core.traversal import (gtchain_partition,
+                                            partition_balance,
+                                            vertex_table_partition)
+    from repro_torch.core.updates import batch_update_stats, read_edges
+    from repro_torch.data.synthetic import update_stream
+    from repro_torch.distributed.graph import ShardedCBList, cut_fraction
+    from repro_torch.graph.algorithms import pagerank
+    from repro_torch.stream.service import GraphService
+    src, dst, w = coo
+    backend.reset_launch_counts()
+    svc, build_s = timer.wall(lambda: GraphService.from_coo(
+        src, dst, w, num_vertices=nv, log_capacity=2 ** 21, n_shards=S,
+        device=dev))
+    scbl = svc.snapshot.cbl
+    check(isinstance(scbl, ShardedCBList) and scbl.n_shards == S,
+          f"shard {S}: the service is not sharded {S} ways")
+    edges = scbl.shards.v_deg.double().sum(1)
+    out = dict(n_shards=S, build_s=build_s,
+               unsharded_build_s=plain["from_coo_seconds"],
+               blocks_per_shard=scbl.num_blocks,
+               cut_fraction=float(cut_fraction(scbl)),
+               partition_balance=float(partition_balance(
+                   ref["cbl"], gtchain_partition(ref["cbl"], S))),
+               vertex_partition_balance=float(partition_balance(
+                   ref["cbl"], vertex_table_partition(ref["cbl"], S))),
+               shard_edge_balance=float(edges.max() / edges.mean()),
+               rounds=[])
+    say("shard.build", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                          for k, v in out.items() if k != "rounds"})
+    stream = update_stream(nv, (src, dst), UPDATES_PER_ROUND, ROUNDS,
+                           delete_frac=DELETE_FRAC, seed=seed + 1,
+                           device=dev)
+    for r, (s, d, uw, op) in enumerate(stream):
+        svc.apply(s, d, uw, op)
+        obs.reset()
+        obs.enable()
+        try:
+            if profile and S == SHARD_SPILL_S and r == ROUNDS - 1:
+                rep, prof = profiled(torch, svc.flush)
+                flush_s = prof["wall_s"]
+                out["profile_flush"] = prof
+            else:
+                rep, flush_s = timer.wall(svc.flush)
+            lane_cap, n_rounds, skew = last_route(obs)
+        finally:
+            obs.disable()
+            obs.reset()
+        ref_rep, ref_fi, ref_wi, ref_fd, ref_wd = untiered[r]
+        check(rep[:4] == ref_rep[:4],
+              f"shard {S} round {r}: flush report {rep[:4]} differs from "
+              f"the unsharded service's {ref_rep[:4]}")
+        qs_i, qd_i, _, qs_d, qd_d = read_pairs(s, d, uw, op)
+        fi, wi = svc.query_edges(qs_i, qd_i)
+        fd, wd = svc.query_edges(qs_d, qd_d)
+        check(all(torch.equal(a, b) for a, b in
+                  ((fi, ref_fi), (wi, ref_wi), (fd, ref_fd), (wd, ref_wd))),
+              f"shard {S} round {r}: point reads differ from the unsharded "
+              f"service's")
+        row = dict(round=r, flush_s=flush_s,
+                   flush_s_per_1M=flush_s * 1e6 / s.numel(),
+                   unsharded_flush_s_per_1M=plain["rounds"][r]["flush_s"]
+                   * 1e6 / s.numel(), lane_cap=lane_cap, n_rounds=n_rounds,
+                   skew=skew, grow_retries=rep.grow_retries,
+                   maintenance=rep.maintenance.kind,
+                   blocks_per_shard=svc.snapshot.cbl.num_blocks)
+        out["rounds"].append(row)
+        say("shard.flush", S=S, **{k: (f"{v:.4g}" if isinstance(v, float)
+                                       else v) for k, v in row.items()})
+    scbl = svc.snapshot.cbl
+    f, wq = read_edges(scbl, ref["qs"], ref["qd"])
+    check(torch.equal(f, ref["found"]) and torch.equal(wq, ref["w"]),
+          f"shard {S}: 2^20 point reads differ from the unsharded graph's")
+    read_ms = timer.ms(lambda: read_edges(scbl, ref["qs"], ref["qd"]))
+    check(torch.equal(in_degrees(scbl), ref["in_degrees"]),
+          f"shard {S}: in-degrees differ from the unsharded graph's")
+    if profile and S == SHARD_SPILL_S:
+        (ranks, iters), prof = profiled(
+            torch, lambda: pagerank(scbl, impl="cuda", return_stats=True))
+        pr_s = prof["wall_s"]
+        out["profile_pagerank"] = prof
+    else:
+        (ranks, iters), pr_s = timer.wall(
+            lambda: pagerank(scbl, impl="cuda", return_stats=True))
+    r64 = pagerank64(torch, ref["cbl"], iters)
+    rel64 = float(((ranks.double() - r64).abs()
+                   / r64.abs().clamp(min=1e-30)).max())
+    check(torch.allclose(ranks.double(), r64, rtol=SEG_RTOL, atol=0.0),
+          f"shard {S}: PageRank off the float64 ranks by {rel64:.3e}")
+    bfs, bfs_s = timer.wall(lambda: svc.analytics("bfs", source=0))
+    check(torch.equal(bfs, ref["bfs"]),
+          f"shard {S}: BFS levels differ from the unsharded service's")
+    cc, cc_s = timer.wall(lambda: svc.analytics("cc"))
+    check(torch.equal(cc, ref["cc"]),
+          f"shard {S}: CC labels differ from the unsharded service's")
+    plans = {task: plan_fields(svc.plan(task))
+             for task in ("scan_all", "batch_update")}
+    launches = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS + WALK_KERNELS}
+    for name in SHARD_KERNELS:
+        check(launches[name] > 0,
+              f"shard {S}: {name} never launched on the shard path")
+    out.update(read_ms=read_ms, unsharded_read_ms=ref["read_ms"],
+               pagerank_iters=iters, pagerank_ms_per_it=pr_s * 1e3 / iters,
+               unsharded_pagerank_ms_per_it=ref["pagerank_ms_per_it"],
+               pagerank_max_rel_f64=rel64, bfs_s=bfs_s,
+               unsharded_bfs_s=ref["bfs_s"], cc_s=cc_s,
+               unsharded_cc_s=ref["cc_s"], plans=plans, launches=launches)
+    say("shard.path", S=S, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                              for k, v in out.items()
+                              if k in ("read_ms", "unsharded_read_ms",
+                                       "pagerank_iters",
+                                       "pagerank_ms_per_it",
+                                       "unsharded_pagerank_ms_per_it",
+                                       "pagerank_max_rel_f64", "bfs_s",
+                                       "unsharded_bfs_s", "cc_s",
+                                       "unsharded_cc_s", "launches")})
+    for task, fields in plans.items():
+        say("shard.plan", S=S, task=task, **fields)
+    gen = torch.Generator(device=dev).manual_seed(seed + 61 + S)
+    if S == SHARD_SPILL_S:
+        hub, batch = spill_batch(torch, ref["cbl"], gen)
+        (ref_out, ref_st), ref_s = timer.wall(
+            lambda: batch_update_stats(ref["cbl"], *batch))
+        obs.reset()
+        obs.enable()
+        try:
+            (got, st), spill_s = timer.wall(
+                lambda: batch_update_stats(scbl, *batch))
+            lane_cap, n_rounds, skew = last_route(obs)
+        finally:
+            obs.disable()
+            obs.reset()
+        stats = [int(x) for x in torch.stack(list(st)).tolist()]
+        ref_stats = [int(x) for x in torch.stack(list(ref_st)).tolist()]
+        check(stats == ref_stats,
+              f"shard {S}: spill batch stats {stats} differ from the "
+              f"unsharded {ref_stats}")
+        check(n_rounds >= 2, f"shard {S}: the spill batch took {n_rounds} "
+              f"round(s), not >= 2")
+        qs, qd = batch[0], batch[1]
+        a = read_edges(got, qs, qd)
+        b = read_edges(ref_out, qs, qd)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"shard {S}: reads after the spill batch differ")
+        out["spill"] = dict(hub=hub, hub_degree=int(ref["cbl"].v_deg[hub]),
+                            updates=int(qs.numel()), stats=stats,
+                            lane_cap=lane_cap, n_rounds=n_rounds, skew=skew,
+                            seconds=spill_s, unsharded_seconds=ref_s)
+        say("shard.spill", S=S, **{k: (f"{v:.4g}" if isinstance(v, float)
+                                       else v)
+                                   for k, v in out["spill"].items()})
+        del got, ref_out
+    if S == SHARD_TIER_S:
+        out["tier"] = shard_tier_step(torch, timer, dev, scbl, ref, S)
+    return out
+
+
+def shard_tier_step(torch, timer, dev, scbl, ref, S):
+    """A tiered shard stack: seal SHARD_TIER_FRACTION of the edges
+    (low-degree vertices first), then one PageRank and the 2^20 reads,
+    each against the unsharded graph's."""
+    from repro_torch import backend
+    from repro_torch.core.tiered import seal, tier_from_cbl
+    from repro_torch.core.updates import read_edges
+    from repro_torch.graph.algorithms import pagerank
+    n_live = int(scbl.n_vertices)
+    tg, seal_s = timer.wall(lambda: seal(tier_from_cbl(scbl),
+                                         cold_mask_for_fraction(
+                                             torch, scbl.v_deg, n_live,
+                                             SHARD_TIER_FRACTION)))
+    check(tg.is_sharded and len(tg.runs) == S,
+          f"shard tier: not a tiered stack of {S} runs")
+    backend.reset_launch_counts()
+    (ranks, iters), pr_s = timer.wall(
+        lambda: pagerank(tg, impl="cuda", return_stats=True))
+    launches = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
+    for name in GRAPH_KERNELS:             # S delta shards + S runs a sweep
+        check(launches[name] >= 2 * S * iters,
+              f"shard tier: {name} launched {launches[name]} times in "
+              f"{iters} iterations over {S} shards and {S} runs")
+    rel = float(((ranks - ref["ranks"]).abs()
+                 / ref["ranks"].abs().clamp(min=1e-30)).max())
+    check(torch.allclose(ranks, ref["ranks"], rtol=1e-4, atol=0.0),
+          f"shard tier: PageRank off the unsharded ranks by {rel:.3e}")
+    f, w = read_edges(tg, ref["qs"], ref["qd"])
+    check(torch.equal(f, ref["found"]) and torch.equal(w, ref["w"]),
+          "shard tier: point reads differ from the unsharded graph's")
+    read_ms = timer.ms(lambda: read_edges(tg, ref["qs"], ref["qd"]))
+    out = dict(seal_s=seal_s, sealed_fraction=float(tg.sealed_fraction),
+               run_lanes=sum(g.n_live for g in tg.runs),
+               delta_blocks_per_shard=tg.num_blocks,
+               pagerank_ms_per_it=pr_s * 1e3 / iters, pagerank_iters=iters,
+               pagerank_max_rel=rel, read_ms=read_ms, launches=launches)
+    say("shard.tier", S=S, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                              for k, v in out.items()})
+    return out
+
+
+def shard_phase(torch, timer, dev, coo, nv, untiered, shard_ref, report,
+                seed, profile=False):
+    """The graph cell's graph behind ``GraphService(..., n_shards=S)`` for
+    each of SHARD_COUNTS, every number beside the unsharded service's in
+    this call (its graph after the three rounds: ``shard_ref``)."""
+    from repro_torch.core.engine import in_degrees
+    from repro_torch.core.updates import read_edges
+    from repro_torch.graph.algorithms import bfs, connected_components
+    from repro_torch.graph.algorithms import pagerank
+    torch.cuda.reset_peak_memory_stats()
+    cbl = shard_ref["cbl"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 51)
+    qs, qd = read_batch(torch, cbl, SHARD_READS, gen)
+    found, w = read_edges(cbl, qs, qd)
+    (ranks, iters), pr_s = timer.wall(
+        lambda: pagerank(cbl, impl="cuda", return_stats=True))
+    bfs_ref, bfs_s = timer.wall(lambda: bfs(cbl, 0, impl="cuda"))
+    cc_ref, cc_s = timer.wall(lambda: connected_components(cbl,
+                                                           impl="cuda"))
+    check(torch.equal(bfs_ref, shard_ref["bfs"])
+          and torch.equal(cc_ref, shard_ref["cc"]),
+          "shard: cold BFS / CC differ from the service's warm results")
+    ref = dict(cbl=cbl, qs=qs, qd=qd, found=found, w=w, ranks=ranks,
+               in_degrees=in_degrees(cbl), bfs=shard_ref["bfs"],
+               cc=shard_ref["cc"], bfs_s=bfs_s, cc_s=cc_s,
+               read_ms=timer.ms(lambda: read_edges(cbl, qs, qd)),
+               pagerank_ms_per_it=pr_s * 1e3 / iters)
+    plain = dict(report["service"], from_coo_seconds=report["graph"][
+        "from_coo_seconds"])
+    out = dict(runs=[])
+    for S in SHARD_COUNTS:
+        out["runs"].append(shard_run(torch, timer, dev, coo, nv, S,
+                                     untiered, ref, plain, seed, profile))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    say("shard.memory", max_memory_allocated=out["max_memory_allocated"])
     return out
 
 
@@ -2274,6 +2654,14 @@ def kernels_line(report: dict) -> dict:
                     plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                     bound_by=main["bound_by"],
                     library_ms=main["library_ms"])
+        if table in (meta, walk_meta):   # launches on each shard path
+            locate = {"chain_walk": "chain_walk_locate",
+                      "chain_walk_rank": "chain_walk_rank"}
+            for row in out[-2:]:
+                row["shard_launches"] = {
+                    str(r["n_shards"]): r["launches"][
+                        locate.get(row["name"], row["name"])]
+                    for r in report["shard"]["runs"]}
         if table is walk_meta:       # the bound's two terms, as measured
             for row, name in zip(out[-2:], walk_meta):
                 main = next(r for r in report[rows_key] if r["name"] == name)
@@ -2290,7 +2678,8 @@ def main(argv=None) -> int:
                     help="fraction of the LiveJournal-size graph")
     ap.add_argument("--profile", action="store_true",
                     help="profile the last flush, the warm PageRank, "
-                         "2,000 requests of the serve trace, the LM "
+                         "2,000 requests of the serve trace, the last "
+                         "flush and a PageRank at 8 shards, the LM "
                          "check's prefill, one replayed and one eager "
                          "paged decode step and one serve_bulk chunk of "
                          "SASRec (their times then include the profiler's "
@@ -2321,6 +2710,8 @@ def main(argv=None) -> int:
         recsys_max_memory_allocated=report["recsys"]["max_memory_allocated"],
         graph_seconds=f"{report['graph_seconds']:.1f}",
         tier_seconds=f"{report['tier_seconds']:.1f}",
+        shard_seconds=f"{report['shard_seconds']:.1f}",
+        shard_max_memory_allocated=report["shard"]["max_memory_allocated"],
         lm_seconds=f"{report['lm_seconds']:.1f}",
         recsys_seconds=f"{report['recsys_seconds']:.1f}",
         file=f"chiprun_out/{name}")

@@ -22,9 +22,16 @@ from repro_torch.core.program import (ProgramContext, Sweep, VertexProgram,
                                       get_program, has_program,
                                       register_program,
                                       registered_programs, run_program)
-from repro_torch.core.traversal import (lane_mask, read_vertex, scan_edges,
-                                        scan_vertices)
-from repro_torch.core.tuner import choose_engine_impl
+from repro_torch.core.traversal import (Partition, PlacementPlan,
+                                        gtchain_partition, lane_mask,
+                                        make_placement_plan,
+                                        partition_balance, read_vertex,
+                                        scan_edges, scan_vertices,
+                                        scan_vertices_cond,
+                                        vertex_table_partition)
+from repro_torch.core.tuner import (ExecPlan, RoutePlan, SystemProbe,
+                                    choose_engine_impl, choose_lookahead,
+                                    choose_plan, choose_route_plan)
 from repro_torch.core.csr import (CSRGraph, csr_build, csr_build_counted,
                                   csr_degrees, csr_empty, csr_in_degrees,
                                   csr_pagerank_sweep, csr_pull, csr_push,

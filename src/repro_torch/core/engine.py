@@ -28,7 +28,9 @@ Every sweep entry point also takes a
 :class:`~repro_torch.core.tiered.TieredGraph`: the delta sweeps as above
 (through ``plan``, the delta's plan), the sealed run through the CSR sweeps
 of :mod:`repro_torch.core.csr`, and the two partials merge through the
-semiring.
+semiring.  A :class:`~repro_torch.distributed.graph.ShardedCBList` runs the
+same sweep on every shard (``plan`` then holds one plan a shard) and
+reduces the partials along the shard axis.
 """
 from __future__ import annotations
 
@@ -242,10 +244,16 @@ def process_edge_push(cbl: CBList, x: torch.Tensor,
     """
     impl = resolve_impl(impl)
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_process_edge_push
-        return tiered_process_edge_push(cbl, x, active, dense_f=dense_f,
-                                        combine=combine, impl=impl,
-                                        plan=plan)
+        from repro_torch.core.tiered import (TieredGraph,
+                                             tiered_process_edge_push)
+        if isinstance(cbl, TieredGraph):
+            return tiered_process_edge_push(cbl, x, active, dense_f=dense_f,
+                                            combine=combine, impl=impl,
+                                            plan=plan)
+        from repro_torch.distributed.graph import sharded_process_edge_push
+        return sharded_process_edge_push(cbl, x, active, dense_f=dense_f,
+                                         combine=combine, impl=impl,
+                                         plan=plan)
     if plan is not None and impl == "cuda" and combine == "sum":
         plan.check(cbl)
         plan.stream("lanes")
@@ -284,10 +292,16 @@ def process_edge_pull(cbl: CBList, x: torch.Tensor,
     """
     impl = resolve_impl(impl)
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_process_edge_pull
-        return tiered_process_edge_pull(cbl, x, active_dst, dense_f=dense_f,
-                                        combine=combine, impl=impl,
-                                        plan=plan)
+        from repro_torch.core.tiered import (TieredGraph,
+                                             tiered_process_edge_pull)
+        if isinstance(cbl, TieredGraph):
+            return tiered_process_edge_pull(cbl, x, active_dst,
+                                            dense_f=dense_f, combine=combine,
+                                            impl=impl, plan=plan)
+        from repro_torch.distributed.graph import sharded_process_edge_pull
+        return sharded_process_edge_pull(cbl, x, active_dst, dense_f=dense_f,
+                                         combine=combine, impl=impl,
+                                         plan=plan)
     planned = plan is not None and impl == "cuda" and combine == "sum"
     if planned:
         plan.check(cbl)
@@ -329,10 +343,17 @@ def process_edge_push_feat(cbl: CBList, x: torch.Tensor,
     """
     impl = resolve_impl(impl)
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_process_edge_push_feat
-        return tiered_process_edge_push_feat(cbl, x, active,
-                                             weighted=weighted, impl=impl,
-                                             plan=plan)
+        from repro_torch.core.tiered import (TieredGraph,
+                                             tiered_process_edge_push_feat)
+        if isinstance(cbl, TieredGraph):
+            return tiered_process_edge_push_feat(cbl, x, active,
+                                                 weighted=weighted, impl=impl,
+                                                 plan=plan)
+        from repro_torch.distributed.graph import \
+            sharded_process_edge_push_feat
+        return sharded_process_edge_push_feat(cbl, x, active,
+                                              weighted=weighted, impl=impl,
+                                              plan=plan)
     if plan is not None and impl == "cuda":
         plan.check(cbl)
         plan.stream("lanes")
@@ -359,10 +380,13 @@ def out_degrees(cbl: CBList) -> torch.Tensor:
 
 def in_degrees(cbl: CBList) -> torch.Tensor:
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_in_degrees
-        return tiered_in_degrees(cbl)
+        from repro_torch.core.tiered import TieredGraph, tiered_in_degrees
+        if isinstance(cbl, TieredGraph):
+            return tiered_in_degrees(cbl)
+        from repro_torch.distributed.graph import sharded_in_degrees
+        return sharded_in_degrees(cbl)
     st = cbl.store
     nv = cbl.capacity_vertices
     seg = torch.where(lane_mask(st), st.keys, nv).reshape(-1)
-    valid = seg < nv
+    valid = (seg >= 0) & (seg < nv)
     return torch.bincount(seg[valid].long(), minlength=nv)[:nv].to(I32)

@@ -189,16 +189,21 @@ def _run_sweep(ctx: ProgramContext, sw: Sweep, x, active, impl: str):
 def _plan_for(cbl, prog: VertexProgram, impl: str):
     """The sweep plan the kernel route's sum sweeps share, or None.  On a
     TieredGraph it is the delta's: the sealed run keeps its own
-    destination-ordered stream from the time it was built."""
+    destination-ordered stream from the time it was built.  On a
+    ShardedCBList (or a tiered one's sharded delta) it is a tuple of one
+    plan a shard."""
     if impl != "cuda":
         return None
     dirs = {sw.direction for sw in prog.sweeps if sw.combine == "sum"}
     if not dirs:
         return None
-    if not isinstance(cbl, CBList):
+    from repro_torch.core.tiered import TieredGraph
+    if isinstance(cbl, TieredGraph):
         cbl = cbl.delta
-    return sweep_plan(cbl, push=bool(dirs & {"push", "push_feat"}),
-                      pull="pull" in dirs)
+    kw = dict(push=bool(dirs & {"push", "push_feat"}), pull="pull" in dirs)
+    if isinstance(cbl, CBList):
+        return sweep_plan(cbl, **kw)
+    return tuple(sweep_plan(v, **kw) for v in cbl.views)
 
 
 def _step(ctx: ProgramContext, prog: VertexProgram, state, frontier,

@@ -35,8 +35,11 @@ host-orchestrated (they may repartition storage, which changes shapes) and
 never write into the tensors of the graph they were given, so a snapshot
 that holds the old graph keeps serving it.
 
-Only the unsharded delta is ported: a sharded delta waits for the sharded
-stack (ROADMAP queue 1 item 6).
+Sharding: the delta may be a :class:`~repro_torch.distributed.graph.
+ShardedCBList`; then ``runs`` is a tuple of one run a shard, each holding
+exactly the sealed vertices its shard owns (``v_shard``), every run of the
+same capacity, and the run sweeps reduce across the shards as the delta's
+do (:func:`repro_torch.distributed.graph.sharded_runs_sweep`).
 """
 from __future__ import annotations
 
@@ -83,18 +86,12 @@ class TieredGraph:
     engine, snapshot and program layers read, so it drops into every
     storage-dispatching entry point.
     """
-    delta: CBList           # the hot, mutable tier
-    runs: CSRGraph          # the sealed tier
+    delta: CBList           # the hot, mutable tier (or a ShardedCBList)
+    runs: CSRGraph          # the sealed tier (sharded: a tuple, one a shard)
     sealed: torch.Tensor    # bool[NV]  vertex lives in the run tier
     v_epoch: torch.Tensor   # i32[NV]   write generation of the last write
     wgen: int               # current write generation (batches)
     run_version: int        # bumps on every seal / unseal
-
-    def __post_init__(self):
-        if not isinstance(self.delta, CBList):
-            raise NotImplementedError(
-                "TieredGraph over a sharded delta is not ported yet: it "
-                "comes with the sharded stack (ROADMAP queue 1 item 6)")
 
     # ---- vertex-table surface -------------------------------------------
 
@@ -116,17 +113,28 @@ class TieredGraph:
 
     @property
     def num_blocks(self) -> int:
-        """Delta block capacity."""
-        return self.delta.store.num_blocks
+        """Delta block capacity (per shard when sharded)."""
+        d = self.delta
+        return d.store.num_blocks if isinstance(d, CBList) else d.num_blocks
+
+    @property
+    def is_sharded(self) -> bool:
+        return not isinstance(self.delta, CBList)
+
+    @property
+    def run_list(self) -> Tuple[CSRGraph, ...]:
+        """The sealed runs: one, or one a shard."""
+        return self.runs if self.is_sharded else (self.runs,)
 
     @property
     def run_capacity(self) -> int:
-        """Static lane capacity of the sealed tier."""
-        return self.runs.capacity
+        """Static lane capacity of the sealed tier (per shard when
+        sharded)."""
+        return self.run_list[0].capacity
 
     @functools.cached_property
     def run_degrees(self) -> torch.Tensor:
-        return csr_degrees(self.runs)
+        return sum(csr_degrees(g) for g in self.run_list)
 
     @functools.cached_property
     def v_deg(self) -> torch.Tensor:
@@ -138,21 +146,36 @@ class TieredGraph:
         return self.delta.v_level
 
     @property
+    def run_edges(self) -> torch.Tensor:
+        """Live edges of the sealed tier."""
+        return sum(g.num_edges for g in self.run_list)
+
+    @property
     def num_edges(self) -> torch.Tensor:
-        return self.delta.num_edges + self.runs.num_edges
+        return self.delta.num_edges + self.run_edges
 
     @property
     def sealed_fraction(self) -> torch.Tensor:
         """Fraction of live edges held by the sealed tier."""
-        run_e = self.runs.num_edges
+        run_e = self.run_edges
         return run_e / (run_e + self.delta.num_edges).clamp(min=1)
 
 
-def tier_from_cbl(delta: CBList) -> TieredGraph:
-    """Wrap existing storage as an all-hot tiered graph (empty run tier)."""
+def _empty_runs_like(delta):
+    """An empty sealed tier for ``delta``: one empty run, or one a shard."""
+    nvc = delta.capacity_vertices
+    if isinstance(delta, CBList):
+        return csr_empty(nvc, 0, delta.device)
+    return tuple(csr_empty(nvc, 0, delta.device)
+                 for _ in range(delta.n_shards))
+
+
+def tier_from_cbl(delta) -> TieredGraph:
+    """Wrap existing storage (a CBList or a ShardedCBList) as an all-hot
+    tiered graph (empty run tier)."""
     nvc = delta.capacity_vertices
     dev = delta.device
-    return TieredGraph(delta=delta, runs=csr_empty(nvc, 0, dev),
+    return TieredGraph(delta=delta, runs=_empty_runs_like(delta),
                        sealed=torch.zeros(nvc, dtype=torch.bool, device=dev),
                        v_epoch=torch.zeros(nvc, dtype=I32, device=dev),
                        wgen=0, run_version=0)
@@ -169,6 +192,15 @@ def _merge(a: torch.Tensor, b: torch.Tensor, combine: str) -> torch.Tensor:
     return SEMIRINGS[combine].lane_reduce(torch.stack([a, b]), 0)
 
 
+def _runs_sweep(tg: TieredGraph, x, active, sweep, combine: str):
+    """The run-tier sweep: the one run's, or every shard's run reduced
+    across the shards."""
+    if not tg.is_sharded:
+        return sweep(tg.runs, x, active)
+    from repro_torch.distributed.graph import sharded_runs_sweep
+    return sharded_runs_sweep(tg.runs, x, active, sweep, combine)
+
+
 def tiered_process_edge_push(tg: TieredGraph, x: torch.Tensor,
                              active: Optional[torch.Tensor] = None, *,
                              dense_f=_default_edge_f, combine: str = "sum",
@@ -181,8 +213,9 @@ def tiered_process_edge_push(tg: TieredGraph, x: torch.Tensor,
                           combine=combine, impl=impl, plan=plan)
     if tg.run_capacity == 0:
         return a
-    return _merge(a, csr_push(tg.runs, x, active, dense_f=dense_f,
-                              combine=combine, impl=impl), combine)
+    sweep = functools.partial(csr_push, dense_f=dense_f, combine=combine,
+                              impl=impl)
+    return _merge(a, _runs_sweep(tg, x, active, sweep, combine), combine)
 
 
 def tiered_process_edge_pull(tg: TieredGraph, x: torch.Tensor,
@@ -193,8 +226,9 @@ def tiered_process_edge_pull(tg: TieredGraph, x: torch.Tensor,
                           combine=combine, impl=impl, plan=plan)
     if tg.run_capacity == 0:
         return a
-    return _merge(a, csr_pull(tg.runs, x, active_dst, dense_f=dense_f,
-                              combine=combine, impl=impl), combine)
+    sweep = functools.partial(csr_pull, dense_f=dense_f, combine=combine,
+                              impl=impl)
+    return _merge(a, _runs_sweep(tg, x, active_dst, sweep, combine), combine)
 
 
 def tiered_process_edge_push_feat(tg: TieredGraph, x: torch.Tensor,
@@ -205,12 +239,13 @@ def tiered_process_edge_push_feat(tg: TieredGraph, x: torch.Tensor,
                                impl=impl, plan=plan)
     if tg.run_capacity == 0:
         return a
-    return a + csr_push_feat(tg.runs, x, active, weighted=weighted,
-                             impl=impl)
+    sweep = functools.partial(csr_push_feat, weighted=weighted, impl=impl)
+    return a + _runs_sweep(tg, x, active, sweep, "sum")
 
 
 def tiered_in_degrees(tg: TieredGraph) -> torch.Tensor:
-    return in_degrees(tg.delta) + csr_in_degrees(tg.runs)
+    return in_degrees(tg.delta) + sum(csr_in_degrees(g)
+                                      for g in tg.run_list)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +260,12 @@ def tiered_read_edges(tg: TieredGraph, qsrc: torch.Tensor,
     f1, w1 = read_edges(tg.delta, qsrc, qdst, active)
     if tg.run_capacity == 0:
         return f1, w1
-    f2, w2 = csr_query(tg.runs, qsrc, qdst, active)
+    if tg.is_sharded:                   # at most one shard's run holds it
+        fs, ws = zip(*(csr_query(g, qsrc, qdst, active) for g in tg.runs))
+        fs = torch.stack(fs)
+        f2, w2 = fs.any(0), torch.where(fs, torch.stack(ws), 0.0).sum(0)
+    else:
+        f2, w2 = csr_query(tg.runs, qsrc, qdst, active)
     return f1 | f2, torch.where(f1, w1, w2)
 
 
@@ -235,11 +275,23 @@ def tiered_rank_neighbors(tg: TieredGraph, verts: torch.Tensor,
     """The neighbours at ``ranks`` of each vertex: sealed vertices read the
     run (one gather a draw), hot ones walk the delta's chain.  One rank
     draw serves both tiers, because each vertex's edges live in one."""
-    from repro_torch.graph.sampler import rank_neighbors
-    d_out, d_ok = rank_neighbors(tg.delta, verts, ranks)
+    if tg.is_sharded:
+        from repro_torch.distributed.graph import sharded_rank_neighbors
+        d_out, d_ok = sharded_rank_neighbors(tg.delta, verts, ranks)
+    else:
+        from repro_torch.graph.sampler import rank_neighbors
+        d_out, d_ok = rank_neighbors(tg.delta, verts, ranks)
     if tg.run_capacity == 0:
         return d_out, d_ok
-    r_out, r_ok = csr_rank_neighbors(tg.runs, verts, ranks)
+    if tg.is_sharded:                   # at most one shard's run holds v
+        outs, oks = zip(*(csr_rank_neighbors(g, verts, ranks)
+                          for g in tg.runs))
+        oks = torch.stack(oks)
+        r_ok = oks.any(0)
+        r_out = torch.where(r_ok, torch.where(oks, torch.stack(outs), 0)
+                            .sum(0).to(I32), NULL)
+    else:
+        r_out, r_ok = csr_rank_neighbors(tg.runs, verts, ranks)
     nvc = tg.capacity_vertices
     use_run = (tg.sealed[verts.clamp(0, nvc - 1).long()] & (verts >= 0)
                & (verts < nvc))[:, None]
@@ -272,8 +324,8 @@ def cold_mask(tg: TieredGraph, after_epochs: int) -> torch.Tensor:
 
 
 def _combined_coo(delta: CBList, runs: CSRGraph):
-    """All edges of both tiers as one padded COO (delta in GTChain order,
-    then the run)."""
+    """All edges of one (delta, run) pair as one padded COO (delta in
+    GTChain order, then the run)."""
     s1, d1, w1, v1 = to_coo(delta)
     s2, d2, w2, v2 = csr_to_coo(runs)
     return (torch.cat([s1, s2]), torch.cat([d1, d2]), torch.cat([w1, w2]),
@@ -310,22 +362,42 @@ def _repartition(tg: TieredGraph, new_sealed: torch.Tensor) -> TieredGraph:
 
 def _repartition_inner(tg: TieredGraph,
                        new_sealed: torch.Tensor) -> TieredGraph:
+    """Split each (delta, run) pair's edges by the new sealed set and
+    rebuild both tiers; a sharded store sizes every shard's tiers alike
+    (the largest shard's run and hot demand) so the stacks keep one
+    shape."""
+    from repro_torch.distributed.graph import ShardedCBList, _restack
     nvc = tg.capacity_vertices
     bw = tg.block_width
-    s, d, w, valid = _combined_coo(tg.delta, tg.runs)
-    cold = valid & new_sealed[s.clamp(0, nvc - 1).long()]
-    hot = valid & ~cold
-    n_cold = int(cold.sum())
-    run_cap = _pow2_at_least(n_cold) if n_cold else 0
-    demand = blocks_needed(s[hot], nvc, bw)
-    nb = max(MIN_DELTA_BLOCKS, _pow2_at_least(int(demand * DELTA_SLACK) + 1))
-    run = (csr_build(s, d, w, nvc, capacity=run_cap, valid=cold)
-           if run_cap > 0 else csr_empty(nvc, 0, tg.device))
-    delta = build_from_coo(s, d, w, num_vertices=int(tg.n_vertices),
-                           num_blocks=nb, block_width=bw,
-                           vertex_capacity=nvc, valid=hot)
-    delta = delta._replace(n_vertices=tg.delta.n_vertices)
-    return dataclasses.replace(tg, delta=delta, runs=run, sealed=new_sealed,
+    deltas = tg.delta.views if tg.is_sharded else (tg.delta,)
+    parts = []
+    run_cap, nb = 0, MIN_DELTA_BLOCKS
+    for delta, run in zip(deltas, tg.run_list):
+        s, d, w, valid = _combined_coo(delta, run)
+        cold = valid & new_sealed[s.clamp(0, nvc - 1).long()]
+        hot = valid & ~cold
+        n_cold = int(cold.sum())
+        if n_cold:
+            run_cap = max(run_cap, _pow2_at_least(n_cold))
+        demand = blocks_needed(s[hot], nvc, bw)
+        nb = max(nb, _pow2_at_least(int(demand * DELTA_SLACK) + 1))
+        parts.append((s, d, w, cold, hot))
+    n_live = int(tg.n_vertices)
+    new_deltas, runs = [], []
+    for s, d, w, cold, hot in parts:
+        runs.append(csr_build(s, d, w, nvc, capacity=run_cap, valid=cold)
+                    if run_cap > 0 else csr_empty(nvc, 0, tg.device))
+        new_deltas.append(build_from_coo(
+            s, d, w, num_vertices=n_live, num_blocks=nb, block_width=bw,
+            vertex_capacity=nvc, valid=hot))
+    if tg.is_sharded:
+        delta = ShardedCBList(shards=_restack(new_deltas),
+                              v_shard=tg.delta.v_shard)
+        runs = tuple(runs)
+    else:
+        delta = new_deltas[0]._replace(n_vertices=tg.delta.n_vertices)
+        runs = runs[0]
+    return dataclasses.replace(tg, delta=delta, runs=runs, sealed=new_sealed,
                                run_version=tg.run_version + 1)
 
 
@@ -439,8 +511,10 @@ def tiered_delete_vertices(tg: TieredGraph,
     sweeps in-edges, the run drops every incident lane."""
     vids = vids.to(I32)
     delta = delete_vertices(tg.delta, vids)
-    runs = (_csr_purge_vertices(tg.runs, vids) if tg.run_capacity > 0
-            else tg.runs)
+    runs = tg.runs
+    if tg.run_capacity > 0:
+        runs = (tuple(_csr_purge_vertices(g, vids) for g in tg.runs)
+                if tg.is_sharded else _csr_purge_vertices(tg.runs, vids))
     nvc = tg.capacity_vertices
     rows = vids[(vids != NULL) & (vids >= 0) & (vids < nvc)].long()
     sealed = tg.sealed.clone()
@@ -480,9 +554,14 @@ def tiered_grow(tg: TieredGraph, num_blocks: Optional[int] = None,
                 vertex_capacity: Optional[int] = None) -> TieredGraph:
     """Grow the delta's capacity; the run tier only tracks the vertex-space
     extension (sealed data never moves on a grow)."""
-    from repro_torch.core.cblist import grow
-    delta = grow(tg.delta, num_blocks=num_blocks,
-                 vertex_capacity=vertex_capacity)
+    if tg.is_sharded:
+        from repro_torch.distributed.graph import grow_sharded
+        delta = grow_sharded(tg.delta, num_blocks=num_blocks,
+                             vertex_capacity=vertex_capacity)
+    else:
+        from repro_torch.core.cblist import grow
+        delta = grow(tg.delta, num_blocks=num_blocks,
+                     vertex_capacity=vertex_capacity)
     runs, sealed, v_epoch = tg.runs, tg.sealed, tg.v_epoch
     nvc = tg.capacity_vertices
     if vertex_capacity is not None and vertex_capacity > nvc:
@@ -491,6 +570,7 @@ def tiered_grow(tg: TieredGraph, num_blocks: Optional[int] = None,
         sealed = torch.cat([sealed, torch.zeros(k, dtype=torch.bool,
                                                 device=dev)])
         v_epoch = torch.cat([v_epoch, torch.zeros(k, dtype=I32, device=dev)])
-        runs = _csr_grow_nv(runs, vertex_capacity)
+        runs = (tuple(_csr_grow_nv(g, vertex_capacity) for g in runs)
+                if tg.is_sharded else _csr_grow_nv(runs, vertex_capacity))
     return dataclasses.replace(tg, delta=delta, runs=runs, sealed=sealed,
                                v_epoch=v_epoch)

@@ -14,7 +14,9 @@ Mutators are pure: they clone before they write, so a caller's CBList (a
 pinned snapshot, or the service's pre-update state kept for the grow-retry)
 is never changed.  Every entry point also takes a
 :class:`~repro_torch.core.tiered.TieredGraph` and dispatches to its
-``tiered_*`` counterpart (writes to sealed vertices unseal them first).
+``tiered_*`` counterpart (writes to sealed vertices unseal them first), and
+a :class:`~repro_torch.distributed.graph.ShardedCBList`, whose writes route
+to the shard that owns their source.
 """
 from __future__ import annotations
 
@@ -61,8 +63,11 @@ def read_edges(cbl: CBList, qsrc: torch.Tensor, qdst: torch.Tensor,
     ``active`` False report not found without walking.  Makes no host sync
     on the card."""
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_read_edges
-        return tiered_read_edges(cbl, qsrc, qdst, active)
+        from repro_torch.core.tiered import TieredGraph, tiered_read_edges
+        if isinstance(cbl, TieredGraph):
+            return tiered_read_edges(cbl, qsrc, qdst, active)
+        from repro_torch.distributed.graph import sharded_read_edges
+        return sharded_read_edges(cbl, qsrc, qdst, active)
     if active is None:
         active = torch.ones(qsrc.shape, dtype=torch.bool, device=qsrc.device)
     fblk, flane = _locate(cbl, qsrc, qdst, active)
@@ -116,7 +121,13 @@ def _apply_inserts(cbl: CBList, src, dst, w, mask):
     order = bs.stable_argsort(bs.composite_key(torch.where(mask, src, pad),
                                                torch.where(mask, dst, pad)))
     s, d, ww, ok = src[order], dst[order], w[order], mask[order]
+    # a source outside [0, capacity) has no vertex row: its lanes read the
+    # row an index gather reads (negative ids count from the end, the rest
+    # clamp) so that ``placed`` and the counts are the JAX package's, and
+    # they are never stored (it writes them into some block)
     s_safe = torch.where(ok, s, torch.zeros_like(s)).long()
+    s_safe = torch.where(s_safe < 0, s_safe + nvc, s_safe).clamp(0, nvc - 1)
+    s_in = (s >= 0) & (s < nvc)
 
     c = bs.segment_count(s, ok, nvc)
 
@@ -190,6 +201,8 @@ def _apply_inserts(cbl: CBList, src, dst, w, mask):
     slot = offs[s_safe] + torch.div(r2, B, rounding_mode="floor")
     new_blk = nid[slot.clamp(0, U - 1).long()]
     placed = ok & (in_slack | (slot < avail))            # edge has a real home
+    dropped = (ok & ~placed).sum().to(I32)
+    placed = placed & s_in                               # counted, not stored
     e_blk = torch.where(in_slack, tail[s_safe], new_blk)
     e_lane = torch.where(in_slack, tail_cnt[s_safe] + r, r2 % B)
     rows = e_blk[placed].long()
@@ -205,7 +218,6 @@ def _apply_inserts(cbl: CBList, src, dst, w, mask):
     st = bs.sort_blocks(st, torch.cat([e_blk[placed], nid[alloc_ok]]))
 
     c_placed = bs.segment_count(s, placed, nvc)
-    dropped = (ok & ~placed).sum().to(I32)
     return (cbl._replace(store=st, v_deg=cbl.v_deg + c_placed,
                          v_level=cbl.v_level + nb_got,
                          v_head=v_head, v_tail=v_tail),
@@ -233,8 +245,12 @@ def batch_update_stats(cbl: CBList, src: torch.Tensor, dst: torch.Tensor,
     capacity and re-apply the batch to the *pre-update* CBList.
     """
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_batch_update_stats
-        return tiered_batch_update_stats(cbl, src, dst, w, op)
+        from repro_torch.core.tiered import (TieredGraph,
+                                             tiered_batch_update_stats)
+        if isinstance(cbl, TieredGraph):
+            return tiered_batch_update_stats(cbl, src, dst, w, op)
+        from repro_torch.distributed.graph import sharded_batch_update_stats
+        return sharded_batch_update_stats(cbl, src, dst, w, op)
     w, op = _defaults(src, w, op)
     cbl, n_del = _apply_deletes(cbl, src, dst, op == DELETE)
     cbl, dropped = _apply_inserts(cbl, src, dst, w, op == INSERT)
@@ -258,8 +274,11 @@ def upsert_edges(cbl: CBList, src, dst, w=None,
                  valid: Optional[torch.Tensor] = None) -> CBList:
     """Insert-or-replace: deletes any existing (src, dst) first."""
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_upsert_edges
-        return tiered_upsert_edges(cbl, src, dst, w, valid)
+        from repro_torch.core.tiered import TieredGraph, tiered_upsert_edges
+        if isinstance(cbl, TieredGraph):
+            return tiered_upsert_edges(cbl, src, dst, w, valid)
+        from repro_torch.distributed.graph import sharded_upsert_edges
+        return sharded_upsert_edges(cbl, src, dst, w, valid)
     w, _ = _defaults(src, w, None)
     if valid is None:
         valid = torch.ones(src.shape, dtype=torch.bool, device=src.device)
@@ -313,14 +332,21 @@ def delete_vertices(cbl: CBList, vids: torch.Tensor) -> CBList:
     """UpdateVertex(delete): frees the out-chains of ``vids`` (NULL entries
     ignored) and sweeps their in-edges out of every block."""
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_delete_vertices
-        return tiered_delete_vertices(cbl, vids)
+        from repro_torch.core.tiered import (TieredGraph,
+                                             tiered_delete_vertices)
+        if isinstance(cbl, TieredGraph):
+            return tiered_delete_vertices(cbl, vids)
+        from repro_torch.distributed.graph import sharded_delete_vertices
+        return sharded_delete_vertices(cbl, vids)
     return _sweep_in_edges(_delete_vertex_chains(cbl, vids), vids)
 
 
 def add_vertices(cbl: CBList, k) -> CBList:
     """UpdateVertex(add): append-only (aligned to max logical id)."""
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_add_vertices
-        return tiered_add_vertices(cbl, k)
+        from repro_torch.core.tiered import TieredGraph, tiered_add_vertices
+        if isinstance(cbl, TieredGraph):
+            return tiered_add_vertices(cbl, k)
+        from repro_torch.distributed.graph import sharded_add_vertices
+        return sharded_add_vertices(cbl, k)
     return cbl._replace(n_vertices=cbl.n_vertices + int(k))

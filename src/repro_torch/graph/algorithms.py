@@ -71,8 +71,17 @@ def _is_source(ctx):
     return arange32(ctx.nv, ctx.cbl.device) == int(ctx.params["source"])
 
 
+def _source_row(ctx):
+    """The cold start's source as a scatter at ``source`` places it: a
+    negative id counts from the end, an id still out of range marks no
+    vertex."""
+    src = int(ctx.params["source"])
+    return arange32(ctx.nv, ctx.cbl.device) == (src + ctx.nv if src < 0
+                                                 else src)
+
+
 def _sp_init(ctx):
-    return torch.where(_is_source(ctx), 0.0, INF)
+    return torch.where(_source_row(ctx), 0.0, INF)
 
 
 def _sp_anchor(ctx):
@@ -86,7 +95,7 @@ def _bfs_warm(ctx, prev):
 
 BFS = register_program(VertexProgram(
     name="bfs",
-    init=_sp_init, frontier_init=_is_source,
+    init=_sp_init, frontier_init=_source_row,
     sweeps=(Sweep(direction="push", combine="min",
                   message=lambda xs, w: xs + 1.0, use_frontier=True,
                   apply=lambda ctx, s, acc: torch.minimum(s, acc)),),
@@ -100,7 +109,7 @@ BFS = register_program(VertexProgram(
 
 SSSP = register_program(VertexProgram(
     name="sssp",
-    init=_sp_init, frontier_init=_is_source,
+    init=_sp_init, frontier_init=_source_row,
     sweeps=(Sweep(direction="push", combine="min",
                   message=lambda xs, w: xs + w, use_frontier=True,
                   apply=lambda ctx, s, acc: torch.minimum(s, acc)),),

@@ -63,10 +63,16 @@ def _sample_neighbors(cbl: CBList, verts: torch.Tensor,
                       generator: torch.Generator, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw up to k neighbours (with replacement) per vertex in ``verts``
-    (over both tiers of a :class:`~repro_torch.core.tiered.TieredGraph`)."""
+    (over both tiers of a :class:`~repro_torch.core.tiered.TieredGraph`,
+    routed to the owning shard on a
+    :class:`~repro_torch.distributed.graph.ShardedCBList`)."""
     if not isinstance(cbl, CBList):
-        from repro_torch.core.tiered import tiered_sample_neighbors
-        return tiered_sample_neighbors(cbl, verts, generator, k)
+        from repro_torch.core.tiered import (TieredGraph,
+                                             tiered_sample_neighbors)
+        if isinstance(cbl, TieredGraph):
+            return tiered_sample_neighbors(cbl, verts, generator, k)
+        from repro_torch.distributed.graph import sharded_sample_neighbors
+        return sharded_sample_neighbors(cbl, verts, generator, k)
     return rank_neighbors(cbl, verts, draw_ranks(cbl, verts, generator, k))
 
 

@@ -1,8 +1,8 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
 The JAX package's ``CBList``, ``BlockStore``, ``UpdateLog``, ``CSRGraph``,
-``TieredGraph`` and program outputs are NamedTuples or dataclasses of
-arrays; anything with the same field names whose leaves ``np.asarray``
+``ShardedCBList``, ``TieredGraph`` and program outputs are NamedTuples or
+dataclasses of arrays; anything with the same field names whose leaves ``np.asarray``
 accepts converts here (nothing of the JAX package is imported).  Values are copied unchanged — int32 stays int32 — so a layout
 moved across and back compares bit for bit.  ``lm_params_from_jax`` turns
 the JAX LM's period-stacked parameter tree into the port's layer list;
@@ -20,6 +20,7 @@ from repro_torch.core.blockstore import BlockStore
 from repro_torch.core.cblist import CBList
 from repro_torch.core.csr import CSRGraph
 from repro_torch.core.tiered import TieredGraph
+from repro_torch.distributed.graph import ShardedCBList
 from repro_torch.stream.log import UpdateLog
 
 
@@ -76,16 +77,69 @@ def csr_from_arrays(csr, device=None) -> CSRGraph:
                     **{k: from_numpy(v, device) for k, v in f.items()})
 
 
+def sharded_from_arrays(scbl, device=None) -> ShardedCBList:
+    """A port ShardedCBList from a JAX ``ShardedCBList`` (or a dict of its
+    ``shards`` and ``v_shard``): the stacked ``[S, ...]`` arrays as they
+    are."""
+    f = _fields(scbl, ("shards", "v_shard"))
+    return ShardedCBList(shards=cbl_from_arrays(f["shards"], device),
+                         v_shard=from_numpy(f["v_shard"], device))
+
+
+def sharded_to_numpy(scbl: ShardedCBList) -> Dict[str, Any]:
+    """A port ShardedCBList as ``{"shards": <cbl_to_numpy of the stack>,
+    "v_shard": ndarray}``."""
+    return {"shards": cbl_to_numpy(scbl.shards),
+            "v_shard": to_numpy(scbl.v_shard)}
+
+
+def _is_sharded_arrays(delta) -> bool:
+    return "shards" in delta if isinstance(delta, dict) \
+        else hasattr(delta, "shards")
+
+
+def _runs_from_arrays(runs, n_shards: int, device=None):
+    """One run, or a tuple of one a shard from arrays stacked ``[S, ...]``."""
+    if not n_shards:
+        return csr_from_arrays(runs, device)
+    f = _fields(runs, _CSR_FIELDS)
+    nv = int(np.asarray(f.pop("nv")).reshape(-1)[0])
+    return tuple(CSRGraph(nv=nv, **{k: from_numpy(np.asarray(v)[i], device)
+                                    for k, v in f.items()})
+                 for i in range(n_shards))
+
+
 def tiered_from_arrays(tg, device=None) -> TieredGraph:
     """A port TieredGraph from a JAX ``TieredGraph`` (or a dict of its
-    fields) over an unsharded delta."""
+    fields), over an unsharded or a sharded delta."""
     f = _fields(tg, _TIER_FIELDS)
-    return TieredGraph(delta=cbl_from_arrays(f["delta"], device),
-                       runs=csr_from_arrays(f["runs"], device),
+    if _is_sharded_arrays(f["delta"]):
+        delta = sharded_from_arrays(f["delta"], device)
+        runs = _runs_from_arrays(f["runs"], delta.n_shards, device)
+    else:
+        delta = cbl_from_arrays(f["delta"], device)
+        runs = _runs_from_arrays(f["runs"], 0, device)
+    return TieredGraph(delta=delta, runs=runs,
                        sealed=from_numpy(f["sealed"], device),
                        v_epoch=from_numpy(f["v_epoch"], device),
                        wgen=int(np.asarray(f["wgen"])),
                        run_version=int(np.asarray(f["run_version"])))
+
+
+def tiered_to_numpy(tg: TieredGraph) -> Dict[str, Any]:
+    """A port TieredGraph as ``{field: ndarray}``: the delta as
+    :func:`cbl_to_numpy` or :func:`sharded_to_numpy` gives it, the runs'
+    arrays (stacked ``[S, ...]`` over a sharded delta, as the JAX package
+    keeps them)."""
+    runs = {k: np.stack([to_numpy(getattr(g, k)) for g in tg.run_list])
+            if tg.is_sharded else to_numpy(getattr(tg.runs, k))
+            for k in _CSR_FIELDS if k != "nv"}
+    runs["nv"] = tg.run_list[0].nv
+    return {"delta": (sharded_to_numpy(tg.delta) if tg.is_sharded
+                      else cbl_to_numpy(tg.delta)),
+            "runs": runs, "sealed": to_numpy(tg.sealed),
+            "v_epoch": to_numpy(tg.v_epoch), "wgen": tg.wgen,
+            "run_version": tg.run_version}
 
 
 def log_from_arrays(log, device=None) -> UpdateLog:

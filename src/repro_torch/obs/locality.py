@@ -38,18 +38,23 @@ def _chain_stats(v_level: torch.Tensor, v_deg: torch.Tensor):
 
 
 def sweep_profile(storage) -> dict:
-    """Locality statistics of one sweep over ``storage`` (a CBList or a
-    TieredGraph) as a flat host-side dict."""
+    """Locality statistics of one sweep over ``storage`` (a CBList, a
+    ShardedCBList or a TieredGraph) as a flat host-side dict."""
     from repro_torch.core import blockstore as bs
     from repro_torch.core.cblist import CBList
+    from repro_torch.core.tiered import TieredGraph
     run_edges = 0.0
     delta = storage
-    if not isinstance(storage, CBList):
+    if isinstance(storage, TieredGraph):
         delta = storage.delta
-        run_edges = float(storage.runs.n_live)
+        run_edges = float(sum(g.n_live for g in storage.run_list))
     blocks, hops_max, n_live, delta_edges = _chain_stats(delta.v_level,
                                                          delta.v_deg)
-    contiguity = float(bs.gtchain_contiguity(delta.store))
+    if isinstance(delta, CBList):
+        contiguity = float(bs.gtchain_contiguity(delta.store))
+    else:
+        from repro_torch.distributed.graph import shard_contiguity
+        contiguity = float(shard_contiguity(delta))
     edges = delta_edges + run_edges
     # the sealed tier is one contiguous stream: ceil(lanes / width) blocks
     run_blocks = -(-run_edges // storage.block_width) if run_edges else 0.0

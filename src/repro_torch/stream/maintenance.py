@@ -25,12 +25,16 @@ shrinks the delta, so it outranks the delta-local repairs (a rebuild of
 chains about to leave the delta would be wasted work); rebuild and compact
 stay local to the delta.  ``MaintenancePolicy.adapted`` raises the seal
 threshold from the measured unseal churn of a signal bus.
+
+A :class:`~repro_torch.distributed.graph.ShardedCBList` is decided as one
+stack (every shard's statistics in one host read) and repaired per shard.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 import repro_torch.obs as obs
@@ -143,6 +147,10 @@ def decide(cbl, pending_inserts: int = 0,
     ``cbl`` may be a :class:`~repro_torch.core.tiered.TieredGraph`; then the
     delta's rules run first and a large-enough cold set seals (the service
     passes the policy :meth:`MaintenancePolicy.adapted` to its signals).
+    On a :class:`~repro_torch.distributed.graph.ShardedCBList` the rules run
+    per shard and the highest-priority shard action wins (grow > rebuild >
+    compact): one shard near exhaustion grows the whole stack, because the
+    shards keep one shape.
     """
     phase = "proactive" if headroom_only else "full"
     with obs.span("maint.decide", cat="maint", phase=phase):
@@ -157,7 +165,11 @@ def decide(cbl, pending_inserts: int = 0,
 def _decide(cbl, pending_inserts: int, policy: MaintenancePolicy,
             headroom_only: bool) -> MaintenanceAction:
     if not isinstance(cbl, CBList):
-        return _decide_tiered(cbl, pending_inserts, policy, headroom_only)
+        from repro_torch.core.tiered import TieredGraph
+        if isinstance(cbl, TieredGraph):
+            return _decide_tiered(cbl, pending_inserts, policy,
+                                  headroom_only)
+        return _decide_sharded(cbl, pending_inserts, policy, headroom_only)
     return _decide_from_stats(
         nb=cbl.store.num_blocks, free=int(bs.free_blocks_left(cbl.store)),
         n_live=int(cbl.n_vertices), nv_cap=cbl.capacity_vertices,
@@ -226,9 +238,85 @@ def _decide_tiered(tg, pending_inserts: int, policy: MaintenancePolicy,
     return base
 
 
+def _sharded_statistics(scbl) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-shard (free blocks, chain overlap, contiguity) in one host read:
+    ``decide`` sits on the flush path, so the sharded rules must not pay a
+    device round trip a shard."""
+    views = scbl.views
+    stats = torch.stack([
+        scbl.shards.store.free_top.to(torch.float64),
+        torch.stack([chain_overlap_fraction(v) for v in views]).double(),
+        torch.stack([bs.gtchain_contiguity(v.store) for v in views])
+        .double()])
+    free, overlap, contig = np.asarray(stats.tolist())
+    return free.astype(np.int64), overlap, contig
+
+
+def _decide_sharded(scbl, pending_inserts: int, policy: MaintenancePolicy,
+                    headroom_only: bool) -> MaintenanceAction:
+    """One decision for the whole shard stack.
+
+    The per-shard statistics arrive in one host read
+    (:func:`_sharded_statistics`; the free counts alone when
+    ``headroom_only``) and the threshold rules evaluate over the stack.
+    ``pending_inserts`` is charged to every shard (in the worst case the
+    whole batch routes to one), the grow target is the largest shard
+    target so the grown stack keeps one shape, and the reason names the
+    first shard that tripped the winning rule.
+    """
+    S = scbl.n_shards
+    if headroom_only:
+        free = np.asarray(scbl.shards.store.free_top.tolist(), np.int64)
+        overlap, contig = np.zeros(S), np.ones(S)
+    else:
+        free, overlap, contig = _sharded_statistics(scbl)
+    nb = scbl.num_blocks
+    n_live = int(scbl.n_vertices)
+    nv_cap = scbl.capacity_vertices
+    blk_grow = (free - pending_inserts) < policy.headroom_floor * nb
+    v_low = (nv_cap - n_live) < policy.vertex_headroom_floor * nv_cap
+    v_grow = ~blk_grow & v_low        # a block-growing shard never also
+    if blk_grow.any() or v_grow.any():   # reports the vertex rule
+        num_blocks = 0
+        for k in np.nonzero(blk_grow)[0]:
+            target = nb * policy.grow_factor
+            while target - (nb - free[k]) \
+                    < pending_inserts + policy.headroom_floor * target:
+                target *= policy.grow_factor
+            num_blocks = max(num_blocks, int(target))
+        vcap = nv_cap * policy.grow_factor if v_grow.any() else 0
+        k0 = int(np.argmax(blk_grow | v_grow))
+        if blk_grow[k0]:
+            reason = (f"shard {k0}: free blocks {int(free[k0])}/{nb} "
+                      f"(pending {pending_inserts}) below headroom floor "
+                      f"{policy.headroom_floor:.2f}")
+        else:
+            reason = f"shard {k0}: vertex ids {n_live}/{nv_cap} near capacity"
+        return MaintenanceAction(kind="grow", num_blocks=num_blocks,
+                                 vertex_capacity=vcap, reason=reason)
+    rebuild_m = overlap > policy.overlap_ceiling
+    if rebuild_m.any():
+        k0 = int(np.argmax(rebuild_m))
+        return MaintenanceAction(
+            kind="rebuild",
+            reason=f"shard {k0}: chain overlap {float(overlap[k0]):.2f} "
+                   f"above {policy.overlap_ceiling:.2f}")
+    compact_m = contig < policy.contiguity_floor
+    if compact_m.any():
+        k0 = int(np.argmax(compact_m))
+        return MaintenanceAction(
+            kind="compact",
+            reason=f"shard {k0}: contiguity {float(contig[k0]):.2f} "
+                   f"below {policy.contiguity_floor:.2f}")
+    return MaintenanceAction(kind="none", reason="all shards in band")
+
+
 def apply_action(cbl, action: MaintenanceAction,
                  policy: MaintenancePolicy = MaintenancePolicy()):
     """Execute a scheduled action (pure; 'none' is the identity).
+
+    Sharded storage applies per shard: compact / rebuild keep the shapes,
+    grow raises every shard to the same (per-shard) block target.
 
     Under :mod:`repro_torch.obs` each applied action gets a
     ``maint.action{kind=...}`` counter and a ``maint.apply`` span that
@@ -248,7 +336,23 @@ def apply_action(cbl, action: MaintenanceAction,
 def _apply_action(cbl, action: MaintenanceAction,
                   policy: MaintenancePolicy):
     if not isinstance(cbl, CBList):
-        return _apply_tiered(cbl, action, policy)
+        from repro_torch.core.tiered import TieredGraph
+        if isinstance(cbl, TieredGraph):
+            return _apply_tiered(cbl, action, policy)
+        from repro_torch.distributed.graph import (compact_sharded,
+                                                   grow_sharded,
+                                                   rebuild_sharded)
+        if action.kind == "compact":
+            return compact_sharded(cbl)
+        if action.kind == "rebuild":
+            max_edges = policy.max_edges_hint or (cbl.num_blocks
+                                                  * cbl.block_width)
+            return rebuild_sharded(cbl, max_edges=max_edges)
+        if action.kind == "grow":
+            return grow_sharded(
+                cbl, num_blocks=action.num_blocks or None,
+                vertex_capacity=action.vertex_capacity or None)
+        raise ValueError(f"unknown maintenance action {action.kind!r}")
     if action.kind == "compact":
         return compact_cbl(cbl)
     if action.kind == "rebuild":

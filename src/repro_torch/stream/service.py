@@ -1,8 +1,11 @@
 """GraphService — the versioned dynamic-graph serving facade, in torch.
 
 One object owns update admission, snapshot versioning, maintenance
-scheduling and incremental analytics over one CBList, or over a
-:class:`~repro_torch.core.tiered.TieredGraph` (``seal_after_epochs=K``):
+scheduling and incremental analytics over one CBList, over a
+:class:`~repro_torch.distributed.graph.ShardedCBList` (``n_shards=S``: S
+GTChain-balanced shards stacked on the one device), or over a
+:class:`~repro_torch.core.tiered.TieredGraph` of either
+(``seal_after_epochs=K``):
 
     service = GraphService.from_coo(src, dst, w, num_vertices=nv)
     service.apply(us, ud, uw, op)          # -> update log (coalesced)
@@ -37,7 +40,9 @@ from repro_torch.core.blockstore import I32
 from repro_torch.core.cblist import CBList, blocks_needed, build_from_coo
 from repro_torch.core.program import (VertexProgram, get_program,
                                       has_program, run_program)
-from repro_torch.core.tuner import choose_engine_impl
+from repro_torch.core.tiered import TieredGraph
+from repro_torch.core.tuner import (SystemProbe, choose_engine_impl,
+                                    choose_plan)
 from repro_torch.core.updates import (DELETE, INSERT, NOP, UpdateStats,
                                       batch_update_stats, read_edges)
 from repro_torch.graph import algorithms as _builtin_programs  # noqa: F401 — registers the built-in programs
@@ -131,34 +136,56 @@ class ServiceStats:
 
 
 def _num_blocks(cbl) -> int:
-    """Delta block capacity (a TieredGraph reports its delta's: grow only
-    ever targets the mutable tier)."""
+    """Delta block capacity, per shard when sharded (the grow target unit);
+    a TieredGraph reports its delta's (grow only ever targets the mutable
+    tier)."""
     return cbl.store.num_blocks if isinstance(cbl, CBList) else cbl.num_blocks
 
 
 class GraphService:
     """Facade over log + snapshot + maintenance + incremental analytics for
-    one CBList (or TieredGraph) on one device.  Host-side orchestrator:
-    every decision that needs concrete statistics runs between device
-    steps."""
+    one CBList, shard stack or TieredGraph on one device.  Host-side
+    orchestrator: every decision that needs concrete statistics runs
+    between device steps."""
 
     def __init__(self, cbl: CBList, *, log_capacity: int = 4096,
                  high_watermark: float = 0.75,
                  policy: MaintenancePolicy = MaintenancePolicy(),
-                 auto_flush: bool = True,
+                 probe: Optional[SystemProbe] = None,
+                 auto_flush: bool = True, n_shards: int = 1,
                  seal_after_epochs: Optional[int] = None, signals=None):
-        """``seal_after_epochs=K`` turns on tiered storage: the CBList
-        becomes the hot delta of a :class:`~repro_torch.core.tiered.
-        TieredGraph`, and maintenance seals vertices unwritten for K
-        flushes into the immutable CSR run; a write touching a sealed
-        vertex unseals it.
+        """``n_shards > 1`` splits the storage into GTChain-balanced shards
+        (:func:`repro_torch.distributed.graph.shard_cbl`), stacked on the
+        one device: flushes route updates to the shard that owns their
+        source, maintenance runs per shard, and analytics sweeps run on
+        every shard and reduce along the shard axis.  A ``ShardedCBList``
+        is taken as it is; one sharded another number of ways is refused.
+
+        ``seal_after_epochs=K`` turns on tiered storage: the CBList (or the
+        shard stack) becomes the hot delta of a
+        :class:`~repro_torch.core.tiered.TieredGraph`, and maintenance
+        seals vertices unwritten for K flushes into the immutable CSR run;
+        a write touching a sealed vertex unseals it.
+
+        ``probe=`` is the :class:`~repro_torch.core.tuner.SystemProbe`
+        :meth:`plan` reads (the card's constants by default).
 
         ``signals=`` attaches a :class:`repro_torch.obs.SignalBus`: every
         flush ticks it after its counters land, and the post-flush
         maintenance decision runs under the churn-adapted policy
         (:meth:`MaintenancePolicy.adapted`)."""
+        from repro_torch.core.tiered import tier_from_cbl
+        if isinstance(cbl, CBList):
+            if n_shards > 1:
+                from repro_torch.distributed.graph import shard_cbl
+                cbl, _ = shard_cbl(cbl, n_shards)
+        elif not isinstance(cbl, TieredGraph) \
+                and n_shards > 1 and cbl.n_shards != n_shards:
+            raise ValueError(
+                f"GraphService(n_shards={n_shards}) got storage already "
+                f"sharded {cbl.n_shards} ways — pass n_shards=1 to keep it, "
+                "or reshard explicitly (unshard + shard_cbl) first")
         if seal_after_epochs is not None:
-            from repro_torch.core.tiered import TieredGraph, tier_from_cbl
             if not isinstance(cbl, TieredGraph):
                 cbl = tier_from_cbl(cbl)
             policy = dataclasses.replace(policy,
@@ -168,6 +195,7 @@ class GraphService:
         self._log: UpdateLog = ulog.make_log(log_capacity, cbl.device)
         self._high_watermark = float(high_watermark)
         self._policy = policy
+        self._probe = probe
         self._auto_flush = auto_flush
         self._signals = signals
         self._pending = 0             # records in the log (host count)
@@ -183,8 +211,10 @@ class GraphService:
                  num_blocks: Optional[int] = None, block_width: int = 32,
                  device=None, **kw) -> "GraphService":
         """Build the service's CBList from COO edges on ``device`` (the card
-        unless another device is named); ``**kw`` go to the constructor
-        (``seal_after_epochs=K`` for tiered storage)."""
+        unless another device is named), its block capacity provisioned by
+        the per-vertex block demand; ``**kw`` go to the constructor
+        (``n_shards=S`` to shard it, ``seal_after_epochs=K`` for tiered
+        storage)."""
         device = resolve_device(device)
         src = torch.as_tensor(src, device=device).to(I32)
         dst = torch.as_tensor(dst, device=device).to(I32)
@@ -368,7 +398,8 @@ class GraphService:
         batch = (torch.cat([s, s]), torch.cat([d, d]), torch.cat([w, w]),
                  torch.cat([torch.where(keep, DELETE, nop),
                             torch.where(keep & (op == INSERT), INSERT, nop)]))
-        sealed_before = None if isinstance(cbl, CBList) else cbl.sealed
+        sealed_before = (cbl.sealed if isinstance(cbl, TieredGraph)
+                         else None)
         with obs.span("flush.upsert", cat="flush",
                       lanes=int(batch[0].shape[0]), retry=0):
             new_cbl, ustats = batch_update_stats(cbl, *batch)
@@ -518,3 +549,15 @@ class GraphService:
 
         self._cache[key] = (epoch, self._deletes_applied, dict(kw), out)
         return out
+
+    def plan(self, task="scan_all"):
+        """The tuner's current execution plan for a task or program
+        (introspection; takes a task string, a program name or a
+        VertexProgram).  With a signal bus attached the plan sees the
+        measured signals (contiguity, unseal churn)."""
+        if isinstance(task, str) and (task in self._programs
+                                      or has_program(task)):
+            task = self._resolve_program(task)
+        signals = self._signals.view() if self._signals is not None else None
+        return choose_plan(self._snap.cbl, task, self._probe,
+                           signals=signals, policy=self._policy)

@@ -8,7 +8,8 @@ sequence number applied into this version; ``run_version`` counts the
 seal / unseal repartitions of a :class:`~repro_torch.core.tiered.
 TieredGraph` (0 for an untiered CBList), so a tiered view is identified by
 ``(run_version, epoch, watermark)``.  The read paths dispatch on the
-storage type and union both tiers.
+storage type: they union both tiers, and on a sharded store every shard
+answers and the owner's answer is kept.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from repro_torch.graph.sampler import SampledGraph, sample_subgraph
 
 
 class Snapshot(NamedTuple):
-    cbl: CBList              # or a TieredGraph: the same vertex-table surface
+    cbl: CBList              # or a TieredGraph / ShardedCBList: the same
+                             # vertex-table surface
     epoch: torch.Tensor      # i32[] version counter (bumps per flush)
     watermark: torch.Tensor  # i32[] log sequence applied into this version
     run_version: int = 0     # sealed-tier generation (0: untiered)
@@ -70,9 +72,11 @@ def advance(snap: Snapshot, cbl: CBList, watermark) -> Snapshot:
 def _to(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device, non_blocking=True)
-    if isinstance(x, tuple):             # CBList and BlockStore
-        return type(x)(*(_to(v, device) for v in x))
-    if dataclasses.is_dataclass(x):      # TieredGraph and its CSRGraph run
+    if isinstance(x, tuple):             # CBList, BlockStore, shard runs
+        vals = [_to(v, device) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if dataclasses.is_dataclass(x):      # TieredGraph, its CSRGraph runs
+                                         # and a ShardedCBList
         return dataclasses.replace(x, **{
             f.name: _to(getattr(x, f.name), device)
             for f in dataclasses.fields(x) if f.init})

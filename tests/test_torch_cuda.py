@@ -442,6 +442,47 @@ def test_service_on_the_card_matches_the_host(gen):
         np.testing.assert_array_equal(out[0], out[1])
 
 
+@pytest.mark.parametrize("S", [2, 3])
+def test_sharded_service_on_the_card_matches_the_host(gen, S):
+    """``GraphService(n_shards=S)`` on the card and on the host: flush
+    reports and the stacked stores bit for bit, reads and BFS / CC exact,
+    PageRank within rtol; the graph kernels launch on every shard."""
+    import numpy as np
+
+    from repro_torch import backend, interop
+    from repro_torch.data.synthetic import rmat_edges, update_stream
+    from repro_torch.stream.service import GraphService
+    src, dst = rmat_edges(500, 4000, seed=3, device="cpu")
+    svcs = [GraphService.from_coo(src, dst, num_vertices=500, block_width=8,
+                                  log_capacity=2048, n_shards=S, device=d)
+            for d in ("cuda", "cpu")]
+    for s, d, w, op in update_stream(500, (src, dst), 600, 2, seed=4,
+                                     device="cpu"):
+        reps = []
+        for svc in svcs:
+            svc.apply(s, d, w, op)
+            reps.append(svc.flush())
+        assert reps[0] == reps[1]
+        a, b = (interop.sharded_to_numpy(svc.snapshot.cbl) for svc in svcs)
+        np.testing.assert_array_equal(a["v_shard"], b["v_shard"])
+        for k in b["shards"]["store"]:
+            np.testing.assert_array_equal(a["shards"]["store"][k],
+                                          b["shards"]["store"][k])
+        for k in ("v_deg", "v_level", "v_head", "v_tail"):
+            np.testing.assert_array_equal(a["shards"][k], b["shards"][k])
+        found = [interop.to_numpy(svc.query_edges(s, d)[0]) for svc in svcs]
+        np.testing.assert_array_equal(found[0], found[1])
+    backend.reset_launch_counts()
+    pr = [interop.to_numpy(svc.analytics("pagerank")) for svc in svcs]
+    assert backend.PLAN_BUILDS == S
+    assert backend.LAUNCHES["segment_sum"] >= S
+    assert backend.LAUNCHES["block_gather"] >= S
+    np.testing.assert_allclose(pr[0], pr[1], rtol=1e-5, atol=1e-8)
+    for name in ("bfs", "cc"):
+        out = [interop.to_numpy(svc.analytics(name)) for svc in svcs]
+        np.testing.assert_array_equal(out[0], out[1])
+
+
 # attention kernels: float32 within rtol 1e-4 of the plain version (the sums
 # run in another order); bfloat16 paged attention within one bf16 ulp (2^-7
 # relative), since it computes in float32 and rounds once at the end

@@ -441,6 +441,9 @@ def test_snapshot_replica_locality_and_the_unported_sharded_delta(tiered):
     assert got.keys() == ref.keys()
     for k in ref:
         assert got[k] == pytest.approx(ref[k], rel=1e-6), k
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttier.TieredGraph(delta=object(), runs=pt.runs, sealed=pt.sealed,
-                          v_epoch=pt.v_epoch, wgen=0, run_version=0)
+    # the sharded delta is ported: a TieredGraph over a shard stack holds
+    # one run a shard and the same edges
+    from repro_torch.distributed.graph import shard_cbl
+    stack = ttier.tier_from_cbl(shard_cbl(pt.delta, 2)[0])
+    assert stack.is_sharded and len(stack.runs) == 2
+    assert int(stack.num_edges) == int(pt.delta.num_edges)
