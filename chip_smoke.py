@@ -144,7 +144,34 @@ Phases, one report line each:
    its shape is routed to (short bags for the one-slot lookup, a warp per
    bag for the others); ``block_gather`` exact at the
    retrieval shape.  Each timed beside its plain version, one library call
-   and its bound.
+   and its bound;
+8. GNN training, once SASRec's state is freed: GIN-TU at its full config
+   (5 layers, d_hidden 64) on the ogb_products shape of
+   ``configs/gnn_common.py`` (RMAT at ogbn-products' live counts, 2,449,029
+   nodes and 61,859,140 edges asked, padded to 2,449,408 / 61,859,840 with
+   the pads invalid; 100 random features, 47 random classes, all made on
+   the device from ``--seed``), the batch's edge plan built once.  The
+   kernel route's loss and gradients on the first batch against
+   ``impl="torch"`` on the card (loss within rtol 1e-5, each gradient
+   leaf's largest difference within 1e-4 of its largest value), 9 + 9
+   graph-kernel launches a step.  Then, with the launch counters at 0,
+   ``TrainSupervisor`` runs 20 steps of ``launch/train.py``'s step (clip 1,
+   warmup-cosine, AdamW) with a checkpoint every 10 and one failure
+   injected at step 13.  Checks: the loss falls, exactly 1 failure
+   recovered and 2 checkpoints written, the state after the restart equal
+   to the step-10 state bit for bit, no exception out of the step itself,
+   9 launches of each graph kernel per step run.  It prints the live
+   edges, the plan's build s, step ms (the first apart, median and max of
+   the rest), the losses, the report, the checkpoint's bytes and write s
+   and the peak memory.  Then both graph kernels at the aggregation's
+   shapes (forward: x[src] in destination order summed by destination;
+   backward: grad[dst] in source order summed by source; F = 100 and 64):
+   ``block_gather`` bit for bit, ``segment_sum`` within rtol 1e-5 of a
+   float64 sum and bit-identical on a repeat, each timed beside its plain
+   version, ``index_select`` / ``torch.segment_reduce`` and its bytes
+   bound.  Last, PNA and EGNN at their full configs on the minibatch_lg
+   shape (170,368 / 168,960 live, 602 features, 41 classes): 5 steps
+   each, the loss falling and both graph kernels launched.
 
 The last two lines are the ``kernels`` JSON object and the device line.  It
 exits non-zero, printing no result, without a CUDA device or without the
@@ -157,6 +184,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -243,6 +271,50 @@ EMB_TIMED_CALLS = 100
 # float32 scores from two product routes (GEMM, batched dot) over d = 50:
 # relative, with a floor for scores near 0
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
+# GNN training: OGB's live counts inside GNN_SHAPES' capacities
+# (configs/gnn_common.py): ogbn-products and the sampled-Reddit batch
+OGB_PRODUCTS_LIVE = (2_449_029, 61_859_140)
+MINIBATCH_LG_LIVE = (170_368, 168_960)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 13
+SMALL_TRAIN_STEPS = 5
+# a gin-tu step: forward 5 aggregations, backward 4 (layer 0's input, the
+# features, takes no gradient), each one block_gather and one segment_sum
+TRAIN_LAUNCHES_PER_STEP = 9
+# a step of the minibatch_lg models, L = 4 layers.  PNA: forward per layer
+# two node gathers and two means (a gather into destination order and a
+# sum each); backward the two means' gathers at each lane's destination
+# in every layer and the node gathers' sums by source from layer 1 on
+# (layer 0's input takes no gradient): block_gather 4L + 2L + 2(L - 1),
+# segment_sum 2L + 2(L - 1).  EGNN: forward per layer four node gathers
+# (positions and features at both ends), the position mean and the
+# message sum; backward the message sum's gather in every layer, the
+# position mean's in all but the last (the last positions reach no
+# output), and the four node gathers' sums by source from layer 1 on:
+# block_gather 6L + L + (L - 1) + 4(L - 1), segment_sum 2L + 4(L - 1)
+SMALL_LAUNCHES_PER_STEP = {
+    "pna": {"segment_sum": 14, "block_gather": 30},
+    "egnn": {"segment_sum": 20, "block_gather": 43},
+}
+# the kernel route (float64 sums rounded once) against impl="torch"
+# (float32 sums in another order): the loss relative; each gradient leaf's
+# largest difference against rtol of its largest |value|.  Element by
+# element, gradients that cancel to near 0 differ by the summation order:
+# up to 12.5 % of a leaf's elements lie outside rtol 1e-4 / atol 1e-6 at
+# ogb_products size while every leaf's largest difference stays below
+# 2e-5 of its largest value (this script, seeds 0 and 1, NVIDIA H100 80GB
+# HBM3, 700 W)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+# EGNN's position-update gradients (phi_x: a sum over edges of tanh' of
+# saturated weights times coordinate differences) are ill-conditioned in
+# float32: at minibatch_lg the float32 plain route lies 2.2e-3 / 3.5e-2
+# of a phi_x leaf's largest value from the float64 plain route, and the
+# two float32 routes up to 3.0e-4 / 1.5e-2 from each other (this script,
+# seeds 0 / 1, NVIDIA H100 80GB HBM3, 700 W).  There a leaf outside the
+# tolerance of impl="torch" is held against float64 instead
+# (route_agreement's float64_floor)
+TRAIN_FLOAT64_FLOOR = ("egnn",)
+TRAIN_CHECK_CHUNK = 1 << 24          # gathered rows compared at a time
+TRAIN_MAIN_SHAPE = "train fwd F=100"   # the kernels line's train entry
 
 
 class SmokeFailure(RuntimeError):
@@ -1435,6 +1507,486 @@ def recsys_phase(torch, timer, dev, seed, report, profile=False) -> None:
         cfg.embed_dim)
 
 
+# ---------------------------------------------------------------------------
+# GNN training: GIN-TU at ogb_products size through launch/train.py's step
+# ---------------------------------------------------------------------------
+
+def gnn_batch(torch, shape, live, seed, dev, with_pos):
+    """(GraphBatch, live edges): RMAT at the ``live`` (nodes, edges) counts
+    padded to ``GNN_SHAPES[shape]``'s capacities (pads invalid), random
+    features, labels and positions, all made on the device from ``seed``."""
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.data.synthetic import rmat_edges
+    from repro_torch.models.gnn.common import GraphBatch
+    n_cap, e_cap, d_feat, n_cls, _, _ = GNN_SHAPES[shape]
+    n_live, e_live = live
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src, dst = rmat_edges(n_live, e_live, seed=seed, device=dev)
+    E = src.numel()
+    edge_src = torch.zeros(e_cap, dtype=torch.int32, device=dev)
+    edge_dst = torch.zeros(e_cap, dtype=torch.int32, device=dev)
+    edge_src[:E], edge_dst[:E] = src, dst
+    del src, dst
+    edge_valid = torch.zeros(e_cap, dtype=torch.bool, device=dev)
+    edge_valid[:E] = True
+    node_valid = torch.zeros(n_cap, dtype=torch.bool, device=dev)
+    node_valid[:n_live] = True
+    g = GraphBatch(
+        x=torch.randn((n_cap, d_feat), generator=gen, device=dev),
+        edge_src=edge_src, edge_dst=edge_dst, edge_valid=edge_valid,
+        node_valid=node_valid,
+        graph_id=torch.zeros(n_cap, dtype=torch.int32, device=dev),
+        pos=(torch.randn((n_cap, 3), generator=gen, device=dev)
+             if with_pos else None),
+        labels=torch.randint(0, n_cls, (n_cap,), generator=gen, device=dev,
+                             dtype=torch.int32))
+    return g, E
+
+
+def grad_agreement(torch, got, ref):
+    """Each gradient leaf's largest |difference| against ``TRAIN_GRAD_RTOL``
+    of its largest |value| (+ ``TRAIN_GRAD_ATOL``), the share of its
+    elements within the same tolerances one by one, and the difference's
+    norm over the leaf's."""
+    from repro_torch import tree as T
+    paths, ref_leaves = T.flatten_with_paths(ref)
+    rows, ok = [], True
+    for path, a, b in zip(paths, T.leaves(got), ref_leaves):
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        leaf_ok = bool(torch.isfinite(a).all()) and \
+            diff <= TRAIN_GRAD_RTOL * scale + TRAIN_GRAD_ATOL
+        ok &= leaf_ok
+        close = (a - b).abs() <= TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * b.abs()
+        rows.append(dict(path=path, max_abs_diff=diff, max_abs=scale,
+                         elementwise_share=float(close.float().mean()),
+                         norm_rel=float(torch.linalg.vector_norm(a - b)
+                                        / max(float(torch.linalg.vector_norm(
+                                            b)), 1e-30)),
+                         ok=leaf_ok))
+    return ok, rows
+
+
+def float64_distances(torch, loss_fn, params, g, trees):
+    """For each gradient tree of ``trees``, each leaf's largest |difference|
+    from the float64 plain route's gradient over that leaf's largest
+    |value|."""
+    from repro_torch import tree as T
+    from repro_torch.launch.train import value_and_grad
+    p64 = T.unflatten(params, [x.double() for x in T.leaves(params)])
+    g64 = g._replace(x=g.x.double(), plan=None,
+                     pos=None if g.pos is None else g.pos.double())
+    _, ref = value_and_grad(lambda p, b: loss_fn(p, b, "torch"))(p64, g64)
+    return [[float((a.double() - b).abs().max())
+             / max(float(b.abs().max()), 1e-30)
+             for a, b in zip(T.leaves(tree), T.leaves(ref))]
+            for tree in trees]
+
+
+def route_agreement(torch, timer, arch, loss_fn, params, g, want,
+                    float64_floor=False):
+    """The kernel route's loss and gradients against ``impl="torch"`` on the
+    card on one batch, and the launches of one kernel-route value and
+    gradient, which must equal ``want`` exactly.  With ``float64_floor``
+    (a model whose float32 gradients are ill-conditioned), a leaf off
+    ``impl="torch"`` by more than the tolerance passes if it lies within
+    the float32 floor of the float64 plain route's gradient: no farther
+    from it than ``TRAIN_GRAD_RTOL`` (of the leaf's largest |value|) plus
+    the float32 plain route's distance in its farthest leaf."""
+    from repro_torch import backend
+    from repro_torch.launch.train import value_and_grad
+    backend.reset_launch_counts()
+    (lk, gk), kern_s = timer.wall(lambda: value_and_grad(loss_fn)(params, g))
+    per_step = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
+    (lt, gt), plain_s = timer.wall(lambda: value_and_grad(
+        lambda p, b: loss_fn(p, b, "torch"))(params, g))
+    loss_rel = abs(float(lk) - float(lt)) / abs(float(lt))
+    grads_ok, grad_rows = grad_agreement(torch, gk, gt)
+    grad_max_rel = max(r["max_abs_diff"] / max(r["max_abs"], 1e-30)
+                       for r in grad_rows)
+    share_min = min(r["elementwise_share"] for r in grad_rows)
+    norm_rel_max = max(r["norm_rel"] for r in grad_rows)
+    floor = {}
+    if float64_floor:
+        k64, t64 = float64_distances(torch, loss_fn, params, g, (gk, gt))
+        bar = max(t64) + TRAIN_GRAD_RTOL
+        for row, k, t in zip(grad_rows, k64, t64):
+            row.update(kernel_vs_float64=k, torch_vs_float64=t,
+                       within_floor=k <= bar)
+        on_floor = [r["path"] for r in grad_rows
+                    if not r["ok"] and r["within_floor"]]
+        for r in grad_rows:
+            r["ok"] = r["ok"] or r["within_floor"]
+        grads_ok = all(r["ok"] for r in grad_rows)
+        floor = dict(float32_floor=max(t64), kernel_vs_float64_max=max(k64),
+                     leaves_on_floor=on_floor)
+    out = dict(first_loss_kernel=float(lk), first_loss_torch=float(lt),
+               loss_rel_diff=loss_rel, grads_within=grads_ok,
+               grad_max_rel=grad_max_rel, grad_norm_rel_max=norm_rel_max,
+               grad_leaves=grad_rows, launches_per_step=per_step,
+               value_and_grad_seconds_kernel=kern_s,
+               value_and_grad_seconds_torch=plain_s, **floor)
+    say("train.routes", arch=arch, loss_kernel=f"{float(lk):.6g}",
+        loss_torch=f"{float(lt):.6g}", loss_rel_diff=f"{loss_rel:.3e}",
+        grad_max_rel=f"{grad_max_rel:.3e}",
+        grad_norm_rel_max=f"{norm_rel_max:.3e}",
+        grad_elementwise_share_min=f"{share_min:.6f}",
+        kernel_s=f"{kern_s:.4g}", torch_s=f"{plain_s:.4g}",
+        launches_per_step=per_step,
+        **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+           for k, v in floor.items()})
+    check(math.isfinite(float(lk)) and loss_rel <= TRAIN_LOSS_RTOL,
+          f"{arch} loss: kernel route {float(lk)} vs impl='torch' "
+          f"{float(lt)} (rel {loss_rel:.3e})")
+    check(grads_ok, f"{arch} gradients: kernel route off impl='torch' by "
+          "more than the tolerance in some leaf: " + ", ".join(
+              r["path"] for r in grad_rows if not r["ok"]))
+    for name in GRAPH_KERNELS:
+        check(per_step[name] == want[name],
+              f"one {arch} step launched {name} {per_step[name]} times, "
+              f"not {want[name]}")
+    return out
+
+
+def time_stream_gather(torch, timer, name, table, ids):
+    """``block_gather`` of ``table`` rows at ``ids`` (a train-path stream)
+    against its plain version chunk by chunk (bit for bit), timed beside
+    it, ``index_select`` and its bytes bound."""
+    from repro_torch.kernels.block_gather.ops import gather_rows
+    from repro_torch.kernels.block_gather.ref import block_gather_ref
+    got = gather_rows(table, ids, rows_per_step=1)
+    for c in range(0, ids.numel(), TRAIN_CHECK_CHUNK):
+        check(torch.equal(got[c:c + TRAIN_CHECK_CHUNK], block_gather_ref(
+            table, ids[c:c + TRAIN_CHECK_CHUNK], 1)),
+            f"block_gather {name}: differs from plain")
+    del got
+    rows_read = int(torch.unique(ids).numel())
+    F = table.shape[1]
+    b_ms, b_by = bound_ms(rows_read * F * 4 + ids.numel() * 4
+                          + ids.numel() * F * 4, 0)
+    row = dict(
+        name="block_gather", shape=name, N=ids.numel(), F=F,
+        rows_read=rows_read, max_abs_err=0.0,
+        ms=timer.ms(lambda: gather_rows(table, ids, rows_per_step=1), 3),
+        plain_ms=timer.ms(lambda: block_gather_ref(table, ids, 1), 3),
+        library_ms=timer.ms(lambda: table.index_select(0, ids), 3),
+        bound_ms=b_ms, bound_by=b_by)
+    say("kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                     for k, v in row.items()})
+    return row
+
+
+def time_stream_sum(torch, timer, name, stream, row_ptr, parts):
+    """``segment_sum`` over a train-path stream in CSR order against a
+    float64 sum (16 features at a time), bit-identical on a repeat, timed
+    beside its plain version, ``torch.segment_reduce`` on the same stream
+    and its bytes bound."""
+    from repro_torch.kernels.segment_matmul.ops import segment_sum_csr
+    from repro_torch.kernels.segment_matmul.ref import segment_sum_csr_ref
+    got = segment_sum_csr(stream, row_ptr, parts)
+    check(torch.equal(got, segment_sum_csr(stream, row_ptr, parts)),
+          f"segment_sum {name}: repeat differs")
+    V, F = stream.shape
+    R = row_ptr.numel() - 1
+    err = 0.0
+    for f0 in range(0, F, 16):
+        ref64 = segment_sum_csr_ref(stream[:, f0:f0 + 16].double(), row_ptr)
+        e = (got[:, f0:f0 + 16].double() - ref64).abs()
+        check(bool((e <= SEG_ATOL + SEG_RTOL * ref64.abs()).all()),
+              f"segment_sum {name}: outside rtol {SEG_RTOL} of the float64 "
+              f"sum (max abs err {float(e.max()):.3e})")
+        err = max(err, float(e.max()))
+        del ref64, e
+    del got
+    offsets = row_ptr.long()
+    b_ms, b_by = bound_ms(V * F * 4 + (R + 1) * 4 + R * F * 4, V * F)
+    row = dict(
+        name="segment_sum", shape=name, V=V, F=F, rows=R,
+        tiles=parts.shape[0] - 1, max_abs_err=err, bit_identical_repeat=True,
+        ms=timer.ms(lambda: segment_sum_csr(stream, row_ptr, parts), 3),
+        plain_ms=timer.ms(lambda: segment_sum_csr_ref(stream, row_ptr), 3),
+        library_ms=timer.ms(lambda: torch.segment_reduce(
+            stream, "sum", offsets=offsets), 3),
+        bound_ms=b_ms, bound_by=b_by)
+    say("kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                     for k, v in row.items()})
+    return row
+
+
+def train_kernel_rows(torch, timer, dev, g, seed):
+    """Both graph kernels at the aggregation's shapes on the ogb_products
+    plan: forward (x[src] in destination order, summed by destination) at
+    F = 100 and 64, backward (grad[dst] in source order, summed by source)
+    at F = 64 and 100."""
+    from repro_torch.kernels.block_gather.ops import gather_rows
+    plan = g.plan
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    rows = []
+    for F in (100, 64):
+        table = g.x if F == g.x.shape[1] else torch.randn(
+            (g.num_nodes, F), generator=gen, device=dev)
+        for way, ids, side in (("fwd", plan.src_by_dst, "dst"),
+                               ("bwd", plan.dst_by_src, "src")):
+            shape = f"train {way} F={F}"
+            rows.append(time_stream_gather(torch, timer, shape, table, ids))
+            stream = gather_rows(table, ids, rows_per_step=1)
+            rows.append(time_stream_sum(torch, timer, shape, stream,
+                                        plan.row_ptr(side),
+                                        plan.partition(side, F)))
+            del stream
+        del table
+    return rows
+
+
+def small_kernel_rows(torch, timer, dev, arch, g, F, seed):
+    """Both graph kernels at ``arch``'s own widths on its minibatch_lg
+    plan: the node gather over every lane at the width of its node table
+    (PNA: the 602 input features, ``block_gather``'s two-float rows; EGNN:
+    the 3 coordinates), then the messages at width ``F`` (PNA's 75, EGNN's
+    position update's 3) gathered into destination order and summed by
+    destination (a mean's forward), and gradients gathered into source
+    order and summed by source (a node gather's backward)."""
+    from repro_torch.kernels.block_gather.ops import gather_rows
+    plan = g.plan
+    table = g.x if arch == "pna" else g.pos
+    rows = [time_stream_gather(torch, timer,
+                               f"{arch} node F={table.shape[1]}", table,
+                               plan.src)]
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    msgs = torch.randn((plan.src.numel(), F), generator=gen, device=dev)
+    for way, order, side in (("fwd", plan.dst_order, "dst"),
+                             ("bwd", plan.src_order, "src")):
+        shape = f"{arch} {way} F={F}"
+        rows.append(time_stream_gather(torch, timer, shape, msgs, order))
+        stream = gather_rows(msgs, order, rows_per_step=1)
+        rows.append(time_stream_sum(torch, timer, shape, stream,
+                                    plan.row_ptr(side),
+                                    plan.partition(side, F)))
+    return rows
+
+
+def supervised_run(torch, timer, g, params, loss_fn, opt_cfg):
+    """``TRAIN_STEPS`` steps of launch/train.py's step under
+    ``TrainSupervisor`` (a checkpoint every ``TRAIN_CKPT_EVERY``, one
+    failure injected at ``TRAIN_FAIL_AT``), every launch counter at 0.
+    Records each call's step, wall time and loss, the state a restart
+    resumes from and any exception out of the step itself."""
+    import tempfile
+    from repro_torch import backend
+    from repro_torch import tree as T
+    from repro_torch.launch.train import make_step
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime import (FailureInjector, StragglerPolicy,
+                                     TrainSupervisor)
+    step_fn = make_step(loss_fn, opt_cfg, TRAIN_STEPS)
+    rec = dict(steps=[], seconds=[], losses=[], step_errors=[],
+               restart_equals_checkpoint=None)
+    snap = {}
+
+    def batches(s):
+        rec["steps"].append(s)
+        return g
+
+    def wrapped(state, batch):
+        s = rec["steps"][-1]
+        if len(rec["steps"]) > 1 and s <= rec["steps"][-2]:
+            # the supervisor restored a checkpoint: it must be the state
+            # after step TRAIN_CKPT_EVERY, bit for bit
+            rec["restart_equals_checkpoint"] = all(
+                torch.equal(a, b) for a, b in zip(T.leaves(state),
+                                                  snap["state"]))
+        try:
+            (state, metrics), sec = timer.wall(lambda: step_fn(state, batch))
+        except RuntimeError as e:            # a fault, not an injection
+            rec["step_errors"].append(repr(e))
+            raise
+        rec["seconds"].append(sec)
+        rec["losses"].append(float(metrics["loss"]))
+        if s + 1 == TRAIN_CKPT_EVERY and "state" not in snap:
+            snap["state"] = [x.clone() for x in T.leaves(state)]
+        return state, metrics
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        sup = TrainSupervisor(ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
+                              injector=FailureInjector([TRAIN_FAIL_AT]),
+                              straggler=StragglerPolicy(), device=g.device)
+        state = (params, init_opt_state(params, opt_cfg))
+        backend.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state, run_s = timer.wall(lambda: sup.run(state, batches,
+                                                  TRAIN_STEPS, wrapped))
+        rec["launches"] = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        rec["run_seconds"] = run_s
+        rec["report"] = dataclasses.asdict(sup.report)
+    return state, step_fn, rec
+
+
+def small_gnn_run(torch, timer, dev, arch, seed):
+    """``arch`` (pna, egnn) at its full config on the minibatch_lg shape:
+    the kernel route against ``impl="torch"`` on the batch,
+    ``SMALL_TRAIN_STEPS`` steps with every launch counter at 0, and both
+    kernels at the model's own widths (:func:`small_kernel_rows`)."""
+    import importlib
+    from repro_torch import backend
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.launch.train import (ARCH_MODULES, GNN_MODEL_MODULES,
+                                          make_step)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    m = importlib.import_module(ARCH_MODULES[arch])
+    mod = importlib.import_module(GNN_MODEL_MODULES[m.MODULE])
+    _, _, d_feat, n_cls, _, _ = GNN_SHAPES["minibatch_lg"]
+    cfg = m.full_config(d_in=d_feat, n_classes=n_cls)
+    g, live = gnn_batch(torch, "minibatch_lg", MINIBATCH_LG_LIVE, seed, dev,
+                        m.NEEDS_POS)
+    g = g.with_plan()
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    params = mod.init_params(cfg, gen, device=dev)
+    want = SMALL_LAUNCHES_PER_STEP[arch]
+    loss_fn = (lambda p, b, impl="cuda":                      # noqa: E731
+               mod.loss_fn(p, cfg, b, impl))
+    routes = route_agreement(torch, timer, arch, loss_fn, params, g, want,
+                             float64_floor=arch in TRAIN_FLOAT64_FLOOR)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step_fn = make_step(loss_fn, opt_cfg, SMALL_TRAIN_STEPS)
+    state = (params, init_opt_state(params, opt_cfg))
+    backend.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(SMALL_TRAIN_STEPS):
+        (state, metrics), sec = timer.wall(lambda: step_fn(state, g))
+        losses.append(float(metrics["loss"]))
+        secs.append(sec)
+    out = dict(arch=arch, config=cfg.name, shape="minibatch_lg",
+               nodes=g.num_nodes, live_edges=live, d_in=cfg.d_in,
+               layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+               loss_first=losses[0], loss_last=losses[-1],
+               step_ms_first=secs[0] * 1e3,
+               step_ms_median=1e3 * sorted(secs[1:])[len(secs[1:]) // 2],
+               launches={k: backend.LAUNCHES[k] for k in GRAPH_KERNELS},
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    say(f"train.{arch}", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                            for k, v in out.items()})
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"{arch}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    for name, n in out["launches"].items():
+        check(n == want[name] * SMALL_TRAIN_STEPS,
+              f"{arch}: {name} launched {n} times in {SMALL_TRAIN_STEPS} "
+              f"steps, not {want[name] * SMALL_TRAIN_STEPS}")
+    del state
+    out["routes"] = routes
+    out["kernels"] = small_kernel_rows(
+        torch, timer, dev, arch, g, cfg.d_hidden if arch == "pna" else 3,
+        seed)
+    return out
+
+
+def train_phase(torch, timer, dev, seed, report, profile=False) -> None:
+    """Phase 8: GIN-TU at ogb_products size through launch/train.py's step
+    under the supervisor, the kernel route against ``impl="torch"`` on the
+    first batch, PNA and EGNN at minibatch_lg, and both graph kernels at
+    the aggregation's shapes."""
+    import tempfile
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import save
+    from repro_torch.configs.gin_tu import full_config
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.models.gnn import gin
+    from repro_torch.optim import AdamWConfig
+
+    n_cap, e_cap, d_feat, n_cls, _, _ = GNN_SHAPES["ogb_products"]
+    cfg = full_config(d_in=d_feat, n_classes=n_cls)
+    (g, live), gen_s = timer.wall(lambda: gnn_batch(
+        torch, "ogb_products", OGB_PRODUCTS_LIVE, seed + 23, dev, False))
+    g, plan_s = timer.wall(g.with_plan)
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    params = gin.init_params(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in T.leaves(params))
+    out = report["train"] = dict(
+        config=cfg.name, shape="ogb_products", nodes=n_cap,
+        live_nodes=OGB_PRODUCTS_LIVE[0], edge_capacity=e_cap,
+        live_edges_asked=OGB_PRODUCTS_LIVE[1], live_edges=live,
+        plan_edges=g.plan.num_valid, d_in=cfg.d_in, layers=cfg.n_layers,
+        d_hidden=cfg.d_hidden, classes=cfg.n_classes, params=n_params,
+        rmat_seconds=gen_s, plan_build_seconds=plan_s)
+    say("train.setup", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                          for k, v in out.items()})
+
+    # the kernel route against impl="torch" on the first batch
+    loss_fn = (lambda p, b, impl="cuda":                      # noqa: E731
+               gin.loss_fn(p, cfg, b, impl))
+    out.update(route_agreement(
+        torch, timer, "gin-tu", loss_fn, params, g,
+        dict.fromkeys(GRAPH_KERNELS, TRAIN_LAUNCHES_PER_STEP)))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the supervised run
+    opt_cfg = AdamWConfig(lr=1e-3)
+    state, step_fn, rec = supervised_run(torch, timer, g, params, loss_fn,
+                                         opt_cfg)
+    r = rec["report"]
+    secs = rec["seconds"]
+    rest = sorted(secs[1:])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_save_") as d:
+        path, save_s = timer.wall(lambda: save(d, TRAIN_STEPS, state))
+        ckpt_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    out.update(
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        fail_at=TRAIN_FAIL_AT, supervisor=r, calls=rec["steps"],
+        step_ms_first=secs[0] * 1e3,
+        step_ms_median=rest[len(rest) // 2] * 1e3,
+        step_ms_max=rest[-1] * 1e3, run_seconds=rec["run_seconds"],
+        loss_first=rec["losses"][0], loss_last=rec["losses"][-1],
+        losses=rec["losses"], launches=rec["launches"],
+        restart_equals_checkpoint=rec["restart_equals_checkpoint"],
+        step_errors=rec["step_errors"], checkpoint_bytes=ckpt_bytes,
+        checkpoint_write_seconds=save_s,
+        max_memory_allocated=rec["max_memory_allocated"])
+    say("train.gin", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                        for k, v in out.items()
+                        if k.startswith(("step_ms", "loss_f", "loss_l",
+                                         "run_s", "supervisor", "launches",
+                                         "restart", "checkpoint", "max_mem",
+                                         "step_errors"))})
+    check(not rec["step_errors"], f"the training step raised: "
+          f"{rec['step_errors']}")
+    check(r["failures_recovered"] == 1,
+          f"the supervisor recovered {r['failures_recovered']} failures, "
+          f"not the 1 injected")
+    check(r["checkpoints_written"] == TRAIN_STEPS // TRAIN_CKPT_EVERY,
+          f"{r['checkpoints_written']} checkpoints written, not "
+          f"{TRAIN_STEPS // TRAIN_CKPT_EVERY}")
+    check(rec["restart_equals_checkpoint"] is True,
+          "the state after the restart is not the step-"
+          f"{TRAIN_CKPT_EVERY} checkpoint's, bit for bit")
+    check(all(map(math.isfinite, rec["losses"]))
+          and rec["losses"][-1] < rec["losses"][0],
+          f"gin-tu: the loss did not fall ({rec['losses'][0]} -> "
+          f"{rec['losses'][-1]})")
+    for name in GRAPH_KERNELS:
+        want = TRAIN_LAUNCHES_PER_STEP * r["steps_run"]
+        check(rec["launches"][name] == want,
+              f"{name} launched {rec['launches'][name]} times in "
+              f"{r['steps_run']} steps, not {want}")
+    if profile:
+        _, out["profile_step"] = profiled(torch, lambda: step_fn(state, g))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    report["train_kernels"] = train_kernel_rows(torch, timer, dev, g, seed)
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small"] = []
+    for arch in ("pna", "egnn"):
+        out["small"].append(small_gnn_run(torch, timer, dev, arch, seed))
+        report["train_kernels"] += out["small"][-1].pop("kernels")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     """Phases 1-5d: the GraphService at LiveJournal size, its serve, tier
     and shard phases."""
@@ -2580,6 +3132,11 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     t0 = time.perf_counter()
     recsys_phase(torch, timer, dev, seed, report, profile)
     report["recsys_seconds"] = time.perf_counter() - t0
+    gc.collect()                       # SASRec's state goes before the GNNs'
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_phase(torch, timer, dev, seed, report, profile)
+    report["train_seconds"] = time.perf_counter() - t0
 
 
 def kernels_line(report: dict) -> dict:
@@ -2589,7 +3146,11 @@ def kernels_line(report: dict) -> dict:
     errors over every shape checked, launches on its own path's run.  The
     graph kernels' ``tier`` entry holds the same numbers at the sealed
     run's push stream (0.9 of the edges sealed), launches on the tiered
-    service's run."""
+    service's run; the ``train`` entry at the GNN train path's layer-0
+    forward (F = 100), launches on the supervised gin-tu run and in one
+    measured step, ``arch_launches`` the same for the PNA and EGNN runs,
+    ``max_abs_err`` over every train-path row (F = 100, 64, and PNA's and
+    EGNN's own 602, 75 and 3)."""
     launches = report["service"]["launches"]
     meta = {
         "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
@@ -2642,6 +3203,27 @@ def kernels_line(report: dict) -> dict:
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"], shape=main["shape"]))
+        if table is meta:            # the GNN train path, layer 0 forward
+            for row in out[-2:]:
+                rows = [r for r in report["train_kernels"]
+                        if r["name"] == row["name"]]
+                main = next(r for r in rows
+                            if r["shape"] == TRAIN_MAIN_SHAPE)
+                row["train"] = dict(
+                    shape=main["shape"],
+                    launches=report["train"]["launches"][row["name"]],
+                    launches_per_step=report["train"][
+                        "launches_per_step"][row["name"]],
+                    arch_launches={
+                        r["arch"]: dict(
+                            launches=r["launches"][row["name"]],
+                            launches_per_step=r["routes"][
+                                "launches_per_step"][row["name"]])
+                        for r in report["train"]["small"]},
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"])
         if table is meta:            # the sealed run's push stream
             for row in out[-2:]:
                 main = next(r for r in report["tier"]["kernels"]
@@ -2681,9 +3263,9 @@ def main(argv=None) -> int:
                          "2,000 requests of the serve trace, the last "
                          "flush and a PageRank at 8 shards, the LM "
                          "check's prefill, one replayed and one eager "
-                         "paged decode step and one serve_bulk chunk of "
-                         "SASRec (their times then include the profiler's "
-                         "cost)")
+                         "paged decode step, one serve_bulk chunk of "
+                         "SASRec and one gin-tu training step (their times "
+                         "then include the profiler's cost)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2714,6 +3296,8 @@ def main(argv=None) -> int:
         shard_max_memory_allocated=report["shard"]["max_memory_allocated"],
         lm_seconds=f"{report['lm_seconds']:.1f}",
         recsys_seconds=f"{report['recsys_seconds']:.1f}",
+        train_seconds=f"{report['train_seconds']:.1f}",
+        train_max_memory_allocated=report["train"]["max_memory_allocated"],
         file=f"chiprun_out/{name}")
     print(json.dumps(kernels_line(report)))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,146 @@
+"""Async checkpointing of parameter trees, as ``repro.checkpoint``.
+
+Layout: <dir>/step_<n:09d>/
+  manifest.json          — leaf paths, shapes, dtypes, step
+  <leaf-index>.npy       — one file per leaf
+
+Leaves are numbered in JAX's flatten order (``repro_torch.tree``: dict keys
+sorted) and carry the same path strings, so either package restores what
+the other wrote, bit for bit.  ``restore`` maps files to the template's
+leaves by index and puts them on ``device`` (the card unless the caller
+names another), where the JAX package takes a sharding tree.
+
+Async: ``save_async`` copies every leaf to host memory on the caller's
+thread (the step barrier) and writes the files on a background thread, so
+training overlaps the write.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from pathlib import Path
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import tree as T
+from repro_torch.backend import resolve_device
+
+
+def _to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def _treedef(tree) -> str:
+    """The tree's structure with ``*`` for each leaf (for the reader; restore
+    takes the structure from its template)."""
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_treedef(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return f"{type(tree).__name__}(" + ", ".join(
+            f"{k}={_treedef(v)}" for k, v in zip(tree._fields, tree)) + ")"
+    if isinstance(tree, (list, tuple)):
+        inner = ", ".join(_treedef(v) for v in tree)
+        return f"[{inner}]" if isinstance(tree, list) else f"({inner})"
+    return "*"
+
+
+def _write(out: Path, step: int, paths: List[str], host: List[np.ndarray],
+           treedef: str) -> Path:
+    tmp = out.with_suffix(".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    manifest = {"step": step, "leaves": [], "treedef": treedef}
+    for i, (p, a) in enumerate(zip(paths, host)):
+        np.save(tmp / f"{i}.npy", a)
+        manifest["leaves"].append({"path": p, "shape": list(a.shape),
+                                   "dtype": str(a.dtype)})
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    if out.exists():
+        shutil.rmtree(out)
+    tmp.rename(out)                                     # atomic publish
+    return out
+
+
+def save(ckpt_dir: str | os.PathLike, step: int, tree: Any) -> Path:
+    """Synchronous checkpoint write; returns the step directory."""
+    paths, leaves = T.flatten_with_paths(tree)
+    return _write(Path(ckpt_dir) / f"step_{step:09d}", step, paths,
+                  [_to_host(x) for x in leaves], _treedef(tree))
+
+
+class AsyncCheckpointer:
+    """Orbax-style async writer: snapshot on-thread, persist off-thread;
+    keeps the newest ``keep`` checkpoints."""
+
+    def __init__(self, ckpt_dir: str | os.PathLike, keep: int = 3):
+        self.ckpt_dir = Path(ckpt_dir)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
+
+    def wait(self):
+        """Join the write in flight; re-raise its error, if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save_async(self, step: int, tree: Any):
+        self.wait()                                     # one in flight
+        paths, leaves = T.flatten_with_paths(tree)
+        host = [_to_host(x) for x in leaves]            # barrier
+        treedef = _treedef(tree)
+
+        def write():
+            try:
+                _write(self.ckpt_dir / f"step_{step:09d}", step, paths,
+                       host, treedef)
+                self._gc()
+            except Exception as e:                      # raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def _gc(self):
+        steps = sorted(self.ckpt_dir.glob("step_*"))
+        for old in steps[:-self.keep]:
+            shutil.rmtree(old, ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str | os.PathLike) -> Optional[int]:
+    steps = sorted(Path(ckpt_dir).glob("step_*"))
+    if not steps:
+        return None
+    return int(steps[-1].name.split("_")[1])
+
+
+def restore(ckpt_dir: str | os.PathLike, template: Any,
+            step: Optional[int] = None, device=None) -> Any:
+    """Restore into the structure of ``template`` (leaf ``i`` from file
+    ``i``), every leaf a tensor on ``device``."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    dev = resolve_device(device)
+    src = Path(ckpt_dir) / f"step_{step:09d}"
+    manifest = json.loads((src / "manifest.json").read_text())
+    n = len(manifest["leaves"])
+    if n != len(T.leaves(template)):
+        raise ValueError(f"checkpoint {src} holds {n} leaves, the template "
+                         f"{len(T.leaves(template))}")
+    host = [np.load(src / f"{i}.npy") for i in range(n)]
+    return T.unflatten(template, [torch.from_numpy(a).to(dev) for a in host])

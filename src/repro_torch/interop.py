@@ -6,7 +6,8 @@ dataclasses of arrays; anything with the same field names whose leaves ``np.asar
 accepts converts here (nothing of the JAX package is imported).  Values are copied unchanged — int32 stays int32 — so a layout
 moved across and back compares bit for bit.  ``lm_params_from_jax`` turns
 the JAX LM's period-stacked parameter tree into the port's layer list;
-``sasrec_params_from_jax`` carries a SASRec tree over as it is.
+``sasrec_params_from_jax`` and ``gnn_params_from_jax`` carry a SASRec or
+GNN tree over as it is.
 """
 from __future__ import annotations
 
@@ -181,3 +182,8 @@ def sasrec_params_from_jax(tree, device=None) -> Dict[str, Any]:
     if isinstance(tree, (list, tuple)):
         return [sasrec_params_from_jax(v, device) for v in tree]
     return from_numpy(tree, device)
+
+
+# a GNN tree carries over as it is, as SASRec's does; 0-d leaves (GIN's
+# ``eps``) stay 0-d
+gnn_params_from_jax = sasrec_params_from_jax

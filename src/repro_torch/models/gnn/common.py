@@ -1,0 +1,429 @@
+"""GNN substrate: padded-COO graph batches + segment message passing, as
+``repro.models.gnn.common``.
+
+Message passing is gather -> transform -> segment reduction over an edge
+index.  Every function takes ``impl=``:
+
+  * ``"torch"`` — plain tensor ops (``index_select``, ``index_put``),
+    differentiated by autograd: the oracle, as ``impl="xla"`` is in the JAX
+    package;
+  * ``"cuda"``  — the gathers and the sums by destination go through the
+    ``block_gather`` and GTChain ``segment_sum`` kernels, forward and
+    backward (their plain versions when the tensors lie on the CPU).
+
+The kernel route reads an :class:`EdgePlan`, built once per batch as the
+engine's ``SweepPlan`` is built once per snapshot: the valid edges in
+stable destination order with the CSR ``row_ptr`` of each destination, and
+the same by source (the transposed plan).  The gradient of a sum by
+destination is a gather at each edge's destination, and the gradient of a
+gather by source is a sum by source, so both directions run on the two
+kernels (:func:`scatter_sum`, :func:`gather`).  :func:`aggregate` is GIN's
+``scatter_sum(h[src], dst)`` as one function over the plan, so the [E, F]
+message stream exists once, in destination order, and is never saved for
+the backward.  Lanes outside the plan (invalid edges) get no gradient from
+:func:`gather`: every model masks them before any sum, so theirs is 0.
+
+``scatter_max`` / ``scatter_min`` / ``segment_softmax`` stay plain
+(``scatter_reduce``), as the JAX package keeps them off its kernels; ties
+share the gradient equally in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.backend import resolve_impl
+from repro_torch.kernels.block_gather.ops import gather_rows
+from repro_torch.kernels.segment_matmul.ops import (csr_items_per_cta,
+                                                    merge_path_partition,
+                                                    segment_sum_csr)
+
+I32 = torch.int32
+
+
+@dataclasses.dataclass(eq=False)
+class EdgePlan:
+    """One batch's edges laid out for the kernels.
+
+    ``seg``: each lane's destination, ``n`` on a lane outside the plan.  By
+    destination: ``dst_order`` (the plan's lanes, stable-sorted by
+    destination), ``dst_row_ptr`` (each destination's span of it) and
+    ``src_by_dst`` (their sources, in that order).  By source, when the
+    plan was built with sources: ``src_order``, ``src_row_ptr`` and
+    ``dst_by_src``.  All int32.  Merge-path partitions of each order are
+    made once per feature width.  The plan holds the tensors it was built
+    from and refuses others (:meth:`check`).
+    """
+    n: int
+    built_from: tuple                 # (dst, valid)
+    src: Optional[torch.Tensor]       # i32[E], the lanes' sources
+    dst: torch.Tensor                 # i32[E]
+    seg: torch.Tensor                 # i32[E]
+    dst_order: torch.Tensor           # i32[V]
+    dst_row_ptr: torch.Tensor         # i32[n + 1]
+    src_by_dst: Optional[torch.Tensor] = None      # i32[V]
+    src_order: Optional[torch.Tensor] = None       # i32[V]
+    src_row_ptr: Optional[torch.Tensor] = None     # i32[n + 1]
+    dst_by_src: Optional[torch.Tensor] = None      # i32[V]
+    _parts: Dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_valid(self) -> int:
+        return self.dst_order.numel()
+
+    def check(self, dst: torch.Tensor, valid: torch.Tensor, n: int) -> None:
+        if n != self.n or self.built_from[0] is not dst \
+                or self.built_from[1] is not valid:
+            raise ValueError("edge plan was built for another batch; build "
+                             "one for these edges with edge_plan(...)")
+
+    def row_ptr(self, side: str) -> torch.Tensor:
+        row_ptr = self.dst_row_ptr if side == "dst" else self.src_row_ptr
+        if row_ptr is None:
+            raise ValueError("this edge plan has no source order (build it "
+                             "with the edges' sources)")
+        return row_ptr
+
+    def partition(self, side: str, F: int) -> torch.Tensor:
+        """The merge-path partition of the ``"dst"`` or ``"src"`` order at
+        feature width ``F``."""
+        key = (side, csr_items_per_cta(F))
+        if key not in self._parts:
+            self._parts[key] = merge_path_partition(self.row_ptr(side),
+                                                    key[1])
+        return self._parts[key]
+
+    def in_degree(self) -> torch.Tensor:
+        """float32 [n]: the plan's in-edges of each node (``row_ptr``'s
+        differences, the counts a sum of ones gives)."""
+        return (self.dst_row_ptr[1:] - self.dst_row_ptr[:-1]).to(
+            torch.float32)
+
+
+def _order(key: torch.Tensor, lanes: torch.Tensor, n: int):
+    """(lanes stable-sorted by key, each key's span of them, the sort's
+    permutation of ``lanes``)."""
+    sorted_key, perm = torch.sort(key, stable=True)
+    bounds = torch.arange(n + 1, dtype=I32, device=key.device)
+    row_ptr = torch.searchsorted(sorted_key, bounds, out_int32=True)
+    return lanes[perm].to(I32), row_ptr, perm
+
+
+def edge_plan(dst: torch.Tensor, valid: torch.Tensor, n: int,
+              src: Optional[torch.Tensor] = None) -> EdgePlan:
+    """The plan of the lanes ``valid`` marks whose destination lies in
+    [0, n) (a sum drops the others, as JAX's ``segment_sum`` does); with
+    ``src``, also by source, whose kept lanes must lie in [0, n) too
+    (checked, one host sync)."""
+    if dst.dtype != I32 or (src is not None and src.dtype != I32):
+        raise TypeError("edge_plan wants int32 edge endpoints")
+    keep = valid & (dst >= 0) & (dst < n)
+    lanes = torch.nonzero(keep).squeeze(1)
+    d = dst[lanes]
+    seg = torch.where(keep, dst, torch.full_like(dst, n))
+    dst_order, dst_row_ptr, perm = _order(d, lanes, n)
+    plan = EdgePlan(n=n, built_from=(dst, valid),
+                    src=None if src is None else src.contiguous(),
+                    dst=dst.contiguous(), seg=seg.contiguous(),
+                    dst_order=dst_order, dst_row_ptr=dst_row_ptr)
+    if src is not None:
+        s = src[lanes]
+        if s.numel() and bool(((s < 0) | (s >= n)).any()):
+            raise ValueError(f"edge_plan: a valid edge's source lies "
+                             f"outside [0, {n})")
+        plan.src_by_dst = s[perm].contiguous()
+        plan.src_order, plan.src_row_ptr, perm = _order(s, lanes, n)
+        plan.dst_by_src = d[perm].contiguous()
+    return plan
+
+
+class GraphBatch(NamedTuple):
+    """Fixed-shape (padded) graph batch on one device (``device``).
+
+    For batched small graphs, nodes of all graphs are flattened and
+    ``graph_id`` routes pooling; for single graphs graph_id == 0.  ``plan``
+    is the batch's :class:`EdgePlan` (:meth:`with_plan`); a kernel-route
+    model call without one builds it for that call.
+    """
+    x: torch.Tensor                        # f32[N, F] node features
+    edge_src: torch.Tensor                 # i32[E]
+    edge_dst: torch.Tensor                 # i32[E]
+    edge_valid: torch.Tensor               # bool[E]
+    node_valid: torch.Tensor               # bool[N]
+    graph_id: torch.Tensor                 # i32[N]
+    pos: Optional[torch.Tensor] = None     # f32[N, 3] (geometric models)
+    edge_attr: Optional[torch.Tensor] = None   # f32[E, Fe]
+    labels: Optional[torch.Tensor] = None      # i32[N] or f32[G]
+    plan: Optional[EdgePlan] = None
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_graphs(self) -> int:
+        return int(self.graph_id.max()) + 1 if self.graph_id.numel() else 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def with_plan(self) -> "GraphBatch":
+        return self._replace(plan=edge_plan(self.edge_dst, self.edge_valid,
+                                            self.num_nodes, self.edge_src))
+
+
+def batch_plan(g: GraphBatch, impl: str) -> Optional[EdgePlan]:
+    """The plan a model call over ``g`` uses: none on the plain route."""
+    if resolve_impl(impl) == "torch":
+        return None
+    return g.plan if g.plan is not None else g.with_plan().plan
+
+
+# ---------------------------------------------------------------------------
+# the kernel route's autograd functions
+# ---------------------------------------------------------------------------
+
+def _sum_by(plan: EdgePlan, side: str, stream: torch.Tensor) -> torch.Tensor:
+    """The ``side``-ordered stream summed by ``side`` -> f32[n, F]."""
+    return segment_sum_csr(stream, plan.row_ptr(side),
+                           plan.partition(side, max(stream.shape[1], 1)))
+
+
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return gather_rows(table.contiguous(), ids, rows_per_step=1)
+
+
+class _ScatterSum(torch.autograd.Function):
+    """y[v] = sum of msg[e] over the plan's lanes e with dst[e] == v."""
+
+    @staticmethod
+    def forward(ctx, msg, plan):
+        ctx.plan = plan
+        return _sum_by(plan, "dst", _gather(msg, plan.dst_order))
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        # a lane's gradient is its destination's; row n (off the plan) is 0
+        padded = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+        return _gather(padded, ctx.plan.seg), None
+
+
+class _Gather(torch.autograd.Function):
+    """out[e] = table[ids[e]] for every lane, ``ids`` the lanes' sources
+    (``side == "src"``) or destinations."""
+
+    @staticmethod
+    def forward(ctx, table, plan, side):
+        ctx.plan, ctx.side = plan, side
+        return _gather(table, plan.src if side == "src" else plan.dst)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        plan, side = ctx.plan, ctx.side
+        order = plan.src_order if side == "src" else plan.dst_order
+        return _sum_by(plan, side, _gather(grad, order)), None, None
+
+
+class _Aggregate(torch.autograd.Function):
+    """y[v] = sum of h[src[e]] over the plan's lanes e with dst[e] == v."""
+
+    @staticmethod
+    def forward(ctx, h, plan):
+        ctx.plan = plan
+        return _sum_by(plan, "dst", _gather(h, plan.src_by_dst))
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        plan = ctx.plan
+        return _sum_by(plan, "src", _gather(grad, plan.dst_by_src)), None
+
+
+# ---------------------------------------------------------------------------
+# message passing
+# ---------------------------------------------------------------------------
+
+def _lane_plan(dst, valid, n, impl, plan) -> Optional[EdgePlan]:
+    if resolve_impl(impl) == "torch":
+        return None
+    if plan is None:
+        return edge_plan(dst, valid, n)
+    plan.check(dst, valid, n)
+    return plan
+
+
+def _graph_plan(g: GraphBatch, impl: str,
+                plan: Optional[EdgePlan]) -> EdgePlan:
+    plan = plan if plan is not None else batch_plan(g, impl)
+    plan.check(g.edge_dst, g.edge_valid, g.num_nodes)
+    return plan
+
+
+def scatter_sum(msg: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                n: int, impl: str = "cuda",
+                plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """sum_{e: dst[e]==v} msg[e]  — the GNN aggregation primitive."""
+    plan = _lane_plan(dst, valid, n, impl, plan)
+    if plan is None:
+        keep = valid & (dst >= 0) & (dst < n)
+        seg = torch.where(keep, dst, torch.full_like(dst, n))
+        out = msg.new_zeros((n + 1,) + tuple(msg.shape[1:]))
+        # index_put, not index_add: autograd keeps only the indices, not the
+        # [E, F] messages, for the backward
+        return out.index_put((seg,), msg, accumulate=True)[:n]
+    out = _ScatterSum.apply(msg.reshape(msg.shape[0], -1), plan)
+    return out.reshape((n,) + tuple(msg.shape[1:]))
+
+
+def scatter_mean(msg, dst, valid, n, impl="cuda", plan=None):
+    plan = _lane_plan(dst, valid, n, impl, plan)
+    if plan is None:
+        s = scatter_sum(msg, dst, valid, n, "torch")
+        c = scatter_sum(msg.new_ones((msg.shape[0], 1)), dst, valid, n,
+                        "torch")
+    else:
+        s = scatter_sum(msg, dst, valid, n, impl, plan)
+        c = plan.in_degree().reshape((n,) + (1,) * (msg.dim() - 1))
+    return s / torch.clamp(c, min=1.0)
+
+
+def gather(h: torch.Tensor, g: GraphBatch, side: str, impl: str = "cuda",
+           plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """``h[g.edge_src]`` (``side == "src"``) or ``h[g.edge_dst]``."""
+    if resolve_impl(impl) == "torch":
+        return h.index_select(0, g.edge_src if side == "src"
+                              else g.edge_dst)
+    return _Gather.apply(h, _graph_plan(g, impl, plan), side)
+
+
+def aggregate(h: torch.Tensor, g: GraphBatch, impl: str = "cuda",
+              plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """``scatter_sum(h[g.edge_src], g.edge_dst, g.edge_valid, n)``."""
+    if resolve_impl(impl) == "torch":
+        return scatter_sum(gather(h, g, "src", "torch"), g.edge_dst,
+                           g.edge_valid, g.num_nodes, "torch")
+    return _Aggregate.apply(h, _graph_plan(g, impl, plan))
+
+
+def _scatter_extremum(msg, dst, valid, n, reduce: str, fill: float):
+    seg = torch.where(valid, dst, torch.full_like(dst, n)).long()
+    shape = (-1,) + (1,) * (msg.dim() - 1)
+    src = torch.where(valid.view(shape), msg, fill)
+    out = msg.new_full((n + 1,) + tuple(msg.shape[1:]), fill)
+    out = out.scatter_reduce(0, seg.view(shape).expand_as(msg), src, reduce,
+                             include_self=True)[:n]
+    return torch.where(torch.isfinite(out), out, 0.0)
+
+
+def scatter_max(msg, dst, valid, n):
+    return _scatter_extremum(msg, dst, valid, n, "amax", float("-inf"))
+
+
+def scatter_min(msg, dst, valid, n):
+    return _scatter_extremum(msg, dst, valid, n, "amin", float("inf"))
+
+
+def segment_softmax(scores: torch.Tensor, dst: torch.Tensor,
+                    valid: torch.Tensor, n: int) -> torch.Tensor:
+    """Edge softmax over incoming edges per destination (scores [E])."""
+    seg = torch.where(valid, dst, torch.full_like(dst, n)).long()
+    mx = scores.new_full((n + 1,), float("-inf")).scatter_reduce(
+        0, seg, torch.where(valid, scores, float("-inf")), "amax",
+        include_self=True)
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    ex = torch.where(valid, torch.exp(scores - mx[seg]), 0.0)
+    den = scores.new_zeros((n + 1,)).index_add(0, seg, ex)
+    return ex / torch.clamp(den[seg], min=1e-16)
+
+
+def in_degree(g: GraphBatch, impl: str = "cuda",
+              plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    if resolve_impl(impl) == "torch":
+        ones = torch.ones((g.edge_src.shape[0], 1), dtype=torch.float32,
+                          device=g.device)
+        return scatter_sum(ones, g.edge_dst, g.edge_valid, g.num_nodes,
+                           "torch")[:, 0]
+    return _graph_plan(g, impl, plan).in_degree()
+
+
+def graph_pool(h: torch.Tensor, graph_id: torch.Tensor,
+               node_valid: torch.Tensor, num_graphs: int,
+               mode: str = "mean") -> torch.Tensor:
+    seg = torch.where(node_valid, graph_id,
+                      torch.full_like(graph_id, num_graphs))
+    s = h.new_zeros((num_graphs + 1, h.shape[1])).index_add(
+        0, seg, h)[:num_graphs]
+    if mode == "sum":
+        return s
+    c = h.new_zeros((num_graphs + 1,)).index_add(
+        0, seg, node_valid.to(h.dtype))[:num_graphs]
+    return s / torch.clamp(c[:, None], min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# MLPs, the node / graph loss and the parameters as a module
+# ---------------------------------------------------------------------------
+
+def mlp_params(generator: torch.Generator, dims, device,
+               dtype=torch.float32):
+    """He-normal weights from ``generator`` (on ``device``), zero biases."""
+    return [{"w": (torch.randn((a, b), generator=generator,
+                               dtype=torch.float32, device=device)
+                   * (2.0 / a) ** 0.5).to(dtype),
+             "b": torch.zeros((b,), dtype=dtype, device=device)}
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp_apply(params, x, act=F.silu, final_act=False):
+    for i, p in enumerate(params):
+        x = x @ p["w"] + p["b"]
+        if i < len(params) - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def node_loss(logits: torch.Tensor, g: GraphBatch,
+              graph_level: bool) -> torch.Tensor:
+    """Mean squared error of graph-level targets, else the mean
+    cross-entropy over valid nodes with a label >= 0 (every model's
+    ``loss_fn``)."""
+    if graph_level:
+        return torch.mean((logits[:, 0] - g.labels) ** 2)
+    mask = g.node_valid & (g.labels >= 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, g.labels.clamp(min=0).long()[:, None])[:, 0]
+    return torch.where(mask, logz - ll, 0.0).sum() / torch.clamp(
+        mask.sum(), min=1)
+
+
+class ParamModule(nn.Module):
+    """``nn.Module`` view of a parameter tree (dicts and lists of tensors):
+    trainable ``nn.Parameter``s sharing the tree's storage; :meth:`tree`
+    gives the tree back."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._is_list = isinstance(tree, list)
+        items = enumerate(tree) if self._is_list else tree.items()
+        for key, value in items:
+            if isinstance(value, (dict, list)):
+                self.add_module(str(key), ParamModule(value))
+            else:
+                self.register_parameter(str(key), nn.Parameter(value))
+
+    def tree(self):
+        out = dict(self.named_parameters(recurse=False))
+        out.update((k, m.tree()) for k, m in self.named_children())
+        if self._is_list:
+            return [out[str(i)] for i in range(len(out))]
+        return out
