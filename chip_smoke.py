@@ -171,7 +171,31 @@ Phases, one report line each:
    version, ``index_select`` / ``torch.segment_reduce`` and its bytes
    bound.  Last, PNA and EGNN at their full configs on the minibatch_lg
    shape (170,368 / 168,960 live, 602 features, 41 classes): 5 steps
-   each, the loss falling and both graph kernels launched.
+   each, the loss falling and both graph kernels launched;
+9. Equiformer-v2 and SASRec training, once the GNN state is freed.
+   Equiformer-v2 at the JAX registry's molecule cell
+   (``full_config(d_in=64, n_classes=1, graph_level=True)``: 12 layers,
+   d_hidden 128, l_max 6, m_max 2, 8 heads; ``GNN_SHAPES["molecule"]``:
+   128 graphs of 30 atoms, 3,840 live nodes padded to 4,096, 8,192 edges,
+   each graph's 32 closest atom pairs both ways, positions N(0, 1.5^2), 64
+   random features, one target a graph, made on the device from
+   ``--seed``): the kernel route against ``impl="torch"`` on the batch
+   (loss rtol 1e-5, each gradient leaf within 1e-4 of its largest value),
+   2 + 4L block_gather and 2L segment_sum launches a step; 20 supervised
+   steps as GIN's at learning rate 2e-4 (a checkpoint every 10, a failure
+   at 13; the restart
+   bit for bit the step-10 state, the loss falling, the launches exact);
+   the registry's ``opt`` variant (truncated rotation, bf16 edges) for
+   20 plain steps; both graph kernels at K·C = 6272 (z[src], the messages into
+   destination order and summed, the gradients into source order and
+   summed).  Then SASRec at ``full_config()`` on ``train_batch`` (65,536
+   users x 50, the 2^20-row table; 4 cached ``sasrec_batches`` made on the
+   device, each with its lookup plan): the same route check and supervised
+   run, 1 embedding_bag + 2 block_gather + 1 segment_sum launches a step,
+   and the kernels at the lookup's shapes (the history's 3.28 M one-slot
+   bags, the 6.55 M positive and negative rows, the 9.8 M lane gradients
+   into id order and their sum into 2^20 rows), each against its plain
+   version and timed beside it, its library call and its bound.
 
 The last two lines are the ``kernels`` JSON object and the device line.  It
 exits non-zero, printing no result, without a CUDA device or without the
@@ -315,6 +339,30 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-5, 1e-4, 1e-6
 TRAIN_FLOAT64_FLOOR = ("egnn",)
 TRAIN_CHECK_CHUNK = 1 << 24          # gathered rows compared at a time
 TRAIN_MAIN_SHAPE = "train fwd F=100"   # the kernels line's train entry
+# phase 9: Equiformer-v2 at the molecule cell (30 atoms a graph); SASRec's
+# cached train_batch batches
+MOLECULE_ATOMS, SASREC_TRAIN_CACHE = 30, 4
+# Equiformer-v2's AdamW learning rate, the order of the published
+# EquiformerV2 OC20 runs': at launch/train.py's 1e-3 the 12-layer model's
+# loss on its one batch swung between 1.23 and 19.7 over the 20 steps and
+# ended at 1.28 from 1.56 (this script at seed 1, NVIDIA H100 80GB HBM3,
+# 700 W), so "the loss falls" rested on where a swing stopped.  The opt
+# variant runs as many steps: over 5 (3 updates after warmup's zero step)
+# its loss at seed 0 rose above the first
+EQUIFORMER_LR = 2e-4
+# a SASRec training step: forward embedding_bag (the history) and one
+# block_gather (positives and negatives); backward one sum by item id of
+# all three lookups' lanes: block_gather (into id order) and segment_sum
+SASREC_LAUNCHES_PER_STEP = {"embedding_bag": 1, "block_gather": 2,
+                            "segment_sum": 1}
+# the kernels line's phase-9 entries: (model, kernel) -> the row's shape
+MODEL_TRAIN_MAIN = {
+    ("equiformer", "segment_sum"): "equiformer fwd F=6272",
+    ("equiformer", "block_gather"): "equiformer node F=6272",
+    ("sasrec", "segment_sum"): "sasrec bwd F=50",
+    ("sasrec", "block_gather"): "sasrec fwd pos|neg F=50",
+    ("sasrec", "embedding_bag"): "sasrec fwd lookup",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -1587,8 +1635,9 @@ def route_agreement(torch, timer, arch, loss_fn, params, g, want,
                     float64_floor=False):
     """The kernel route's loss and gradients against ``impl="torch"`` on the
     card on one batch, and the launches of one kernel-route value and
-    gradient, which must equal ``want`` exactly.  With ``float64_floor``
-    (a model whose float32 gradients are ill-conditioned), a leaf off
+    gradient, which must equal ``want`` (kernel -> launches) exactly.
+    With ``float64_floor`` (a model whose float32 gradients are
+    ill-conditioned), a leaf off
     ``impl="torch"`` by more than the tolerance passes if it lies within
     the float32 floor of the float64 plain route's gradient: no farther
     from it than ``TRAIN_GRAD_RTOL`` (of the leaf's largest |value|) plus
@@ -1597,7 +1646,7 @@ def route_agreement(torch, timer, arch, loss_fn, params, g, want,
     from repro_torch.launch.train import value_and_grad
     backend.reset_launch_counts()
     (lk, gk), kern_s = timer.wall(lambda: value_and_grad(loss_fn)(params, g))
-    per_step = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
+    per_step = {k: backend.LAUNCHES[k] for k in want}
     (lt, gt), plain_s = timer.wall(lambda: value_and_grad(
         lambda p, b: loss_fn(p, b, "torch"))(params, g))
     loss_rel = abs(float(lk) - float(lt)) / abs(float(lt))
@@ -1641,7 +1690,7 @@ def route_agreement(torch, timer, arch, loss_fn, params, g, want,
     check(grads_ok, f"{arch} gradients: kernel route off impl='torch' by "
           "more than the tolerance in some leaf: " + ", ".join(
               r["path"] for r in grad_rows if not r["ok"]))
-    for name in GRAPH_KERNELS:
+    for name in want:
         check(per_step[name] == want[name],
               f"one {arch} step launched {name} {per_step[name]} times, "
               f"not {want[name]}")
@@ -1738,39 +1787,42 @@ def train_kernel_rows(torch, timer, dev, g, seed):
     return rows
 
 
-def small_kernel_rows(torch, timer, dev, arch, g, F, seed):
-    """Both graph kernels at ``arch``'s own widths on its minibatch_lg
-    plan: the node gather over every lane at the width of its node table
-    (PNA: the 602 input features, ``block_gather``'s two-float rows; EGNN:
-    the 3 coordinates), then the messages at width ``F`` (PNA's 75, EGNN's
-    position update's 3) gathered into destination order and summed by
-    destination (a mean's forward), and gradients gathered into source
-    order and summed by source (a node gather's backward)."""
+def small_kernel_rows(torch, timer, dev, arch, g, table, F, seed):
+    """Both graph kernels at ``arch``'s own widths on its plan: the node
+    gather of ``table`` over every lane (PNA: the 602 input features,
+    ``block_gather``'s two-float rows; EGNN: the 3 coordinates;
+    Equiformer-v2: z at K·C = 6272), then messages at width ``F`` (PNA's 75,
+    EGNN's position update's 3, Equiformer-v2's 6272) gathered into
+    destination order and summed by destination (a sum's or mean's
+    forward), and gradients gathered into source order and summed by source
+    (a node gather's backward)."""
     from repro_torch.kernels.block_gather.ops import gather_rows
     plan = g.plan
-    table = g.x if arch == "pna" else g.pos
     rows = [time_stream_gather(torch, timer,
                                f"{arch} node F={table.shape[1]}", table,
                                plan.src)]
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
     msgs = torch.randn((plan.src.numel(), F), generator=gen, device=dev)
-    for way, order, side in (("fwd", plan.dst_order, "dst"),
-                             ("bwd", plan.src_order, "src")):
+    for way, side in (("fwd", "dst"), ("bwd", "src")):
         shape = f"{arch} {way} F={F}"
-        rows.append(time_stream_gather(torch, timer, shape, msgs, order))
-        stream = gather_rows(msgs, order, rows_per_step=1)
+        rows.append(time_stream_gather(torch, timer, shape, msgs,
+                                       plan.order(side)))
+        stream = gather_rows(msgs, plan.order(side), rows_per_step=1)
         rows.append(time_stream_sum(torch, timer, shape, stream,
                                     plan.row_ptr(side),
                                     plan.partition(side, F)))
+        del stream
     return rows
 
 
-def supervised_run(torch, timer, g, params, loss_fn, opt_cfg):
-    """``TRAIN_STEPS`` steps of launch/train.py's step under
-    ``TrainSupervisor`` (a checkpoint every ``TRAIN_CKPT_EVERY``, one
+def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
+                   kernels=GRAPH_KERNELS):
+    """``TRAIN_STEPS`` steps of launch/train.py's step over ``batches(step)``
+    under ``TrainSupervisor`` (a checkpoint every ``TRAIN_CKPT_EVERY``, one
     failure injected at ``TRAIN_FAIL_AT``), every launch counter at 0.
     Records each call's step, wall time and loss, the state a restart
-    resumes from and any exception out of the step itself."""
+    resumes from, any exception out of the step itself and the launches of
+    ``kernels``."""
     import tempfile
     from repro_torch import backend
     from repro_torch import tree as T
@@ -1783,9 +1835,9 @@ def supervised_run(torch, timer, g, params, loss_fn, opt_cfg):
                restart_equals_checkpoint=None)
     snap = {}
 
-    def batches(s):
+    def recorded(s):
         rec["steps"].append(s)
-        return g
+        return batches(s)
 
     def wrapped(state, batch):
         s = rec["steps"][-1]
@@ -1809,17 +1861,94 @@ def supervised_run(torch, timer, g, params, loss_fn, opt_cfg):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         sup = TrainSupervisor(ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
                               injector=FailureInjector([TRAIN_FAIL_AT]),
-                              straggler=StragglerPolicy(), device=g.device)
+                              straggler=StragglerPolicy(), device=dev)
         state = (params, init_opt_state(params, opt_cfg))
         backend.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        state, run_s = timer.wall(lambda: sup.run(state, batches,
+        state, run_s = timer.wall(lambda: sup.run(state, recorded,
                                                   TRAIN_STEPS, wrapped))
-        rec["launches"] = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
+        rec["launches"] = {k: backend.LAUNCHES[k] for k in kernels}
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         rec["run_seconds"] = run_s
         rec["report"] = dataclasses.asdict(sup.report)
     return state, step_fn, rec
+
+
+def supervised_summary(rec) -> dict:
+    """The numbers of a :func:`supervised_run` a report keeps."""
+    secs = rec["seconds"]
+    rest = sorted(secs[1:])
+    return dict(
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        fail_at=TRAIN_FAIL_AT, supervisor=rec["report"], calls=rec["steps"],
+        step_ms_first=secs[0] * 1e3,
+        step_ms_median=rest[len(rest) // 2] * 1e3,
+        step_ms_max=rest[-1] * 1e3, run_seconds=rec["run_seconds"],
+        loss_first=rec["losses"][0], loss_last=rec["losses"][-1],
+        losses=rec["losses"], launches=rec["launches"],
+        restart_equals_checkpoint=rec["restart_equals_checkpoint"],
+        step_errors=rec["step_errors"],
+        max_memory_allocated=rec["max_memory_allocated"])
+
+
+def check_supervised(arch, rec, want) -> None:
+    """A supervised run's checks: no exception out of the step, exactly
+    the 1 injected failure recovered, a checkpoint every
+    ``TRAIN_CKPT_EVERY`` steps, the restart state bit for bit the step-10
+    state, the loss falling, and ``want[kernel]`` launches of each counted
+    kernel per step run."""
+    r = rec["report"]
+    check(not rec["step_errors"], f"the {arch} training step raised: "
+          f"{rec['step_errors']}")
+    check(r["failures_recovered"] == 1,
+          f"{arch}: the supervisor recovered {r['failures_recovered']} "
+          f"failures, not the 1 injected")
+    check(r["checkpoints_written"] == TRAIN_STEPS // TRAIN_CKPT_EVERY,
+          f"{arch}: {r['checkpoints_written']} checkpoints written, not "
+          f"{TRAIN_STEPS // TRAIN_CKPT_EVERY}")
+    check(rec["restart_equals_checkpoint"] is True,
+          f"{arch}: the state after the restart is not the step-"
+          f"{TRAIN_CKPT_EVERY} checkpoint's, bit for bit")
+    check(all(map(math.isfinite, rec["losses"]))
+          and rec["losses"][-1] < rec["losses"][0],
+          f"{arch}: the loss did not fall ({rec['losses'][0]} -> "
+          f"{rec['losses'][-1]})")
+    for name, n in want.items():
+        check(rec["launches"][name] == n * r["steps_run"],
+              f"{arch}: {name} launched {rec['launches'][name]} times in "
+              f"{r['steps_run']} steps, not {n * r['steps_run']}")
+
+
+def short_run(torch, timer, loss_fn, params, batch, steps, want, arch,
+              lr=1e-3):
+    """``steps`` plain steps of launch/train.py's step (no supervisor) on
+    one batch with the launch counters at 0: the loss must fall and each
+    kernel of ``want`` launch exactly ``want[kernel]`` times a step."""
+    from repro_torch import backend
+    from repro_torch.launch.train import make_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    opt_cfg = AdamWConfig(lr=lr)
+    step_fn = make_step(loss_fn, opt_cfg, steps)
+    state = (params, init_opt_state(params, opt_cfg))
+    backend.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(steps):
+        (state, metrics), sec = timer.wall(lambda: step_fn(state, batch))
+        losses.append(float(metrics["loss"]))
+        secs.append(sec)
+    out = dict(loss_first=losses[0], loss_last=losses[-1],
+               step_ms_first=secs[0] * 1e3,
+               step_ms_median=1e3 * sorted(secs[1:])[len(secs[1:]) // 2],
+               launches={k: backend.LAUNCHES[k] for k in want},
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"{arch}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    for name, n in out["launches"].items():
+        check(n == want[name] * steps,
+              f"{arch}: {name} launched {n} times in {steps} steps, not "
+              f"{want[name] * steps}")
+    return out
 
 
 def small_gnn_run(torch, timer, dev, arch, seed):
@@ -1828,11 +1957,8 @@ def small_gnn_run(torch, timer, dev, arch, seed):
     ``SMALL_TRAIN_STEPS`` steps with every launch counter at 0, and both
     kernels at the model's own widths (:func:`small_kernel_rows`)."""
     import importlib
-    from repro_torch import backend
     from repro_torch.configs.gnn_common import GNN_SHAPES
-    from repro_torch.launch.train import (ARCH_MODULES, GNN_MODEL_MODULES,
-                                          make_step)
-    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.launch.train import ARCH_MODULES, GNN_MODEL_MODULES
     m = importlib.import_module(ARCH_MODULES[arch])
     mod = importlib.import_module(GNN_MODEL_MODULES[m.MODULE])
     _, _, d_feat, n_cls, _, _ = GNN_SHAPES["minibatch_lg"]
@@ -1847,37 +1973,17 @@ def small_gnn_run(torch, timer, dev, arch, seed):
                mod.loss_fn(p, cfg, b, impl))
     routes = route_agreement(torch, timer, arch, loss_fn, params, g, want,
                              float64_floor=arch in TRAIN_FLOAT64_FLOOR)
-    opt_cfg = AdamWConfig(lr=1e-3)
-    step_fn = make_step(loss_fn, opt_cfg, SMALL_TRAIN_STEPS)
-    state = (params, init_opt_state(params, opt_cfg))
-    backend.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    losses, secs = [], []
-    for _ in range(SMALL_TRAIN_STEPS):
-        (state, metrics), sec = timer.wall(lambda: step_fn(state, g))
-        losses.append(float(metrics["loss"]))
-        secs.append(sec)
     out = dict(arch=arch, config=cfg.name, shape="minibatch_lg",
                nodes=g.num_nodes, live_edges=live, d_in=cfg.d_in,
-               layers=cfg.n_layers, d_hidden=cfg.d_hidden,
-               loss_first=losses[0], loss_last=losses[-1],
-               step_ms_first=secs[0] * 1e3,
-               step_ms_median=1e3 * sorted(secs[1:])[len(secs[1:]) // 2],
-               launches={k: backend.LAUNCHES[k] for k in GRAPH_KERNELS},
-               max_memory_allocated=torch.cuda.max_memory_allocated())
+               layers=cfg.n_layers, d_hidden=cfg.d_hidden)
+    out.update(short_run(torch, timer, loss_fn, params, g,
+                         SMALL_TRAIN_STEPS, want, arch))
     say(f"train.{arch}", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                             for k, v in out.items()})
-    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
-          f"{arch}: the loss did not fall ({losses[0]} -> {losses[-1]})")
-    for name, n in out["launches"].items():
-        check(n == want[name] * SMALL_TRAIN_STEPS,
-              f"{arch}: {name} launched {n} times in {SMALL_TRAIN_STEPS} "
-              f"steps, not {want[name] * SMALL_TRAIN_STEPS}")
-    del state
     out["routes"] = routes
     out["kernels"] = small_kernel_rows(
-        torch, timer, dev, arch, g, cfg.d_hidden if arch == "pna" else 3,
-        seed)
+        torch, timer, dev, arch, g, g.x if arch == "pna" else g.pos,
+        cfg.d_hidden if arch == "pna" else 3, seed)
     return out
 
 
@@ -1923,52 +2029,21 @@ def train_phase(torch, timer, dev, seed, report, profile=False) -> None:
 
     # the supervised run
     opt_cfg = AdamWConfig(lr=1e-3)
-    state, step_fn, rec = supervised_run(torch, timer, g, params, loss_fn,
-                                         opt_cfg)
-    r = rec["report"]
-    secs = rec["seconds"]
-    rest = sorted(secs[1:])
+    state, step_fn, rec = supervised_run(torch, timer, lambda s: g, params,
+                                         loss_fn, opt_cfg, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_save_") as d:
         path, save_s = timer.wall(lambda: save(d, TRAIN_STEPS, state))
         ckpt_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
-    out.update(
-        steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
-        fail_at=TRAIN_FAIL_AT, supervisor=r, calls=rec["steps"],
-        step_ms_first=secs[0] * 1e3,
-        step_ms_median=rest[len(rest) // 2] * 1e3,
-        step_ms_max=rest[-1] * 1e3, run_seconds=rec["run_seconds"],
-        loss_first=rec["losses"][0], loss_last=rec["losses"][-1],
-        losses=rec["losses"], launches=rec["launches"],
-        restart_equals_checkpoint=rec["restart_equals_checkpoint"],
-        step_errors=rec["step_errors"], checkpoint_bytes=ckpt_bytes,
-        checkpoint_write_seconds=save_s,
-        max_memory_allocated=rec["max_memory_allocated"])
+    out.update(supervised_summary(rec), checkpoint_bytes=ckpt_bytes,
+               checkpoint_write_seconds=save_s)
     say("train.gin", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                         for k, v in out.items()
                         if k.startswith(("step_ms", "loss_f", "loss_l",
                                          "run_s", "supervisor", "launches",
                                          "restart", "checkpoint", "max_mem",
                                          "step_errors"))})
-    check(not rec["step_errors"], f"the training step raised: "
-          f"{rec['step_errors']}")
-    check(r["failures_recovered"] == 1,
-          f"the supervisor recovered {r['failures_recovered']} failures, "
-          f"not the 1 injected")
-    check(r["checkpoints_written"] == TRAIN_STEPS // TRAIN_CKPT_EVERY,
-          f"{r['checkpoints_written']} checkpoints written, not "
-          f"{TRAIN_STEPS // TRAIN_CKPT_EVERY}")
-    check(rec["restart_equals_checkpoint"] is True,
-          "the state after the restart is not the step-"
-          f"{TRAIN_CKPT_EVERY} checkpoint's, bit for bit")
-    check(all(map(math.isfinite, rec["losses"]))
-          and rec["losses"][-1] < rec["losses"][0],
-          f"gin-tu: the loss did not fall ({rec['losses'][0]} -> "
-          f"{rec['losses'][-1]})")
-    for name in GRAPH_KERNELS:
-        want = TRAIN_LAUNCHES_PER_STEP * r["steps_run"]
-        check(rec["launches"][name] == want,
-              f"{name} launched {rec['launches'][name]} times in "
-              f"{r['steps_run']} steps, not {want}")
+    check_supervised("gin-tu", rec, dict.fromkeys(GRAPH_KERNELS,
+                                                  TRAIN_LAUNCHES_PER_STEP))
     if profile:
         _, out["profile_step"] = profiled(torch, lambda: step_fn(state, g))
     del state
@@ -1985,6 +2060,207 @@ def train_phase(torch, timer, dev, seed, report, profile=False) -> None:
         report["train_kernels"] += out["small"][-1].pop("kernels")
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Equiformer-v2 at the molecule cell, SASRec at train_batch
+# ---------------------------------------------------------------------------
+
+def molecule_batch(torch, seed, dev):
+    """``GNN_SHAPES["molecule"]``: 128 graphs of 30 atoms (3,840 live nodes
+    padded to 4,096), positions N(0, 1.5^2) per axis, each graph's 64 edges
+    its 32 closest atom pairs in both directions (no self-loop), 64 random
+    features, one float32 target a graph, all made on the device from
+    ``seed``; the edge plan built once."""
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.models.gnn.common import GraphBatch
+    n_cap, e_cap, d_feat, _, _, n_graphs = GNN_SHAPES["molecule"]
+    A = MOLECULE_ATOMS
+    n_live, pairs = n_graphs * A, e_cap // n_graphs // 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = 1.5 * torch.randn((n_graphs, A, 3), generator=gen, device=dev)
+    iu = torch.triu_indices(A, A, 1, device=dev)                # [2, 435]
+    d2 = ((pos[:, iu[0]] - pos[:, iu[1]]) ** 2).sum(-1)         # [G, 435]
+    near = d2.topk(pairs, largest=False).indices                # [G, 32]
+    base = (torch.arange(n_graphs, device=dev) * A)[:, None]
+    i, j = iu[0][near] + base, iu[1][near] + base
+    src = torch.cat([i, j], 1).reshape(-1).to(torch.int32)
+    dst = torch.cat([j, i], 1).reshape(-1).to(torch.int32)
+    node = torch.arange(n_cap, device=dev)
+    g = GraphBatch(
+        x=torch.randn((n_cap, d_feat), generator=gen, device=dev),
+        edge_src=src, edge_dst=dst,
+        edge_valid=torch.ones(e_cap, dtype=torch.bool, device=dev),
+        node_valid=node < n_live,
+        graph_id=torch.where(node < n_live, node // A, 0).to(torch.int32),
+        pos=torch.cat([pos.reshape(n_live, 3),
+                       pos.new_zeros((n_cap - n_live, 3))]),
+        labels=torch.randn((n_graphs,), generator=gen, device=dev))
+    check(src.numel() == e_cap and not bool((src == dst).any()),
+          "molecule batch: wrong edge count or a self-loop")
+    return g.with_plan()
+
+
+def equiformer_launches(n_layers: int) -> dict:
+    """A step of Equiformer-v2 at ``n_layers`` layers.  Forward: the
+    positions at both ends (once), then per layer z[src] and the message
+    sum (a gather into destination order and a sum); backward per layer the
+    sum's gather at each lane's destination and z[src]'s sum by source (a
+    gather into source order and a sum).  The positions take no gradient:
+    block_gather 2 + 4L, segment_sum 2L."""
+    return {"segment_sum": 2 * n_layers, "block_gather": 2 + 4 * n_layers}
+
+
+def equiformer_run(torch, timer, dev, seed, profile):
+    """Equiformer-v2 at ``full_config(d_in=64, n_classes=1,
+    graph_level=True)`` on the molecule batch: the kernel route against
+    ``impl="torch"``, the supervised run, the registry's ``opt`` variant
+    for ``TRAIN_STEPS`` steps and both graph kernels at K·C = 6272."""
+    from repro_torch import tree as T
+    from repro_torch.configs.equiformer_v2 import full_config
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.optim import AdamWConfig
+    _, _, d_feat, _, _, n_graphs = GNN_SHAPES["molecule"]
+    cfg = full_config(d_in=d_feat, n_classes=1, graph_level=True)
+    g, batch_s = timer.wall(lambda: molecule_batch(torch, seed + 37, dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    params = EQ.init_params(cfg, gen, device=dev)
+    want = equiformer_launches(cfg.n_layers)
+    out = dict(config=cfg.name, shape="molecule", nodes=g.num_nodes,
+               live_nodes=int(g.node_valid.sum()), graphs=n_graphs,
+               edges=g.edge_src.numel(), layers=cfg.n_layers,
+               d_hidden=cfg.d_hidden, l_max=cfg.l_max, m_max=cfg.m_max,
+               heads=cfg.n_heads, edge_tensor_bytes=(
+                   g.edge_src.numel() * cfg.n_comps * cfg.d_hidden * 4),
+               params=sum(p.numel() for p in T.leaves(params)),
+               batch_and_plan_seconds=batch_s)
+    say("mtrain.eq_setup", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                              for k, v in out.items()})
+    loss_fn = (lambda p, b, impl="cuda":                      # noqa: E731
+               EQ.loss_fn(p, cfg, b, impl))
+    out["routes"] = route_agreement(torch, timer, "equiformer-v2", loss_fn,
+                                    params, g, want)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, step_fn, rec = supervised_run(
+        torch, timer, lambda s: g, params, loss_fn,
+        AdamWConfig(lr=EQUIFORMER_LR), dev, tuple(want))
+    out.update(supervised_summary(rec))
+    say("mtrain.equiformer", **{
+        k: (f"{v:.4g}" if isinstance(v, float) else v)
+        for k, v in out.items() if k.startswith((
+            "step_ms", "loss_f", "loss_l", "run_s", "supervisor", "launches",
+            "restart", "max_mem", "step_errors"))})
+    check_supervised("equiformer-v2", rec, want)
+    if profile:
+        _, out["profile_step"] = profiled(torch, lambda: step_fn(state, g))
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    ocfg = dataclasses.replace(cfg, truncate_rotation=True, edge_bf16=True)
+    out["opt"] = dict(truncate_rotation=True, edge_bf16=True, **short_run(
+        torch, timer, lambda p, b: EQ.loss_fn(p, ocfg, b), params, g,
+        TRAIN_STEPS, want, "equiformer-v2 opt", EQUIFORMER_LR))
+    say("mtrain.equiformer_opt", **{
+        k: (f"{v:.4g}" if isinstance(v, float) else v)
+        for k, v in out["opt"].items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    F = cfg.n_comps * cfg.d_hidden
+    z = torch.randn((g.num_nodes, F), generator=gen, device=dev)
+    out["kernels"] = small_kernel_rows(torch, timer, dev, "equiformer", g, z,
+                                       F, seed)
+    return out
+
+
+def sasrec_train_run(torch, timer, dev, seed, profile):
+    """SASRec at ``full_config()`` (2^20-row table) on
+    ``RECSYS_SHAPES["train_batch"]`` (65,536 users x 50): the kernel route
+    against ``impl="torch"`` on the first batch, the supervised run over
+    ``SASREC_TRAIN_CACHE`` cached batches of ``sasrec_batches`` on the
+    device (each with its lookup plan), and the three kernels at the
+    lookup's shapes."""
+    from repro_torch.configs.sasrec import RECSYS_SHAPES, full_config
+    from repro_torch.data.synthetic import sasrec_batches
+    from repro_torch.kernels.block_gather.ops import gather_rows
+    from repro_torch.models.recsys import sasrec as S
+    from repro_torch.optim import AdamWConfig
+    cfg = full_config()
+    B, V, d = RECSYS_SHAPES["train_batch"]["batch"], cfg.n_items + 1, \
+        cfg.embed_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    params = S.init_params(cfg, gen, device=dev)
+    stream = sasrec_batches(cfg.n_items, B, cfg.seq_len, seed=seed + 47,
+                            device=dev)
+
+    def make():
+        seq, pos, neg = next(stream)
+        return S.TrainBatch(seq, pos, neg, S.lookup_plan(seq, pos, neg, V))
+
+    first, plan_s = timer.wall(make)
+    cache = [first] + [make() for _ in range(SASREC_TRAIN_CACHE - 1)]
+    out = dict(config=cfg.name, shape="train_batch", users=B,
+               seq_len=cfg.seq_len, table_rows=V, embed_dim=d,
+               lanes=3 * B * cfg.seq_len, plan_lanes=first.plan.num_valid,
+               batch_and_plan_seconds=plan_s)
+    say("mtrain.sas_setup", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                               for k, v in out.items()})
+    loss_fn = (lambda p, b, impl="cuda":                      # noqa: E731
+               S.loss_fn(p, cfg, b.seq, b.pos, b.neg, impl=impl,
+                         plan=b.plan))
+    out["routes"] = route_agreement(torch, timer, "sasrec", loss_fn, params,
+                                    first, SASREC_LAUNCHES_PER_STEP)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, step_fn, rec = supervised_run(
+        torch, timer, lambda s: cache[s % len(cache)], params, loss_fn,
+        AdamWConfig(lr=1e-3), dev, tuple(SASREC_LAUNCHES_PER_STEP))
+    out.update(supervised_summary(rec))
+    say("mtrain.sasrec", **{
+        k: (f"{v:.4g}" if isinstance(v, float) else v)
+        for k, v in out.items() if k.startswith((
+            "step_ms", "loss_f", "loss_l", "run_s", "supervisor", "launches",
+            "restart", "max_mem", "step_errors"))})
+    check_supervised("sasrec", rec, SASREC_LAUNCHES_PER_STEP)
+    if profile:
+        _, out["profile_step"] = profiled(
+            torch, lambda: step_fn(state, first))
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at the lookup's shapes: the history's one-slot bags, the
+    # positives and negatives, the lanes' gradients into id order and their
+    # sum by id
+    table, plan = params["item_emb"], first.plan
+    n = B * cfg.seq_len
+    rows = [time_embedding_bag(torch, timer, "sasrec fwd lookup", table,
+                               plan.dst[:n].reshape(n, 1), d ** 0.5),
+            time_stream_gather(torch, timer, f"sasrec fwd pos|neg F={d}",
+                               table, plan.dst[n:])]
+    lanes = torch.randn((3 * n, d), generator=gen, device=dev)
+    rows.append(time_stream_gather(torch, timer, f"sasrec bwd F={d}", lanes,
+                                   plan.dst_order))
+    stream = gather_rows(lanes, plan.dst_order, rows_per_step=1)
+    rows.append(time_stream_sum(torch, timer, f"sasrec bwd F={d}", stream,
+                                plan.dst_row_ptr, plan.partition("dst", d)))
+    out["kernels"] = rows
+    return out
+
+
+def model_train_phase(torch, timer, dev, seed, report,
+                      profile=False) -> None:
+    """Phase 9: Equiformer-v2 at the molecule cell and SASRec at
+    train_batch through launch/train.py's step under the supervisor, each
+    kernel route against ``impl="torch"``, and the kernels at this path's
+    shapes (``model_train_kernels``)."""
+    out = report["model_train"] = {}
+    out["equiformer"] = equiformer_run(torch, timer, dev, seed, profile)
+    report["model_train_kernels"] = out["equiformer"].pop("kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sasrec"] = sasrec_train_run(torch, timer, dev, seed, profile)
+    report["model_train_kernels"] += out["sasrec"].pop("kernels")
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
@@ -3137,6 +3413,34 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     t0 = time.perf_counter()
     train_phase(torch, timer, dev, seed, report, profile)
     report["train_seconds"] = time.perf_counter() - t0
+    gc.collect()                       # the GNN state goes before phase 9's
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model_train_phase(torch, timer, dev, seed, report, profile)
+    report["model_train_seconds"] = time.perf_counter() - t0
+
+
+def model_train_entries(report: dict, name: str) -> dict:
+    """Kernel ``name``'s phase-9 entries, one a model that launches it: its
+    row at the model's main shape (``MODEL_TRAIN_MAIN``), its launches on
+    the model's supervised run and in one measured step, the largest error
+    over the model's rows of the kernel."""
+    out = {}
+    for model in ("equiformer", "sasrec"):
+        if (model, name) not in MODEL_TRAIN_MAIN:
+            continue
+        rows = [r for r in report["model_train_kernels"]
+                if r["name"] == name and r["shape"].startswith(model)]
+        main = next(r for r in rows
+                    if r["shape"] == MODEL_TRAIN_MAIN[(model, name)])
+        run = report["model_train"][model]
+        out[model] = dict(
+            shape=main["shape"], launches=run["launches"][name],
+            launches_per_step=run["routes"]["launches_per_step"][name],
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"])
+    return out
 
 
 def kernels_line(report: dict) -> dict:
@@ -3150,7 +3454,9 @@ def kernels_line(report: dict) -> dict:
     forward (F = 100), launches on the supervised gin-tu run and in one
     measured step, ``arch_launches`` the same for the PNA and EGNN runs,
     ``max_abs_err`` over every train-path row (F = 100, 64, and PNA's and
-    EGNN's own 602, 75 and 3)."""
+    EGNN's own 602, 75 and 3); the ``model_train`` entries (the graph
+    kernels and ``embedding_bag``) the same for phase 9's Equiformer-v2
+    (K·C = 6272) and SASRec (F = 50) runs."""
     launches = report["service"]["launches"]
     meta = {
         "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
@@ -3224,6 +3530,9 @@ def kernels_line(report: dict) -> dict:
                     ms=main["ms"], plain_ms=main["plain_ms"],
                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                     library_ms=main["library_ms"])
+        if table in (meta, recsys_meta):   # phase 9's training paths
+            for row in out[-len(table):]:
+                row["model_train"] = model_train_entries(report, row["name"])
         if table is meta:            # the sealed run's push stream
             for row in out[-2:]:
                 main = next(r for r in report["tier"]["kernels"]
@@ -3298,6 +3607,11 @@ def main(argv=None) -> int:
         recsys_seconds=f"{report['recsys_seconds']:.1f}",
         train_seconds=f"{report['train_seconds']:.1f}",
         train_max_memory_allocated=report["train"]["max_memory_allocated"],
+        model_train_seconds=f"{report['model_train_seconds']:.1f}",
+        equiformer_max_memory_allocated=report["model_train"]["equiformer"][
+            "max_memory_allocated"],
+        sasrec_train_max_memory_allocated=report["model_train"]["sasrec"][
+            "max_memory_allocated"],
         file=f"chiprun_out/{name}")
     print(json.dumps(kernels_line(report)))
     print(json.dumps({"ok": True, "device": {

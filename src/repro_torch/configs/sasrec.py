@@ -4,6 +4,8 @@ rows).  The port's own copy of ``repro.configs.sasrec``, without
 ``input_specs`` (JAX shape structs for the dry-run)."""
 from repro_torch.models.recsys.sasrec import SASRecConfig
 
+FAMILY = "recsys"
+
 RECSYS_SHAPES = {
     "train_batch":    {"kind": "train", "batch": 65_536},
     "serve_p99":      {"kind": "serve", "batch": 512},

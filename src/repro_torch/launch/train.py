@@ -1,16 +1,21 @@
 """End-to-end training driver, as ``repro.launch.train``: the GNN family
-(``gin-tu``, ``pna``, ``egnn``) on one device.
+(``gin-tu``, ``pna``, ``egnn``, ``equiformer-v2``) and SASRec on one
+device.
 
 Composes: arch config -> model loss -> AdamW (+clip) -> TrainSupervisor
 (async checkpointing, failure injection, straggler policy) -> batches.
 :func:`make_step` is the JAX ``step_fn`` (loss and gradients, clip to a
 global norm of 1, ``warmup_cosine`` over 10 warmup steps, AdamW), eager
 under autograd; on the card the GNNs' gathers and sums by destination run
-on the ``block_gather`` and ``segment_sum`` kernels, forward and backward.
-The LM and recsys families wait for their slices (ROADMAP.md).
+on the ``block_gather`` and ``segment_sum`` kernels, forward and backward,
+and SASRec's item lookups on ``embedding_bag`` and ``block_gather`` with
+their gradient on ``block_gather`` and ``segment_sum``.  The LM family
+waits for its slice (ROADMAP.md).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
         --steps 50 --fail-at 23 --ckpt-every 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \\
+        --device cpu --steps 30
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.backend import resolve_device
-from repro_torch.data.synthetic import rmat_edges
+from repro_torch.data.synthetic import rmat_edges, sasrec_batches
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.optim import (AdamWConfig, adamw_update, clip_by_global_norm,
                                init_opt_state, warmup_cosine)
@@ -35,19 +40,22 @@ ARCH_MODULES = {
     "gin-tu": "repro_torch.configs.gin_tu",
     "pna": "repro_torch.configs.pna",
     "egnn": "repro_torch.configs.egnn",
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
+    "sasrec": "repro_torch.configs.sasrec",
 }
 GNN_MODEL_MODULES = {
     "gin": "repro_torch.models.gnn.gin",
     "pna": "repro_torch.models.gnn.pna",
     "egnn": "repro_torch.models.gnn.egnn",
+    "equiformer_v2": "repro_torch.models.gnn.equiformer_v2",
 }
 NOT_YET = {
     "qwen3-moe-30b-a3b": "lm", "kimi-k2-1t-a32b": "lm", "gemma2-27b": "lm",
-    "qwen1.5-4b": "lm", "gemma3-27b": "lm", "equiformer-v2": "gnn",
-    "sasrec": "recsys",
+    "qwen1.5-4b": "lm", "gemma3-27b": "lm",
 }
 WARMUP_STEPS, MAX_GRAD_NORM = 10, 1.0
 SMOKE_NODES, SMOKE_EDGES = 256, 1024
+SMOKE_CACHED_BATCHES = 32          # the recsys smoke problem's batches
 
 
 def arch_module(arch: str):
@@ -64,16 +72,30 @@ def arch_module(arch: str):
 
 
 def build_smoke_problem(arch: str, batch: int, seed: int = 0, device=None):
-    """Returns (cfg, params, loss_fn(params, batch), batches(step)->batch):
-    the smoke config on an RMAT graph of 256 nodes and 1,024 edges with
-    random features, positions and labels, made on ``device`` from
-    ``seed``; the one batch carries its edge plan.  ``batch`` sizes the LM
-    and recsys problems, which are not ported yet."""
+    """Returns (cfg, params, loss_fn(params, batch), batches(step)->batch),
+    made on ``device`` from ``seed`` at the arch's smoke config.  A GNN: an
+    RMAT graph of 256 nodes and 1,024 edges with random features,
+    positions and labels, the one batch carrying its edge plan.  SASRec:
+    ``batch`` users a batch, 32 cached ``sasrec_batches``, ``batches(s)``
+    the cache's ``s % 32``, each carrying its lookup plan."""
     m = arch_module(arch)
     dev = resolve_device(device)
-    mod = importlib.import_module(GNN_MODEL_MODULES[m.MODULE])
     cfg = m.smoke_config()
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if m.FAMILY == "recsys":
+        from repro_torch.models.recsys import sasrec as S
+        params = S.init_params(cfg, gen, device=dev)
+        stream = sasrec_batches(cfg.n_items, batch, cfg.seq_len, seed=seed,
+                                device=dev)
+        cache = [S.TrainBatch(*b, plan=S.lookup_plan(*b, cfg.n_items + 1))
+                 for b in (next(stream) for _ in range(SMOKE_CACHED_BATCHES))]
+
+        def sasrec_loss(p, b):
+            return S.loss_fn(p, cfg, b.seq, b.pos, b.neg, plan=b.plan)
+
+        return cfg, params, sasrec_loss, lambda s: cache[s % len(cache)]
+
+    mod = importlib.import_module(GNN_MODEL_MODULES[m.MODULE])
     params = mod.init_params(cfg, gen, device=dev)
     N = SMOKE_NODES
     src, dst = rmat_edges(N, SMOKE_EDGES, seed=seed, device=dev)

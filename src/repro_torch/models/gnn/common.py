@@ -11,10 +11,10 @@ index.  Every function takes ``impl=``:
     ``block_gather`` and GTChain ``segment_sum`` kernels, forward and
     backward (their plain versions when the tensors lie on the CPU).
 
-The kernel route reads an :class:`EdgePlan`, built once per batch as the
-engine's ``SweepPlan`` is built once per snapshot: the valid edges in
-stable destination order with the CSR ``row_ptr`` of each destination, and
-the same by source (the transposed plan).  The gradient of a sum by
+The kernel route reads an :class:`EdgePlan` (``models/plan.py``), built
+once per batch as the engine's ``SweepPlan`` is built once per snapshot:
+the valid edges in stable destination order with the CSR ``row_ptr`` of
+each destination, and the same by source (the transposed plan).  The gradient of a sum by
 destination is a gather at each edge's destination, and the gradient of a
 gather by source is a sum by source, so both directions run on the two
 kernels (:func:`scatter_sum`, :func:`gather`).  :func:`aggregate` is GIN's
@@ -25,120 +25,20 @@ the backward.  Lanes outside the plan (invalid edges) get no gradient from
 
 ``scatter_max`` / ``scatter_min`` / ``segment_softmax`` stay plain
 (``scatter_reduce``), as the JAX package keeps them off its kernels; ties
-share the gradient equally in both packages.
+share the gradient equally in both packages.  ``segment_softmax`` takes
+[E] scores or [E, H] (one softmax a head, JAX's ``vmap`` over heads).
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.backend import resolve_impl
-from repro_torch.kernels.block_gather.ops import gather_rows
-from repro_torch.kernels.segment_matmul.ops import (csr_items_per_cta,
-                                                    merge_path_partition,
-                                                    segment_sum_csr)
-
-I32 = torch.int32
-
-
-@dataclasses.dataclass(eq=False)
-class EdgePlan:
-    """One batch's edges laid out for the kernels.
-
-    ``seg``: each lane's destination, ``n`` on a lane outside the plan.  By
-    destination: ``dst_order`` (the plan's lanes, stable-sorted by
-    destination), ``dst_row_ptr`` (each destination's span of it) and
-    ``src_by_dst`` (their sources, in that order).  By source, when the
-    plan was built with sources: ``src_order``, ``src_row_ptr`` and
-    ``dst_by_src``.  All int32.  Merge-path partitions of each order are
-    made once per feature width.  The plan holds the tensors it was built
-    from and refuses others (:meth:`check`).
-    """
-    n: int
-    built_from: tuple                 # (dst, valid)
-    src: Optional[torch.Tensor]       # i32[E], the lanes' sources
-    dst: torch.Tensor                 # i32[E]
-    seg: torch.Tensor                 # i32[E]
-    dst_order: torch.Tensor           # i32[V]
-    dst_row_ptr: torch.Tensor         # i32[n + 1]
-    src_by_dst: Optional[torch.Tensor] = None      # i32[V]
-    src_order: Optional[torch.Tensor] = None       # i32[V]
-    src_row_ptr: Optional[torch.Tensor] = None     # i32[n + 1]
-    dst_by_src: Optional[torch.Tensor] = None      # i32[V]
-    _parts: Dict = dataclasses.field(default_factory=dict)
-
-    @property
-    def num_valid(self) -> int:
-        return self.dst_order.numel()
-
-    def check(self, dst: torch.Tensor, valid: torch.Tensor, n: int) -> None:
-        if n != self.n or self.built_from[0] is not dst \
-                or self.built_from[1] is not valid:
-            raise ValueError("edge plan was built for another batch; build "
-                             "one for these edges with edge_plan(...)")
-
-    def row_ptr(self, side: str) -> torch.Tensor:
-        row_ptr = self.dst_row_ptr if side == "dst" else self.src_row_ptr
-        if row_ptr is None:
-            raise ValueError("this edge plan has no source order (build it "
-                             "with the edges' sources)")
-        return row_ptr
-
-    def partition(self, side: str, F: int) -> torch.Tensor:
-        """The merge-path partition of the ``"dst"`` or ``"src"`` order at
-        feature width ``F``."""
-        key = (side, csr_items_per_cta(F))
-        if key not in self._parts:
-            self._parts[key] = merge_path_partition(self.row_ptr(side),
-                                                    key[1])
-        return self._parts[key]
-
-    def in_degree(self) -> torch.Tensor:
-        """float32 [n]: the plan's in-edges of each node (``row_ptr``'s
-        differences, the counts a sum of ones gives)."""
-        return (self.dst_row_ptr[1:] - self.dst_row_ptr[:-1]).to(
-            torch.float32)
-
-
-def _order(key: torch.Tensor, lanes: torch.Tensor, n: int):
-    """(lanes stable-sorted by key, each key's span of them, the sort's
-    permutation of ``lanes``)."""
-    sorted_key, perm = torch.sort(key, stable=True)
-    bounds = torch.arange(n + 1, dtype=I32, device=key.device)
-    row_ptr = torch.searchsorted(sorted_key, bounds, out_int32=True)
-    return lanes[perm].to(I32), row_ptr, perm
-
-
-def edge_plan(dst: torch.Tensor, valid: torch.Tensor, n: int,
-              src: Optional[torch.Tensor] = None) -> EdgePlan:
-    """The plan of the lanes ``valid`` marks whose destination lies in
-    [0, n) (a sum drops the others, as JAX's ``segment_sum`` does); with
-    ``src``, also by source, whose kept lanes must lie in [0, n) too
-    (checked, one host sync)."""
-    if dst.dtype != I32 or (src is not None and src.dtype != I32):
-        raise TypeError("edge_plan wants int32 edge endpoints")
-    keep = valid & (dst >= 0) & (dst < n)
-    lanes = torch.nonzero(keep).squeeze(1)
-    d = dst[lanes]
-    seg = torch.where(keep, dst, torch.full_like(dst, n))
-    dst_order, dst_row_ptr, perm = _order(d, lanes, n)
-    plan = EdgePlan(n=n, built_from=(dst, valid),
-                    src=None if src is None else src.contiguous(),
-                    dst=dst.contiguous(), seg=seg.contiguous(),
-                    dst_order=dst_order, dst_row_ptr=dst_row_ptr)
-    if src is not None:
-        s = src[lanes]
-        if s.numel() and bool(((s < 0) | (s >= n)).any()):
-            raise ValueError(f"edge_plan: a valid edge's source lies "
-                             f"outside [0, {n})")
-        plan.src_by_dst = s[perm].contiguous()
-        plan.src_order, plan.src_row_ptr, perm = _order(s, lanes, n)
-        plan.dst_by_src = d[perm].contiguous()
-    return plan
+from repro_torch.models.plan import (EdgePlan, _Gather, _gather,  # noqa: F401
+                                     _sum_by, edge_plan)
 
 
 class GraphBatch(NamedTuple):
@@ -188,16 +88,6 @@ def batch_plan(g: GraphBatch, impl: str) -> Optional[EdgePlan]:
 # the kernel route's autograd functions
 # ---------------------------------------------------------------------------
 
-def _sum_by(plan: EdgePlan, side: str, stream: torch.Tensor) -> torch.Tensor:
-    """The ``side``-ordered stream summed by ``side`` -> f32[n, F]."""
-    return segment_sum_csr(stream, plan.row_ptr(side),
-                           plan.partition(side, max(stream.shape[1], 1)))
-
-
-def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return gather_rows(table.contiguous(), ids, rows_per_step=1)
-
-
 class _ScatterSum(torch.autograd.Function):
     """y[v] = sum of msg[e] over the plan's lanes e with dst[e] == v."""
 
@@ -213,24 +103,6 @@ class _ScatterSum(torch.autograd.Function):
         # a lane's gradient is its destination's; row n (off the plan) is 0
         padded = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
         return _gather(padded, ctx.plan.seg), None
-
-
-class _Gather(torch.autograd.Function):
-    """out[e] = table[ids[e]] for every lane, ``ids`` the lanes' sources
-    (``side == "src"``) or destinations."""
-
-    @staticmethod
-    def forward(ctx, table, plan, side):
-        ctx.plan, ctx.side = plan, side
-        return _gather(table, plan.src if side == "src" else plan.dst)
-
-    @staticmethod
-    def backward(ctx, grad):
-        if not ctx.needs_input_grad[0]:
-            return None, None, None
-        plan, side = ctx.plan, ctx.side
-        order = plan.src_order if side == "src" else plan.dst_order
-        return _sum_by(plan, side, _gather(grad, order)), None, None
 
 
 class _Aggregate(torch.autograd.Function):
@@ -335,14 +207,20 @@ def scatter_min(msg, dst, valid, n):
 
 def segment_softmax(scores: torch.Tensor, dst: torch.Tensor,
                     valid: torch.Tensor, n: int) -> torch.Tensor:
-    """Edge softmax over incoming edges per destination (scores [E])."""
+    """Edge softmax over incoming edges per destination: scores [E], or
+    [E, H] with one softmax a column (head)."""
     seg = torch.where(valid, dst, torch.full_like(dst, n)).long()
-    mx = scores.new_full((n + 1,), float("-inf")).scatter_reduce(
-        0, seg, torch.where(valid, scores, float("-inf")), "amax",
+    shape = (-1,) + (1,) * (scores.dim() - 1)
+    live = valid.view(shape)
+    idx = seg.view(shape).expand_as(scores)
+    mx = scores.new_full((n + 1,) + tuple(scores.shape[1:]),
+                         float("-inf")).scatter_reduce(
+        0, idx, torch.where(live, scores, float("-inf")), "amax",
         include_self=True)
     mx = torch.where(torch.isfinite(mx), mx, 0.0)
-    ex = torch.where(valid, torch.exp(scores - mx[seg]), 0.0)
-    den = scores.new_zeros((n + 1,)).index_add(0, seg, ex)
+    ex = torch.where(live, torch.exp(scores - mx[seg]), 0.0)
+    den = scores.new_zeros((n + 1,) + tuple(scores.shape[1:])).index_add(
+        0, seg, ex)
     return ex / torch.clamp(den[seg], min=1e-16)
 
 

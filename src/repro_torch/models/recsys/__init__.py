@@ -1,1 +1,1 @@
-"""Recsys models: SASRec serving."""
+"""Recsys models: SASRec serving and training."""

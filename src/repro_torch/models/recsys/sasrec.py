@@ -1,6 +1,5 @@
 """SASRec — self-attentive sequential recommendation (arXiv:1808.09781), as
-``repro.models.recsys.sasrec``: serving only (``loss_fn`` and training wait
-for the training slice).
+``repro.models.recsys.sasrec``: serving and the training loss.
 
 Parameters are a dict of tensors (``blocks`` a list of dicts), so the JAX
 package's tree carries over one to one (``interop.sasrec_params_from_jax``);
@@ -11,6 +10,19 @@ through the block-gather kernel (their plain versions for CPU tensors);
 ``"torch"`` runs both plain.  Attention, LayerNorm and the products are
 plain torch, as the JAX package leaves them to XLA.
 
+Training (:func:`loss_fn`, the paper's BCE over positive and sampled
+negative next items) reads the item table at three ids a position: the
+history's (``encode``'s lookup), the positive's and the negative's.  On the
+kernel route the three lookups are one autograd function over a
+:class:`~repro_torch.models.plan.EdgePlan` of the batch's ids
+(:func:`lookup_plan`, built once a batch): forward the ``embedding_bag``
+kernel for the history (weight sqrt(d), pads -1) and ``block_gather`` for
+the positives and negatives; backward one sum by item id of all three
+lanes' gradients on ``block_gather`` + ``segment_sum``
+(``models.plan.lane_sum``), so the [n_items + 1, d] table gradient is
+written once.  A pad adds
+nothing, so the padding row's gradient is the 0 JAX gives it.
+
 Semantics kept from the reference for parity: :func:`user_repr` takes the
 hidden state at position S - 1, which is a zeroed pad for a right-padded
 history shorter than S (such a user scores every item ``ln_f.b . item``);
@@ -20,7 +32,7 @@ caller at bulk scale scores in user chunks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +41,7 @@ from torch import nn
 from repro_torch.backend import resolve_device, resolve_impl
 from repro_torch.kernels.block_gather import block_gather_ref, gather_rows
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
+from repro_torch.models.plan import EdgePlan, _gather, edge_plan, lane_sum
 from repro_torch.models.transformer.layers import ParamTree
 
 Params = Dict[str, Any]
@@ -81,6 +94,20 @@ def _ln(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-6) * p["g"] + p["b"]
 
 
+def _place(params: Params, seq: torch.Tensor,
+           rows: torch.Tensor) -> torch.Tensor:
+    """The looked-up rows ``item_emb[seq] * sqrt(d)`` [B*S, d] plus the
+    position embeddings, zero at the pads: [B, S, d]."""
+    B, S = seq.shape
+    h = rows.reshape(B, S, -1) + params["pos_emb"][None, :S]
+    return torch.where((seq == 0)[..., None], 0.0, h)
+
+
+def _lookup_ids(seq: torch.Tensor) -> torch.Tensor:
+    """``seq`` as one-slot bags [B*S, 1], -1 at the pads."""
+    return torch.where(seq == 0, -1, seq).reshape(-1, 1)
+
+
 def embed(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
           impl: str = "cuda") -> torch.Tensor:
     """``item_emb[seq] * sqrt(d) + pos_emb``, zero at the pads: [B, S, d].
@@ -89,26 +116,19 @@ def embed(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
     rounded to float32 (as JAX rounds ``d ** 0.5``; the wrapper takes the
     number as it is, with no [B*S, 1] weight tensor), id -1 at the pads.
     """
-    B, S = seq.shape
-    d = cfg.embed_dim
-    table = params["item_emb"]
-    pad = seq == 0
-    ids = torch.where(pad, -1, seq).reshape(B * S, 1)
-    w = d ** 0.5
     lookup = embedding_bag if resolve_impl(impl) == "cuda" \
         else embedding_bag_ref
-    h = lookup(table, ids, w).reshape(B, S, d) + params["pos_emb"][None, :S]
-    return torch.where(pad[..., None], 0.0, h)
+    return _place(params, seq, lookup(params["item_emb"], _lookup_ids(seq),
+                                      cfg.embed_dim ** 0.5))
 
 
-def encode(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
-           impl: str = "cuda") -> torch.Tensor:
-    """seq int32 [B, S] item ids (0 = padding) -> hidden states [B, S, d]."""
+def _blocks(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
+            h: torch.Tensor) -> torch.Tensor:
+    """The attention blocks and the final LayerNorm over embedded ``h``."""
     B, S = seq.shape
     d, H = cfg.embed_dim, cfg.n_heads
     dh = d // H
     pad = seq == 0
-    h = embed(params, cfg, seq, impl)
     causal = torch.ones((S, S), dtype=torch.bool, device=seq.device).tril()
     mask = causal[None, None] & (~pad)[:, None, None, :]
     for blk in params["blocks"]:
@@ -124,6 +144,90 @@ def encode(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
         h = h + F.relu(z @ blk["w1"]) @ blk["w2"]
         h = torch.where(pad[..., None], 0.0, h)
     return _ln(params["ln_f"], h)
+
+
+def encode(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
+           impl: str = "cuda") -> torch.Tensor:
+    """seq int32 [B, S] item ids (0 = padding) -> hidden states [B, S, d]."""
+    return _blocks(params, cfg, seq, embed(params, cfg, seq, impl))
+
+
+# ---------------------------------------------------------------------------
+# training: the BCE loss over (positive, negative) next items
+# ---------------------------------------------------------------------------
+
+class TrainBatch(NamedTuple):
+    """``(seq, pos, neg)`` int32 [B, S] (``pos == 0`` where padded) and,
+    for the kernel route, their :func:`lookup_plan`."""
+    seq: torch.Tensor
+    pos: torch.Tensor
+    neg: torch.Tensor
+    plan: Optional[EdgePlan] = None
+
+
+def lookup_plan(seq: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
+                n_rows: int) -> EdgePlan:
+    """The plan of a batch's item lookups over a table of ``n_rows`` rows:
+    lanes ``[seq (-1 at pads) | pos | neg]`` flattened, stable-sorted by
+    item id with each id's ``row_ptr`` (the history's pads are not lanes).
+    It holds ``(seq, pos, neg)`` and refuses another batch."""
+    ids = torch.cat([_lookup_ids(seq).reshape(-1), pos.reshape(-1),
+                     neg.reshape(-1)]).to(torch.int32)
+    plan = edge_plan(ids, ids >= 0, n_rows)
+    plan.built_from = (seq, pos, neg)
+    return plan
+
+
+class _ItemLookup(torch.autograd.Function):
+    """(item_emb[seq] * w with 0 at the pads [B*S, d], item_emb[pos | neg]
+    [2*B*S, d]) over the batch's plan; the gradient of the table is one sum
+    by id of the three lookups' lane gradients (the history's times w)."""
+
+    @staticmethod
+    def forward(ctx, table, plan, w):
+        ctx.plan, ctx.w = plan, w
+        n = plan.dst.numel() // 3
+        hist = embedding_bag(table, plan.dst[:n].reshape(n, 1), w)
+        return hist, _gather(table, plan.dst[n:])
+
+    @staticmethod
+    def backward(ctx, g_hist, g_pn):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        lanes = torch.cat([g_hist * ctx.w, g_pn])
+        return lane_sum(ctx.plan, "dst", lanes), None, None
+
+
+def _check_plan(plan: EdgePlan, seq, pos, neg, n_rows: int) -> None:
+    if plan.n != n_rows or len(plan.built_from) != 3 or any(
+            a is not b for a, b in zip(plan.built_from, (seq, pos, neg))):
+        raise ValueError("lookup plan was built for another batch; build "
+                         "one with lookup_plan(seq, pos, neg, n_rows)")
+
+
+def loss_fn(params: Params, cfg: SASRecConfig, seq: torch.Tensor,
+            pos: torch.Tensor, neg: torch.Tensor, impl: str = "cuda",
+            plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """BCE over (positive, negative) next items (paper Eq. 6), masked where
+    ``pos == 0``.  The kernel route reads ``plan`` (made here when not
+    given)."""
+    table = params["item_emb"]
+    if resolve_impl(impl) == "torch":
+        h = encode(params, cfg, seq, "torch")
+        pe, ne = table[pos.long()], table[neg.long()]
+    else:
+        if plan is None:
+            plan = lookup_plan(seq, pos, neg, table.shape[0])
+        _check_plan(plan, seq, pos, neg, table.shape[0])
+        hist, pn = _ItemLookup.apply(table, plan, cfg.embed_dim ** 0.5)
+        h = _blocks(params, cfg, seq, _place(params, seq, hist))
+        pe, ne = pn.reshape((2,) + tuple(h.shape)).unbind(0)
+    ps = torch.sum(h * pe, dim=-1).float()
+    ns = torch.sum(h * ne, dim=-1).float()
+    mask = pos != 0
+    loss = -(F.logsigmoid(ps) + F.logsigmoid(-ns))
+    return torch.where(mask, loss, 0.0).sum() / torch.clamp(mask.sum(),
+                                                            min=1)
 
 
 def user_repr(params: Params, cfg: SASRecConfig, seq: torch.Tensor,

@@ -1154,3 +1154,124 @@ def test_gin_step_through_the_kernels_matches_plain(gen):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) \
             + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# Equiformer-v2 and SASRec training on the graph kernels
+# ---------------------------------------------------------------------------
+
+def _molecule_batch(n_graphs, seed, d_in=64, atoms=30, pairs=32):
+    """``n_graphs`` graphs of ``atoms`` atoms, each graph's ``pairs``
+    closest atom pairs in both directions, positions N(0, 1.5^2)."""
+    from repro_torch.models.gnn.common import GraphBatch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pos = 1.5 * torch.randn((n_graphs, atoms, 3), generator=gen,
+                            device="cuda")
+    iu = torch.triu_indices(atoms, atoms, 1, device="cuda")
+    d2 = ((pos[:, iu[0]] - pos[:, iu[1]]) ** 2).sum(-1)
+    near = d2.topk(pairs, largest=False).indices
+    base = (torch.arange(n_graphs, device="cuda") * atoms)[:, None]
+    i, j = iu[0][near] + base, iu[1][near] + base
+    n = n_graphs * atoms
+    return GraphBatch(
+        x=torch.randn((n, d_in), generator=gen, device="cuda"),
+        edge_src=torch.cat([i, j], 1).reshape(-1).to(torch.int32),
+        edge_dst=torch.cat([j, i], 1).reshape(-1).to(torch.int32),
+        edge_valid=torch.ones(2 * pairs * n_graphs, dtype=torch.bool,
+                              device="cuda"),
+        node_valid=torch.ones(n, dtype=torch.bool, device="cuda"),
+        graph_id=(torch.arange(n, device="cuda") // atoms).to(torch.int32),
+        pos=pos.reshape(n, 3),
+        labels=torch.randn((n_graphs,), generator=gen,
+                           device="cuda")).with_plan()
+
+
+def _routes_agree(loss_fn, params, batch, want):
+    """One value and gradient through the kernels against ``impl="torch"``
+    on the card: the loss within rtol 1e-5, each gradient leaf within 1e-4
+    of its largest |value| (+1e-6), the launches exactly ``want``."""
+    from repro_torch import backend
+    from repro_torch import tree as T
+    from repro_torch.launch.train import value_and_grad
+    backend.reset_launch_counts()
+    lk, gk = value_and_grad(loss_fn)(params, batch)
+    assert {k: backend.LAUNCHES[k] for k in want} == want
+    lt, gt = value_and_grad(lambda p, b: loss_fn(p, b, "torch"))(
+        params, batch)
+    torch.testing.assert_close(lk, lt, rtol=1e-5, atol=0)
+    for a, b in zip(T.leaves(gk), T.leaves(gt)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) \
+            + 1e-6
+    return gk
+
+
+@pytest.mark.parametrize("truncate", [False, True])
+def test_equiformer_step_through_the_kernels_matches_plain(gen, truncate):
+    """Equiformer-v2 at full width (d 128, l_max 6, m_max 2, 8 heads), 2
+    layers, 16 molecules: the kernel route against ``impl="torch"``;
+    2 + 4L block_gather and 2L segment_sum launches."""
+    import dataclasses
+    from repro_torch.configs.equiformer_v2 import full_config
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    cfg = dataclasses.replace(full_config(d_in=64), n_layers=2,
+                              truncate_rotation=truncate)
+    g = _molecule_batch(16, seed=5)
+    params = EQ.init_params(cfg, gen, device="cuda")
+    _routes_agree(lambda p, b, impl="cuda": EQ.loss_fn(p, cfg, b, impl),
+                  params, g, {"segment_sum": 4, "block_gather": 10})
+
+
+def test_sasrec_step_through_the_kernels_matches_plain(gen):
+    """SASRec at its full config (2^20-row table) on 2,048 users of
+    ``sasrec_batches``: the kernel route against ``impl="torch"``, 1 + 2 +
+    1 launches, the padding row's gradient 0."""
+    from repro_torch.configs.sasrec import full_config
+    from repro_torch.data.synthetic import sasrec_batches
+    from repro_torch.models.recsys import sasrec as S
+    cfg = full_config()
+    params = S.init_params(cfg, gen, device="cuda")
+    seq, pos, neg = next(sasrec_batches(cfg.n_items, 2048, cfg.seq_len,
+                                        seed=6, device="cuda"))
+    b = S.TrainBatch(seq, pos, neg,
+                     S.lookup_plan(seq, pos, neg, cfg.n_items + 1))
+    grads = _routes_agree(
+        lambda p, b, impl="cuda": S.loss_fn(p, cfg, b.seq, b.pos, b.neg,
+                                            impl=impl, plan=b.plan),
+        params, b, {"embedding_bag": 1, "block_gather": 2,
+                    "segment_sum": 1})
+    assert not grads["item_emb"][0].any()
+
+
+@pytest.mark.parametrize("F", [6272, 50])
+def test_lane_sum_at_the_training_widths_matches_float64(gen, F):
+    """``plan.lane_sum`` (a gather into id order and the CSR sum) at
+    Equiformer-v2's K·C = 6272 over a molecule plan by source and by
+    destination, and at SASRec's F = 50 over 10^6 lanes into 2^20 rows
+    (most rows empty, a hot id among them): within rtol 1e-5 of a float64
+    ``index_add_`` and bit-identical on a repeat."""
+    from repro_torch.models.plan import edge_plan, lane_sum
+    if F == 50:
+        n = 1 << 20
+        ids = torch.randint(0, n, (1_000_000,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        ids[::7] = 12_345
+        ids[::11] = -1                                # a history pad
+        plan = edge_plan(ids, ids >= 0, n)
+        sides = [("dst", ids)]
+    else:
+        g = _molecule_batch(128, seed=7)
+        plan, n = g.plan, g.num_nodes
+        sides = [("dst", g.edge_dst), ("src", g.edge_src)]
+    for side, ids in sides:
+        grad = torch.randn((ids.numel(), F), generator=gen, device="cuda")
+        got = lane_sum(plan, side, grad)
+        keep = ids >= 0
+        for f0 in range(0, F, 512):                   # float64 in slices
+            ref = torch.zeros((n, min(512, F - f0)), dtype=torch.float64,
+                              device="cuda").index_add_(
+                0, ids[keep].long(), grad[keep, f0:f0 + 512].double())
+            torch.testing.assert_close(got[:, f0:f0 + 512].double(), ref,
+                                       rtol=1e-5, atol=1e-6)
+        assert torch.equal(got, lane_sum(plan, side, grad))
+    torch.cuda.synchronize()

@@ -190,6 +190,30 @@ def test_segment_softmax_matches_jax():
     close(got, ref, FWD_RTOL, FWD_ATOL)
 
 
+def test_segment_softmax_heads_match_jax_vmap():
+    """[E, H] scores, one softmax a head, against JAX's ``vmap`` over heads
+    (as Equiformer-v2 calls it), with the gradient of a weighted sum."""
+    n, e, H = 20, 120, 4
+    a = arrays(n, e, 1, seed=9, invalid=15)
+    rng = np.random.default_rng(10)
+    s = rng.standard_normal((e, H)).astype(np.float32)
+    w = rng.standard_normal((e, H)).astype(np.float32)
+    dst, valid = a["edge_dst"], a["edge_valid"]
+
+    def jfn(x):
+        return jax.vmap(lambda c: jcommon.segment_softmax(c, dst, valid, n),
+                        in_axes=1, out_axes=1)(x)
+
+    ref = jfn(jnp.asarray(s))
+    ref_g = jax.grad(lambda x: jnp.sum(jfn(x) * w))(jnp.asarray(s))
+    tdst, tvalid = torch.as_tensor(dst), torch.as_tensor(valid)
+    got, (got_g,) = grads_of(lambda x: (common.segment_softmax(
+        x, tdst, tvalid, n) * torch.as_tensor(w)).sum(), torch.as_tensor(s))
+    close(common.segment_softmax(torch.as_tensor(s), tdst, tvalid, n), ref,
+          FWD_RTOL, FWD_ATOL)
+    close(got_g, ref_g, GRAD_RTOL, GRAD_ATOL)
+
+
 # ---------------------------------------------------------------------------
 # the models
 # ---------------------------------------------------------------------------

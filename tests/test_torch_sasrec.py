@@ -191,3 +191,91 @@ def test_sasrec_batches_match_the_reference_layout():
     assert int(seq[mask].min()) >= 1 and int(seq.max()) <= n_items
     assert abs(float(lens.float().mean()) - float((rseq > 0).sum(1).mean())) \
         < 1.0
+
+
+# ---------------------------------------------------------------------------
+# training: loss_fn, its gradients and the lookup plan
+# ---------------------------------------------------------------------------
+
+# loss within rtol 1e-5; each gradient leaf's largest difference within
+# 1e-4 of its largest |value| (+1e-6): float32 sums in another order
+LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-6
+
+
+def _train_batch(jcfg, seed=3, B=8):
+    from repro.data.synthetic import sasrec_batches as j_batches
+    return next(j_batches(jcfg.n_items, B, jcfg.seq_len, seed=seed))
+
+
+@pytest.fixture(scope="module")
+def jax_training():
+    """The smoke config's JAX loss and gradients on one ``sasrec_batches``
+    batch, with the params and the batch as numpy."""
+    jcfg = j_configs.smoke_config()
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    seq, pos, neg = _train_batch(jcfg)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: J.loss_fn(p, jcfg, seq, pos, neg)))(jparams)
+    return (jcfg, jax.tree.map(np.asarray, jparams), (seq, pos, neg),
+            float(loss), [np.asarray(x) for x in jax.tree.leaves(grads)])
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_loss_fn_and_gradients_match_jax(jax_training, impl):
+    """``loss_fn`` and every gradient leaf against ``jax.value_and_grad`` of
+    the JAX loss at the smoke config; the padding row's gradient is 0 in
+    both packages."""
+    from repro_torch import tree as T
+    from repro_torch.launch.train import value_and_grad
+    jcfg, jparams, batch, ref_loss, ref_grads = jax_training
+    cfg = _port_config(jcfg)
+    params = interop.sasrec_params_from_jax(jparams, device="cpu")
+    seq, pos, neg = map(t, batch)
+    plan = M.lookup_plan(seq, pos, neg, jcfg.n_items + 1)
+    loss, grads = value_and_grad(lambda p, b: M.loss_fn(
+        p, cfg, *b, impl=impl, plan=plan))(params, (seq, pos, neg))
+    np.testing.assert_allclose(float(loss), ref_loss, rtol=LOSS_RTOL)
+    paths, leaves = T.flatten_with_paths(grads)
+    assert len(leaves) == len(ref_grads)
+    for path, got, ref in zip(paths, leaves, ref_grads):
+        diff = float(np.abs(got.numpy() - ref).max())
+        assert diff <= GRAD_RTOL * float(np.abs(ref).max()) + GRAD_ATOL, \
+            (path, diff)
+    row0 = grads["item_emb"][0]
+    assert not row0.any() and not ref_grads[paths.index("item_emb")][0].any()
+
+
+def test_lookup_plan_sum_is_index_add():
+    """The plan's sum by item id of the three lookups' lane gradients
+    against ``index_add_`` of the same lanes (pads of the history dropped),
+    and the plan's layout: the kept lanes stable-sorted by id."""
+    from repro_torch.models.plan import lane_sum
+    jcfg = j_configs.smoke_config()
+    seq, pos, neg = map(t, _train_batch(jcfg, seed=5, B=16))
+    V = jcfg.n_items + 1
+    plan = M.lookup_plan(seq, pos, neg, V)
+    ids = torch.cat([torch.where(seq == 0, -1, seq).reshape(-1),
+                     pos.reshape(-1), neg.reshape(-1)])
+    lanes = torch.nonzero(ids >= 0).squeeze(1)
+    assert torch.equal(plan.dst_order.long(),
+                       lanes[torch.sort(ids[lanes], stable=True).indices])
+    grad = torch.randn((ids.numel(), 7), generator=torch.Generator()
+                       .manual_seed(6))
+    ref = torch.zeros((V, 7), dtype=torch.float64).index_add_(
+        0, ids[lanes].long(), grad[lanes].double())
+    torch.testing.assert_close(lane_sum(plan, "dst", grad).double(), ref,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_loss_fn_refuses_another_batch_plan(jax_training):
+    jcfg, jparams, batch, _, _ = jax_training
+    cfg = _port_config(jcfg)
+    params = interop.sasrec_params_from_jax(jparams, device="cpu")
+    seq, pos, neg = map(t, batch)
+    plan = M.lookup_plan(seq, pos, neg, jcfg.n_items + 1)
+    with pytest.raises(ValueError, match="another batch"):
+        M.loss_fn(params, cfg, seq.clone(), pos, neg, plan=plan)
+    # without a plan the kernel route builds one for the call
+    np.testing.assert_allclose(
+        float(M.loss_fn(params, cfg, seq, pos, neg)),
+        float(M.loss_fn(params, cfg, seq, pos, neg, plan=plan)), rtol=0)

@@ -199,13 +199,19 @@ def test_smoke_losses_match_jax_step_fn(impl):
 
 
 def test_build_smoke_problem_families():
-    """The GNN archs build and take a step on the host; the LM and recsys
-    archs of the JAX registry name the roadmap."""
+    """The GNN archs (Equiformer-v2 among them) and SASRec build and take a
+    step on the host; SASRec's batches cycle through 32 cached ones, each
+    with its lookup plan; the LM archs of the JAX registry name the
+    roadmap."""
     for arch in train.ARCH_MODULES:
         cfg, params, loss_fn, batches = train.build_smoke_problem(
             arch, 8, device="cpu")
         assert np.isfinite(float(loss_fn(params, batches(0))))
-    for arch in ("gemma2-27b", "sasrec", "equiformer-v2"):
+    _, _, _, batches = train.build_smoke_problem("sasrec", 8, device="cpu")
+    assert batches(33) is batches(1) and batches(0) is not batches(1)
+    assert batches(0).plan.built_from == tuple(batches(0)[:3])
+    assert batches(0).seq.shape == (8, 10)
+    for arch in ("gemma2-27b", "qwen3-moe-30b-a3b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             train.build_smoke_problem(arch, 8, device="cpu")
 
@@ -216,3 +222,18 @@ def test_main_recovers_and_trains(tmp_path, capsys):
                 str(tmp_path)])
     out = capsys.readouterr().out
     assert "steps=14" in out and "recovered=1 ckpts=2" in out
+
+
+# SASRec's smoke batches cycle through 32 cached ones: at 33 steps the last
+# step reads the first one's batch again, so ``main`` compares the loss of
+# one batch before and after training
+@pytest.mark.parametrize("arch,steps", [("equiformer-v2", 12), ("sasrec", 33)])
+def test_main_trains_the_new_archs(tmp_path, capsys, arch, steps):
+    """CPU steps of each arch this slice adds, one failure recovered;
+    ``main`` raises unless the loss falls."""
+    train.main(["--arch", arch, "--device", "cpu", "--steps", str(steps),
+                "--fail-at", "7", "--ckpt-every", "5", "--ckpt-dir",
+                str(tmp_path)])
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out
+    assert f"recovered=1 ckpts={steps // 5}" in out
