@@ -195,7 +195,24 @@ Phases, one report line each:
    and the kernels at the lookup's shapes (the history's 3.28 M one-slot
    bags, the 6.55 M positive and negative rows, the 9.8 M lane gradients
    into id order and their sum into 2^20 rows), each against its plain
-   version and timed beside it, its library call and its bound.
+   version and timed beside it, its library call and its bound;
+10. LM training, once phase 9's state is freed: qwen3-moe-30b-a3b at full
+   width (d_model 2048, 32 / 4 heads of 128, 128 experts top-8, expert
+   d_ff 768, vocab 151,936, bf16), its depth cut to 2 of 48 layers
+   (1.87 B parameters; ``LM_TRAIN_LAYERS`` says why), the train_4k
+   cell's batch cut to one 4,096-token sequence a step (4 cached
+   ``token_stream`` batches made on the device), weights from ``--seed``.
+   ``loss_fn`` runs attention through the plain version and the MoE's
+   dispatch and combine on the graph kernels.  The kernel route against
+   ``impl="torch"`` on the first batch (the loss within rtol 1e-5, each
+   gradient leaf's largest difference within 2^-6 of its largest |value|;
+   see ``LM_TRAIN_GRAD_RTOL``), 4L block_gather + 2L segment_sum launches
+   a step; 20 supervised steps as GIN's (the step-10 state copied to the
+   host for the restart's bit-for-bit check): step ms, losses, checkpoint
+   bytes and the run's write s, peak memory.  Then both kernels at the
+   MoE's shapes (the dispatch, the combine's gather and its sum by token
+   at F = 2048, the combine's backward into the buckets), each against its
+   plain version and timed beside it, its library call and its bound.
 
 The last two lines are the ``kernels`` JSON object and the device line.  It
 exits non-zero, printing no result, without a CUDA device or without the
@@ -363,6 +380,41 @@ MODEL_TRAIN_MAIN = {
     ("sasrec", "block_gather"): "sasrec fwd pos|neg F=50",
     ("sasrec", "embedding_bag"): "sasrec fwd lookup",
 }
+
+# phase 10: LM training, qwen3-moe-30b-a3b at full width with its depth cut
+# to 2 of 48 layers, one train_4k sequence a step, 4 cached token_stream
+# batches.  A checkpoint holds 10 B a parameter (bf16 weights, float32
+# AdamW moments) and the supervised run writes two: at 4 layers (3.11 B
+# parameters, 31.1 GB a checkpoint) the card's host stopped this phase
+# when 47.2 GiB had been written to its disk, over the 45 GiB of writes
+# it allows a run of this script (and a step had run out of memory with
+# 27.5 GiB of the card reserved but unallocated); 3 layers write 2 x 24.9
+# GB, still over.  2 layers write 2 x 18.7 GB (this phase, NVIDIA H100
+# 80GB HBM3, 700 W)
+LM_TRAIN_LAYERS, LM_TRAIN_SEQ, LM_TRAIN_CACHE = 2, 4096, 4
+# the kernel route against impl="torch", bf16 model: both routes compute
+# the same float32 routing and gated rows, sum them by token in float64
+# (the segment_sum kernel's accumulator; index_add in float64) and round
+# once, and sum a token's bucket gradients in float32 before one rounding
+# (the plain route's dispatch reads a float32 copy of the tokens), so they
+# differ at most by the order of float32 reductions (the gate's gradient,
+# a dot product over d), which may flip a bf16 rounding of an input
+# gradient (2^-8 to 2^-7 of it) and so the earlier layers' gradients: each
+# leaf's largest difference must stay within 2^-6 of its largest |value|,
+# the loss within 1e-5.  On the card the two agree bit for bit (this
+# script's diagnosis at seed 0, NVIDIA H100 80GB HBM3, 700 W); a wrong
+# kernel is off by the leaf's whole size
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_RTOL = 1e-5, 2 ** -6
+LM_TRAIN_MAIN = {"block_gather": "lm fwd dispatch F=2048 bf16",
+                 "segment_sum": "lm fwd combine F=2048"}
+
+
+def lm_train_launches(n_layers: int) -> dict:
+    """A step of the MoE LM at ``n_layers`` layers: per layer, forward the
+    dispatch (a gather into the buckets) and the combine (a gather in
+    token-major lane order and a sum by token); backward the combine's
+    gather into the buckets and the dispatch's gather and sum by token."""
+    return {"block_gather": 4 * n_layers, "segment_sum": 2 * n_layers}
 
 
 class SmokeFailure(RuntimeError):
@@ -1591,21 +1643,23 @@ def gnn_batch(torch, shape, live, seed, dev, with_pos):
     return g, E
 
 
-def grad_agreement(torch, got, ref):
-    """Each gradient leaf's largest |difference| against ``TRAIN_GRAD_RTOL``
-    of its largest |value| (+ ``TRAIN_GRAD_ATOL``), the share of its
-    elements within the same tolerances one by one, and the difference's
-    norm over the leaf's."""
+def grad_agreement(torch, got, ref, rtol=TRAIN_GRAD_RTOL,
+                   atol=TRAIN_GRAD_ATOL):
+    """Each gradient leaf's largest |difference| against ``rtol`` of its
+    largest |value| (+ ``atol``), the share of its elements within the same
+    tolerances one by one, and the difference's norm over the leaf's (in
+    float32 for a bf16 leaf)."""
     from repro_torch import tree as T
     paths, ref_leaves = T.flatten_with_paths(ref)
     rows, ok = [], True
     for path, a, b in zip(paths, T.leaves(got), ref_leaves):
+        a, b = a.float(), b.float()
         diff = float((a - b).abs().max())
         scale = float(b.abs().max())
         leaf_ok = bool(torch.isfinite(a).all()) and \
-            diff <= TRAIN_GRAD_RTOL * scale + TRAIN_GRAD_ATOL
+            diff <= rtol * scale + atol
         ok &= leaf_ok
-        close = (a - b).abs() <= TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * b.abs()
+        close = (a - b).abs() <= atol + rtol * b.abs()
         rows.append(dict(path=path, max_abs_diff=diff, max_abs=scale,
                          elementwise_share=float(close.float().mean()),
                          norm_rel=float(torch.linalg.vector_norm(a - b)
@@ -1632,10 +1686,13 @@ def float64_distances(torch, loss_fn, params, g, trees):
 
 
 def route_agreement(torch, timer, arch, loss_fn, params, g, want,
-                    float64_floor=False):
+                    float64_floor=False, loss_rtol=TRAIN_LOSS_RTOL,
+                    grad_rtol=TRAIN_GRAD_RTOL, grad_atol=TRAIN_GRAD_ATOL):
     """The kernel route's loss and gradients against ``impl="torch"`` on the
-    card on one batch, and the launches of one kernel-route value and
-    gradient, which must equal ``want`` (kernel -> launches) exactly.
+    card on one batch (within ``loss_rtol``; each gradient leaf's largest
+    difference within ``grad_rtol`` of its largest |value| + ``grad_atol``),
+    and the launches of one kernel-route value and gradient, which must
+    equal ``want`` (kernel -> launches) exactly.
     With ``float64_floor`` (a model whose float32 gradients are
     ill-conditioned), a leaf off
     ``impl="torch"`` by more than the tolerance passes if it lies within
@@ -1650,7 +1707,8 @@ def route_agreement(torch, timer, arch, loss_fn, params, g, want,
     (lt, gt), plain_s = timer.wall(lambda: value_and_grad(
         lambda p, b: loss_fn(p, b, "torch"))(params, g))
     loss_rel = abs(float(lk) - float(lt)) / abs(float(lt))
-    grads_ok, grad_rows = grad_agreement(torch, gk, gt)
+    grads_ok, grad_rows = grad_agreement(torch, gk, gt, grad_rtol,
+                                         grad_atol)
     grad_max_rel = max(r["max_abs_diff"] / max(r["max_abs"], 1e-30)
                        for r in grad_rows)
     share_min = min(r["elementwise_share"] for r in grad_rows)
@@ -1684,7 +1742,7 @@ def route_agreement(torch, timer, arch, loss_fn, params, g, want,
         launches_per_step=per_step,
         **{k: (f"{v:.3e}" if isinstance(v, float) else v)
            for k, v in floor.items()})
-    check(math.isfinite(float(lk)) and loss_rel <= TRAIN_LOSS_RTOL,
+    check(math.isfinite(float(lk)) and loss_rel <= loss_rtol,
           f"{arch} loss: kernel route {float(lk)} vs impl='torch' "
           f"{float(lt)} (rel {loss_rel:.3e})")
     check(grads_ok, f"{arch} gradients: kernel route off impl='torch' by "
@@ -1816,13 +1874,14 @@ def small_kernel_rows(torch, timer, dev, arch, g, table, F, seed):
 
 
 def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
-                   kernels=GRAPH_KERNELS):
+                   kernels=GRAPH_KERNELS, snapshot_device=None):
     """``TRAIN_STEPS`` steps of launch/train.py's step over ``batches(step)``
     under ``TrainSupervisor`` (a checkpoint every ``TRAIN_CKPT_EVERY``, one
     failure injected at ``TRAIN_FAIL_AT``), every launch counter at 0.
     Records each call's step, wall time and loss, the state a restart
-    resumes from, any exception out of the step itself and the launches of
-    ``kernels``."""
+    resumes from (held against a copy of the step-10 state kept on
+    ``snapshot_device``, the card by default), any exception out of the
+    step itself and the launches of ``kernels``."""
     import tempfile
     from repro_torch import backend
     from repro_torch import tree as T
@@ -1841,12 +1900,13 @@ def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
 
     def wrapped(state, batch):
         s = rec["steps"][-1]
-        if len(rec["steps"]) > 1 and s <= rec["steps"][-2]:
+        if len(rec["steps"]) > 1 and s <= rec["steps"][-2] \
+                and "state" in snap:
             # the supervisor restored a checkpoint: it must be the state
             # after step TRAIN_CKPT_EVERY, bit for bit
             rec["restart_equals_checkpoint"] = all(
-                torch.equal(a, b) for a, b in zip(T.leaves(state),
-                                                  snap["state"]))
+                torch.equal(a.to(b.device), b)
+                for a, b in zip(T.leaves(state), snap["state"]))
         try:
             (state, metrics), sec = timer.wall(lambda: step_fn(state, batch))
         except RuntimeError as e:            # a fault, not an injection
@@ -1855,19 +1915,24 @@ def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
         rec["seconds"].append(sec)
         rec["losses"].append(float(metrics["loss"]))
         if s + 1 == TRAIN_CKPT_EVERY and "state" not in snap:
-            snap["state"] = [x.clone() for x in T.leaves(state)]
+            snap["state"] = [x.to(snapshot_device or x.device, copy=True)
+                             for x in T.leaves(state)]
         return state, metrics
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         sup = TrainSupervisor(ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
                               injector=FailureInjector([TRAIN_FAIL_AT]),
                               straggler=StragglerPolicy(), device=dev)
-        state = (params, init_opt_state(params, opt_cfg))
+        # the first state is held by the supervisor alone, so a step's
+        # update frees it as the model's later states are freed
+        first = [(params, init_opt_state(params, opt_cfg))]
+        del params
         backend.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        state, run_s = timer.wall(lambda: sup.run(state, recorded,
+        state, run_s = timer.wall(lambda: sup.run(first.pop(), recorded,
                                                   TRAIN_STEPS, wrapped))
         rec["launches"] = {k: backend.LAUNCHES[k] for k in kernels}
+        rec["checkpoint_write_seconds"] = list(sup.ckpt.write_seconds)
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         rec["run_seconds"] = run_s
         rec["report"] = dataclasses.asdict(sup.report)
@@ -2261,6 +2326,122 @@ def model_train_phase(torch, timer, dev, seed, report,
     torch.cuda.empty_cache()
     out["sasrec"] = sasrec_train_run(torch, timer, dev, seed, profile)
     report["model_train_kernels"] += out["sasrec"].pop("kernels")
+
+
+# ---------------------------------------------------------------------------
+# LM training: qwen3-moe at full width, the MoE on the graph kernels
+# ---------------------------------------------------------------------------
+
+def lm_kernel_rows(torch, timer, dev, params, cfg, seed):
+    """Both graph kernels at the MoE's shapes over a token plan of layer 0's
+    router (T = 4,096 tokens, K = 8, C = 321): the dispatch (41,088 bucket
+    rows from the 4,096 token rows, bf16 gathered as float32 pairs), the
+    combine's gather (32,768 lanes from the buckets; the dispatch's
+    backward has its shape) and its sum by token at F = 2048 (the
+    dispatch's backward sum too), and the combine's backward (the token
+    gradients, float32, into the buckets)."""
+    from repro_torch.models.transformer import layers as L
+    gen = torch.Generator(device=dev).manual_seed(seed + 61)
+    T, d = LM_TRAIN_SEQ, cfg.d_model
+    xt = torch.randn((T, d), generator=gen, device=dev, dtype=cfg.dtype)
+    p0 = params["layers"][0]["moe"]
+    _, eidx, _ = L.route(p0, cfg, xt.float())
+    plan = L.token_plan(eidx, L.capacity(cfg, T), cfg.n_experts)
+    n_slots = plan.E * plan.C
+
+    def pairs(rows):               # a bf16 table and its zero row, as f32
+        return torch.cat([rows, rows.new_zeros((1, d))]).view(torch.float32)
+
+    yb = torch.randn((n_slots, d), generator=gen, device=dev,
+                     dtype=cfg.dtype)
+    grad_y = torch.randn((T, d), generator=gen, device=dev)
+    rows = [time_stream_gather(torch, timer, LM_TRAIN_MAIN["block_gather"],
+                               pairs(xt), plan.tok_of_slot),
+            time_stream_gather(torch, timer, "lm fwd combine F=2048 bf16",
+                               pairs(yb), plan.slot_of_lane),
+            time_stream_gather(torch, timer, "lm bwd combine F=2048",
+                               torch.cat([grad_y,
+                                          grad_y.new_zeros((1, d))]),
+                               plan.tok_of_slot)]
+    lanes = L._rows(yb, plan.slot_of_lane).float()
+    rows.append(time_stream_sum(torch, timer, LM_TRAIN_MAIN["segment_sum"],
+                                lanes, plan.row_ptr, plan.partition(d)))
+    for r in rows:
+        r.update(tokens=T, slots=n_slots, capacity=plan.C,
+                 kept_lanes=int(plan.keep.sum()))
+    return rows
+
+
+def lm_train_phase(torch, timer, dev, seed, report, profile=False) -> None:
+    """Phase 10: qwen3-moe-30b-a3b at full width, 2 of its 48 layers, one
+    4,096-token sequence a step through launch/train.py's step: the kernel
+    route against ``impl="torch"``, 20 supervised steps, and both graph
+    kernels at the MoE's shapes (``lm_train_kernels``)."""
+    from repro_torch import tree as T
+    from repro_torch.configs.qwen3_moe_30b_a3b import full_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer.layers import capacity
+    from repro_torch.optim import AdamWConfig
+
+    cfg = dataclasses.replace(full_config(), n_layers=LM_TRAIN_LAYERS)
+    params, init_s = timer.wall(lambda: M.init_params(cfg, seed + 53,
+                                                      device=dev))
+    stream = token_stream(cfg.vocab, 1, LM_TRAIN_SEQ, seed=seed + 59,
+                          device=dev)
+    cache, batch_s = timer.wall(lambda: [next(stream)
+                                         for _ in range(LM_TRAIN_CACHE)])
+    n_params = M.param_count(params)
+    want = lm_train_launches(cfg.n_layers)
+    out = report["lm_train"] = dict(
+        config=cfg.name, shape="train_4k", layers=cfg.n_layers,
+        full_layers=full_config().n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        experts=cfg.n_experts, top_k=cfg.top_k, expert_d_ff=cfg.d_ff,
+        vocab=cfg.vocab, dtype=str(cfg.dtype), seq=LM_TRAIN_SEQ,
+        sequences_a_step=1, capacity=capacity(cfg, LM_TRAIN_SEQ),
+        params=n_params, init_seconds=init_s, batch_seconds=batch_s)
+    say("lmtrain.setup", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                            for k, v in out.items()})
+
+    loss_fn = (lambda p, b, impl="cuda":                      # noqa: E731
+               M.loss_fn(p, cfg, b[0], b[1], impl))
+    out["routes"] = route_agreement(
+        torch, timer, cfg.name, loss_fn, params, cache[0], want,
+        loss_rtol=LM_TRAIN_LOSS_RTOL, grad_rtol=LM_TRAIN_GRAD_RTOL,
+        grad_atol=0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the run holds the only reference to the first parameters (31 GB of
+    # state with their moments), so each step's update frees the last
+    first = [params]
+    del params
+    state, step_fn, rec = supervised_run(
+        torch, timer, lambda s: cache[s % len(cache)], first.pop(), loss_fn,
+        AdamWConfig(lr=1e-3), dev, tuple(want), snapshot_device="cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the run's own checkpoints give the write times: one more write of the
+    # state would take the call past the disk it may write
+    out.update(supervised_summary(rec), checkpoint_bytes=sum(
+        x.numel() * x.element_size() for x in T.leaves(state)),
+        checkpoint_write_seconds=rec["checkpoint_write_seconds"])
+    say("lmtrain.qwen3_moe", **{
+        k: (f"{v:.4g}" if isinstance(v, float) else v)
+        for k, v in out.items() if k.startswith((
+            "step_ms", "loss_f", "loss_l", "run_s", "supervisor", "launches",
+            "restart", "checkpoint", "max_mem", "step_errors"))})
+    check_supervised(cfg.name, rec, want)
+    if profile:
+        _, out["profile_step"] = profiled(
+            torch, lambda: step_fn(state, cache[0]))
+    params = state[0]
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["lm_train_kernels"] = lm_kernel_rows(torch, timer, dev, params,
+                                                cfg, seed)
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
@@ -3418,6 +3599,11 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     t0 = time.perf_counter()
     model_train_phase(torch, timer, dev, seed, report, profile)
     report["model_train_seconds"] = time.perf_counter() - t0
+    gc.collect()                       # phase 9's state goes before the LM's
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_train_phase(torch, timer, dev, seed, report, profile)
+    report["lm_train_seconds"] = time.perf_counter() - t0
 
 
 def model_train_entries(report: dict, name: str) -> dict:
@@ -3443,6 +3629,21 @@ def model_train_entries(report: dict, name: str) -> dict:
     return out
 
 
+def lm_train_entry(report: dict, name: str) -> dict:
+    """Kernel ``name``'s phase-10 entry: its row at the MoE's main shape
+    (``LM_TRAIN_MAIN``), its launches on the supervised run and in one
+    measured step, the largest error over its MoE rows."""
+    rows = [r for r in report["lm_train_kernels"] if r["name"] == name]
+    main = next(r for r in rows if r["shape"] == LM_TRAIN_MAIN[name])
+    run = report["lm_train"]
+    return dict(shape=main["shape"], launches=run["launches"][name],
+                launches_per_step=run["routes"]["launches_per_step"][name],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
+
+
 def kernels_line(report: dict) -> dict:
     """The ``kernels`` JSON object: each kernel at its path's dominant shape
     (the push sweep's first row: x[src] over the sweep plan and the CSR sum
@@ -3456,7 +3657,9 @@ def kernels_line(report: dict) -> dict:
     ``max_abs_err`` over every train-path row (F = 100, 64, and PNA's and
     EGNN's own 602, 75 and 3); the ``model_train`` entries (the graph
     kernels and ``embedding_bag``) the same for phase 9's Equiformer-v2
-    (K·C = 6272) and SASRec (F = 50) runs."""
+    (K·C = 6272) and SASRec (F = 50) runs; the ``lm_train`` entries the
+    same for phase 10's MoE (the dispatch, F = 2048 bf16; the combine's sum
+    by token)."""
     launches = report["service"]["launches"]
     meta = {
         "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
@@ -3533,6 +3736,9 @@ def kernels_line(report: dict) -> dict:
         if table in (meta, recsys_meta):   # phase 9's training paths
             for row in out[-len(table):]:
                 row["model_train"] = model_train_entries(report, row["name"])
+        if table is meta:            # phase 10's MoE dispatch and combine
+            for row in out[-2:]:
+                row["lm_train"] = lm_train_entry(report, row["name"])
         if table is meta:            # the sealed run's push stream
             for row in out[-2:]:
                 main = next(r for r in report["tier"]["kernels"]
@@ -3573,8 +3779,9 @@ def main(argv=None) -> int:
                          "flush and a PageRank at 8 shards, the LM "
                          "check's prefill, one replayed and one eager "
                          "paged decode step, one serve_bulk chunk of "
-                         "SASRec and one gin-tu training step (their times "
-                         "then include the profiler's cost)")
+                         "SASRec, one gin-tu, Equiformer-v2, SASRec and "
+                         "qwen3-moe training step (their times then "
+                         "include the profiler's cost)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3611,6 +3818,9 @@ def main(argv=None) -> int:
         equiformer_max_memory_allocated=report["model_train"]["equiformer"][
             "max_memory_allocated"],
         sasrec_train_max_memory_allocated=report["model_train"]["sasrec"][
+            "max_memory_allocated"],
+        lm_train_seconds=f"{report['lm_train_seconds']:.1f}",
+        lm_train_max_memory_allocated=report["lm_train"][
             "max_memory_allocated"],
         file=f"chiprun_out/{name}")
     print(json.dumps(kernels_line(report)))

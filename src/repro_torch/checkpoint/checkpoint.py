@@ -20,6 +20,7 @@ import json
 import os
 import shutil
 import threading
+import time
 from pathlib import Path
 from typing import Any, List, Optional
 
@@ -30,10 +31,29 @@ from repro_torch import tree as T
 from repro_torch.backend import resolve_device
 
 
+# numpy has no bfloat16: a bf16 leaf is written as 2-byte void records
+# (the bytes and the ``.npy`` header JAX's ml_dtypes arrays get) and
+# named "bfloat16" in the manifest, as the JAX package names it
+_BF16_NPY = np.dtype("V2")
+
+
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_NPY)
+        return host.numpy()
     return np.array(leaf)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == _BF16_NPY else str(a.dtype)
+
+
+def _from_host(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _treedef(tree) -> str:
@@ -63,7 +83,7 @@ def _write(out: Path, step: int, paths: List[str], host: List[np.ndarray],
     for i, (p, a) in enumerate(zip(paths, host)):
         np.save(tmp / f"{i}.npy", a)
         manifest["leaves"].append({"path": p, "shape": list(a.shape),
-                                   "dtype": str(a.dtype)})
+                                   "dtype": _dtype_name(a)})
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     if out.exists():
         shutil.rmtree(out)
@@ -80,11 +100,13 @@ def save(ckpt_dir: str | os.PathLike, step: int, tree: Any) -> Path:
 
 class AsyncCheckpointer:
     """Orbax-style async writer: snapshot on-thread, persist off-thread;
-    keeps the newest ``keep`` checkpoints."""
+    keeps the newest ``keep`` checkpoints.  ``write_seconds`` holds each
+    finished write's time on the writer thread."""
 
     def __init__(self, ckpt_dir: str | os.PathLike, keep: int = 3):
         self.ckpt_dir = Path(ckpt_dir)
         self.keep = keep
+        self.write_seconds: List[float] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
@@ -105,8 +127,10 @@ class AsyncCheckpointer:
 
         def write():
             try:
+                t0 = time.perf_counter()
                 _write(self.ckpt_dir / f"step_{step:09d}", step, paths,
                        host, treedef)
+                self.write_seconds.append(time.perf_counter() - t0)
                 self._gc()
             except Exception as e:                      # raised by wait()
                 self._error = e
@@ -142,5 +166,6 @@ def restore(ckpt_dir: str | os.PathLike, template: Any,
     if n != len(T.leaves(template)):
         raise ValueError(f"checkpoint {src} holds {n} leaves, the template "
                          f"{len(T.leaves(template))}")
-    host = [np.load(src / f"{i}.npy") for i in range(n)]
-    return T.unflatten(template, [torch.from_numpy(a).to(dev) for a in host])
+    return T.unflatten(template, [
+        _from_host(np.load(src / f"{i}.npy"), leaf["dtype"]).to(dev)
+        for i, leaf in enumerate(manifest["leaves"])])

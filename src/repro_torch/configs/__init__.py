@@ -1,1 +1,2 @@
-"""Model configurations of the port (own copies; no registry yet)."""
+"""Model configurations of the port (its own copies) and the arch x shape
+cell registry (``registry.py``)."""

@@ -2,6 +2,7 @@
 from repro_torch.models.gnn.egnn import EGNNConfig
 
 FAMILY = "gnn"
+SKIP_SHAPES = {}
 MODULE = "egnn"
 NEEDS_POS = True
 

@@ -4,6 +4,7 @@ copy of ``repro.configs.equiformer_v2``."""
 from repro_torch.models.gnn.equiformer_v2 import EquiformerV2Config
 
 FAMILY = "gnn"
+SKIP_SHAPES = {}
 MODULE = "equiformer_v2"
 NEEDS_POS = True
 

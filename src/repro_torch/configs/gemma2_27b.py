@@ -1,10 +1,14 @@
 """Gemma-2 27B [arXiv:2408.00118]: 46 layers, d_model 4608, 32 query heads
 over 16 KV heads of head_dim 128, d_ff 36864, vocab 256000; local (window
 4096) and global layers alternate; attention softcap 50, final softcap 30.
-The port's own copy of ``repro.configs.gemma2_27b``."""
+Hybrid local / global, so long_500k runs.  The port's own copy of
+``repro.configs.gemma2_27b``."""
 import torch
 
 from repro_torch.models.transformer.layers import LMConfig
+
+FAMILY = "lm"
+SKIP_SHAPES = {}
 
 
 def full_config() -> LMConfig:

@@ -3,6 +3,7 @@ learnable eps."""
 from repro_torch.models.gnn.gin import GINConfig
 
 FAMILY = "gnn"
+SKIP_SHAPES = {}
 MODULE = "gin"
 NEEDS_POS = False
 

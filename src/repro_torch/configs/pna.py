@@ -3,6 +3,7 @@ mean/max/min/std, scalers identity/amplification/attenuation."""
 from repro_torch.models.gnn.pna import PNAConfig
 
 FAMILY = "gnn"
+SKIP_SHAPES = {}
 MODULE = "pna"
 NEEDS_POS = False
 

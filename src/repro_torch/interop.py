@@ -156,7 +156,10 @@ def log_to_numpy(log: UpdateLog) -> Dict[str, np.ndarray]:
 def lm_params_from_jax(tree, device=None) -> Dict[str, Any]:
     """The port's LM parameters from a JAX ``init_params`` tree (numpy or
     JAX leaves): layer ``p * period + i`` is ``periods["l{i}"]`` at index p,
-    then the ``tail`` layers in order."""
+    then the ``tail`` layers in order.  Every leaf is cut at its period
+    index, so a MoE layer's stacked experts [n_periods, E, d, f] become its
+    [E, d, f].  A JAX gradient tree has the parameters' structure and maps
+    the same way."""
     def conv(node, index=None):
         if isinstance(node, dict):
             return {k: conv(v, index) for k, v in node.items()}

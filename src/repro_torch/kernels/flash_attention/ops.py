@@ -66,9 +66,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wrapper allocates at the size the C side gives, then the attention
     kernel runs).  That is a dispatch
     on the type, not a fallback: a call that cannot build or launch its
-    kernel raises.
+    kernel raises.  The kernels have no backward, so a call under autograd
+    with a q, k or v that asks for a gradient raises too, on any device:
+    training runs attention with ``impl="torch"``.
     """
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: the flash kernels have no backward, so no "
+            "gradient would reach q, k or v; train with impl='torch' (the "
+            "plain version), or call under torch.no_grad()")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale=scale, causal=causal,
                              window=window, softcap=softcap)

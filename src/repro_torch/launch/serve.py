@@ -93,6 +93,10 @@ class DecodeGraph:
 
     def __init__(self, params: Params, cfg: LMConfig,
                  caches: List[kvcache.PagedKVCache], tok: torch.Tensor):
+        if cfg.moe:
+            raise NotImplementedError(
+                "DecodeGraph: MoE layers decode through the dense "
+                "serve_step; the paged path waits (ROADMAP.md, queue 1)")
         side = torch.cuda.Stream(device=tok.device)
         side.wait_stream(torch.cuda.current_stream(tok.device))
         with torch.cuda.stream(side):

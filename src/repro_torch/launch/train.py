@@ -1,4 +1,6 @@
-"""End-to-end training driver, as ``repro.launch.train``: the GNN family
+"""End-to-end training driver, as ``repro.launch.train``: the LM family
+(``qwen3-moe-30b-a3b``, the default as in JAX's driver, ``kimi-k2-1t-a32b``,
+``gemma2-27b``, ``qwen1.5-4b``, ``gemma3-27b``), the GNN family
 (``gin-tu``, ``pna``, ``egnn``, ``equiformer-v2``) and SASRec on one
 device.
 
@@ -6,12 +8,13 @@ Composes: arch config -> model loss -> AdamW (+clip) -> TrainSupervisor
 (async checkpointing, failure injection, straggler policy) -> batches.
 :func:`make_step` is the JAX ``step_fn`` (loss and gradients, clip to a
 global norm of 1, ``warmup_cosine`` over 10 warmup steps, AdamW), eager
-under autograd; on the card the GNNs' gathers and sums by destination run
-on the ``block_gather`` and ``segment_sum`` kernels, forward and backward,
-and SASRec's item lookups on ``embedding_bag`` and ``block_gather`` with
-their gradient on ``block_gather`` and ``segment_sum``.  The LM family
-waits for its slice (ROADMAP.md).
+under autograd.  On the card the MoE's dispatch and combine, the GNNs'
+gathers and sums by destination and SASRec's item-table gradient run on
+the ``block_gather`` and ``segment_sum`` kernels, forward and backward,
+and SASRec's history lookup on ``embedding_bag``; LM attention trains
+through the plain version (the flash kernels have no backward).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
         --steps 50 --fail-at 23 --ckpt-every 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \\
@@ -28,43 +31,22 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.backend import resolve_device
-from repro_torch.data.synthetic import rmat_edges, sasrec_batches
+from repro_torch.configs.registry import ARCH_MODULES, GNN_MODEL_MODULES
+from repro_torch.data.synthetic import rmat_edges, sasrec_batches, token_stream
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.optim import (AdamWConfig, adamw_update, clip_by_global_norm,
                                init_opt_state, warmup_cosine)
 from repro_torch.runtime import (FailureInjector, StragglerPolicy,
                                  TrainSupervisor)
 
-# the archs the port trains, and the JAX registry's others by family
-ARCH_MODULES = {
-    "gin-tu": "repro_torch.configs.gin_tu",
-    "pna": "repro_torch.configs.pna",
-    "egnn": "repro_torch.configs.egnn",
-    "equiformer-v2": "repro_torch.configs.equiformer_v2",
-    "sasrec": "repro_torch.configs.sasrec",
-}
-GNN_MODEL_MODULES = {
-    "gin": "repro_torch.models.gnn.gin",
-    "pna": "repro_torch.models.gnn.pna",
-    "egnn": "repro_torch.models.gnn.egnn",
-    "equiformer_v2": "repro_torch.models.gnn.equiformer_v2",
-}
-NOT_YET = {
-    "qwen3-moe-30b-a3b": "lm", "kimi-k2-1t-a32b": "lm", "gemma2-27b": "lm",
-    "qwen1.5-4b": "lm", "gemma3-27b": "lm",
-}
 WARMUP_STEPS, MAX_GRAD_NORM = 10, 1.0
 SMOKE_NODES, SMOKE_EDGES = 256, 1024
-SMOKE_CACHED_BATCHES = 32          # the recsys smoke problem's batches
+SMOKE_CACHED_BATCHES = 32          # the LM and recsys smoke batches
+SMOKE_LM_SEQ = 64
 
 
 def arch_module(arch: str):
-    """The config module of ``arch``; NotImplementedError for an arch of
-    the JAX registry the port does not train yet."""
-    if arch in NOT_YET:
-        raise NotImplementedError(
-            f"training {arch} ({NOT_YET[arch]} family) is not ported yet; "
-            f"see ROADMAP.md, queue 1 item 8")
+    """The config module of ``arch``."""
     if arch not in ARCH_MODULES:
         raise ValueError(f"unknown arch {arch!r}; the port trains "
                          f"{sorted(ARCH_MODULES)}")
@@ -73,14 +55,27 @@ def arch_module(arch: str):
 
 def build_smoke_problem(arch: str, batch: int, seed: int = 0, device=None):
     """Returns (cfg, params, loss_fn(params, batch), batches(step)->batch),
-    made on ``device`` from ``seed`` at the arch's smoke config.  A GNN: an
-    RMAT graph of 256 nodes and 1,024 edges with random features,
+    made on ``device`` from ``seed`` at the arch's smoke config.  An LM:
+    ``batch`` sequences of 64 ``token_stream`` tokens a batch, 32 cached,
+    ``batches(s)`` the cache's ``s % 32`` as ``(tokens, labels)``.  A GNN:
+    an RMAT graph of 256 nodes and 1,024 edges with random features,
     positions and labels, the one batch carrying its edge plan.  SASRec:
-    ``batch`` users a batch, 32 cached ``sasrec_batches``, ``batches(s)``
-    the cache's ``s % 32``, each carrying its lookup plan."""
+    ``batch`` users a batch, 32 cached ``sasrec_batches``, each carrying
+    its lookup plan."""
     m = arch_module(arch)
     dev = resolve_device(device)
     cfg = m.smoke_config()
+    if m.FAMILY == "lm":
+        from repro_torch.models.transformer import model as M
+        params = M.init_params(cfg, seed, device=dev)
+        stream = token_stream(cfg.vocab, batch, SMOKE_LM_SEQ, seed=seed,
+                              device=dev)
+        cache = [next(stream) for _ in range(SMOKE_CACHED_BATCHES)]
+
+        def lm_loss(p, b):
+            return M.loss_fn(p, cfg, b[0], b[1])
+
+        return cfg, params, lm_loss, lambda s: cache[s % len(cache)]
     gen = torch.Generator(device=dev).manual_seed(seed)
     if m.FAMILY == "recsys":
         from repro_torch.models.recsys import sasrec as S
@@ -152,7 +147,7 @@ def make_step(loss_fn, opt_cfg: AdamWConfig, total_steps: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="gin-tu")
+    ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

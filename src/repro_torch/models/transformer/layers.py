@@ -1,27 +1,37 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention (local /
-global, softcap, bias) and the SwiGLU MLP, as in
-``repro.models.transformer.layers``.
+global, softcap, bias), the SwiGLU MLP and the capacity-bucket MoE with
+top-k routing, as in ``repro.models.transformer.layers``.
 
 Parameters are nested dicts of tensors and every ``apply_*`` is a plain
 function of them, so the JAX package's parameter trees carry over one to one
-(``interop.lm_params_from_jax``).  ``RMSNorm``, ``Attention``, ``MLP`` and
-``DecoderLayer`` are ``nn.Module`` views of the same dicts.  The attention
-``impl`` is the port's switch: ``"cuda"`` goes through the flash kernel
-(its plain version for CPU tensors), ``"torch"`` through the plain version.
+(``interop.lm_params_from_jax``).  ``RMSNorm``, ``Attention``, ``MLP``,
+``MoE`` and ``DecoderLayer`` are ``nn.Module`` views of the same dicts.  The
+``impl`` is the port's switch: ``"cuda"`` goes through the kernels (their
+plain versions for CPU tensors), ``"torch"`` through the plain versions.
 
-Not in this slice: MoE (``init_moe`` / ``apply_moe`` / ``apply_moe_ep``) and
-the ``act_shard_axes`` sharding constraints.
+The MoE's token -> expert dispatch is a gather of token rows at ids the
+routing decides, and its combine a sum by token: on the kernel route both
+run on ``block_gather`` and ``segment_sum`` over a :class:`TokenPlan` built
+once a layer call, as the GNNs' edges run over ``models/plan.py``.
+
+Not in this slice: ``apply_moe_ep`` and the ``act_shard_axes`` sharding
+constraints (ROADMAP.md, queue 1 item 6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.backend import resolve_impl
+from repro_torch.kernels.block_gather.ops import gather_rows
 from repro_torch.kernels.flash_attention import attention as flash_attention
+from repro_torch.kernels.segment_matmul.ops import (csr_items_per_cta,
+                                                    merge_path_partition,
+                                                    segment_sum_csr)
 
 Params = Dict[str, Any]
 
@@ -36,6 +46,11 @@ class LMConfig:
     d_ff: int
     vocab: int
     d_head: int = 0                      # 0 -> d_model // n_heads
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
     qkv_bias: bool = False
     window_pattern: Tuple[int, ...] = (0,)   # per-layer window, 0 = global,
     # repeated cyclically over the layers (Gemma-2: (4096, 0))
@@ -87,11 +102,27 @@ def init_attention(gen, cfg: LMConfig, device) -> Params:
     return p
 
 
-def init_mlp(gen, cfg: LMConfig, device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: LMConfig, device, d_ff: Optional[int] = None
+             ) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {"wi": _dense(gen, (d, f), cfg.dtype, device),
             "wg": _dense(gen, (d, f), cfg.dtype, device),
             "wo": _dense(gen, (f, d), cfg.dtype, device)}
+
+
+def init_moe(gen, cfg: LMConfig, device) -> Params:
+    """A float32 router [d, E], experts ``wi`` / ``wg`` [E, d, f] and
+    ``wo`` [E, f, d] (scaled by E^-1/2 as the JAX package's ``_dense``
+    scales by the first axis), and the shared expert when asked for."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": _dense(gen, (d, e), torch.float32, device),
+         "wi": _dense(gen, (e, d, f), cfg.dtype, device),
+         "wg": _dense(gen, (e, d, f), cfg.dtype, device),
+         "wo": _dense(gen, (e, f, d), cfg.dtype, device)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, device,
+                               cfg.d_ff * cfg.n_shared_experts)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -166,14 +197,218 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return h.mul_(x @ p["wi"]) @ p["wo"]
 
 
+# ---------------------------------------------------------------------------
+# MoE: top-k routing into capacity buckets
+# ---------------------------------------------------------------------------
+
+def capacity(cfg: LMConfig, T: int) -> int:
+    """Slots an expert per call of T tokens (GShard: overflow drops, the
+    residual passes through); ``capacity_factor >= E / K`` is dropless."""
+    return min(T, int(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+               + 1)
+
+
+def route(p: Params, cfg: LMConfig, xf: torch.Tensor):
+    """Float32 routing of the tokens xf [T, d]: (gate [T, K] renormalised
+    over the top K, expert ids [T, K], the Switch aux loss
+    E * sum_e f_e * P_e)."""
+    T, E, K = xf.shape[0], cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xf @ p["router"], dim=-1)
+    gate, eidx = torch.topk(probs, K, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / (T * K)
+    return gate, eidx, E * torch.sum(probs.mean(dim=0) * ce)
+
+
+@dataclasses.dataclass(eq=False)
+class TokenPlan:
+    """One MoE call's routing laid out for the kernels.
+
+    A lane is one (token, choice) pair, lane ``t * K + k`` in token-major
+    order.  Sorted by expert (stable, so by token within an expert, as
+    ``jnp.argsort`` sorts), a lane's rank within its expert decides whether
+    it keeps a slot of its expert's ``C``: ``order`` is the sort's
+    permutation, ``keep`` and ``slot`` (``E * C`` when dropped) are in that
+    order.  For the kernels: ``slot_of_lane`` (token-major; ``E * C``, the
+    zero row, when dropped), ``tok_of_slot`` (``T``, the zero row, for an
+    empty slot) and ``row_ptr`` (token ``t``'s lanes, ``K`` a token).  All
+    int32 but ``order`` and ``keep``.
+    """
+    T: int
+    K: int
+    E: int
+    C: int
+    order: torch.Tensor               # i64[T * K]
+    keep: torch.Tensor                # bool[T * K], expert order
+    slot: torch.Tensor                # i32[T * K], expert order
+    slot_of_lane: torch.Tensor        # i32[T * K], token-major
+    tok_of_slot: torch.Tensor         # i32[E * C]
+    row_ptr: torch.Tensor             # i32[T + 1]
+    _parts: Dict = dataclasses.field(default_factory=dict)
+
+    def partition(self, F: int) -> torch.Tensor:
+        """The merge-path partition of the lanes by token at width F."""
+        key = csr_items_per_cta(F)
+        if key not in self._parts:
+            self._parts[key] = merge_path_partition(self.row_ptr, key)
+        return self._parts[key]
+
+    def sum_by_token(self, lanes: torch.Tensor) -> torch.Tensor:
+        """f32[T, F]: the token-major lanes [T * K, F] (float32) summed by
+        token on ``segment_sum``."""
+        return segment_sum_csr(lanes, self.row_ptr,
+                               self.partition(lanes.shape[1]))
+
+
+def token_plan(eidx: torch.Tensor, C: int, E: int) -> TokenPlan:
+    """The plan of the expert ids eidx [T, K] at capacity C."""
+    T, K = eidx.shape
+    dev = eidx.device
+    se, order = torch.sort(eidx.reshape(-1), stable=True)
+    counts = torch.bincount(se, minlength=E)
+    estart = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * K, device=dev) - estart[se]
+    keep = rank < C
+    slot = torch.where(keep, se * C + rank, E * C)
+    slot_of_lane = torch.empty_like(slot)
+    slot_of_lane[order] = slot
+    tok_of_slot = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
+    tok_of_slot[slot] = order // K          # dropped lanes write row E * C
+    i32 = torch.int32
+    return TokenPlan(T=T, K=K, E=E, C=C, order=order, keep=keep,
+                     slot=slot.to(i32), slot_of_lane=slot_of_lane.to(i32),
+                     tok_of_slot=tok_of_slot[:E * C].to(i32).contiguous(),
+                     row_ptr=torch.arange(T + 1, dtype=i32, device=dev) * K)
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` on ``block_gather`` with the zero row ``table[R]``
+    appended: a row is bytes, so a bf16 table is gathered as float32 pairs,
+    exactly."""
+    table = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+    if table.dtype == torch.float32:
+        return gather_rows(table, ids, rows_per_step=1)
+    if table.element_size() != 2 or table.shape[1] % 2:
+        raise TypeError(f"the MoE gathers take float32, or 2-byte rows of "
+                        f"even width, got {table.dtype} [.., "
+                        f"{table.shape[1]}]")
+    return gather_rows(table.view(torch.float32), ids,
+                       rows_per_step=1).view(table.dtype)
+
+
+class _Dispatch(torch.autograd.Function):
+    """Bucket slot s holds token ``tok_of_slot[s]``'s row (an empty slot the
+    zero row).  Backward: the slots' gradients gathered in token-major lane
+    order and summed by token in float32, rounded once."""
+
+    @staticmethod
+    def forward(ctx, xt, plan):
+        ctx.plan = plan
+        return _rows(xt, plan.tok_of_slot)
+
+    @staticmethod
+    def backward(ctx, grad):
+        plan = ctx.plan
+        lanes = _rows(grad, plan.slot_of_lane).float()
+        return plan.sum_by_token(lanes).to(grad.dtype), None
+
+
+class _Combine(torch.autograd.Function):
+    """f32 y[t] = sum_k gate[t, k] * yb[slot(t, k)] (a dropped lane reads
+    the zero row): the rows gathered in token-major lane order, scaled in
+    float32 and summed by token (in float64 on the card, rounded once).
+    Backward: the token gradients gathered into the slots
+    (``tok_of_slot``) and scaled by each slot's gate; the gate's gradient a
+    dot product of each lane's row with its token's gradient."""
+
+    @staticmethod
+    def forward(ctx, yb, gate, plan):
+        lanes = _rows(yb, plan.slot_of_lane)
+        ctx.plan = plan
+        ctx.save_for_backward(lanes, gate)
+        return plan.sum_by_token(lanes.float() * gate[:, None])
+
+    @staticmethod
+    def backward(ctx, grad):
+        plan = ctx.plan
+        lanes, gate = ctx.saved_tensors
+        grad = grad.contiguous()
+        d_yb = d_gate = None
+        if ctx.needs_input_grad[0]:
+            gate_of_slot = gate.new_zeros(plan.E * plan.C + 1)
+            gate_of_slot[plan.slot_of_lane.long()] = gate
+            d_yb = (_rows(grad, plan.tok_of_slot)
+                    * gate_of_slot[:-1, None]).to(lanes.dtype)
+        if ctx.needs_input_grad[1]:
+            d_gate = (lanes.view(plan.T, plan.K, -1).float()
+                      * grad[:, None]).sum(-1).reshape(-1)
+        return d_yb, d_gate, None
+
+
+def _experts(p: Params, xb: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert over its bucket: xb [E, C, d] -> [E, C, d]."""
+    return (F.silu(torch.bmm(xb, p["wg"])) * torch.bmm(xb, p["wi"])) \
+        @ p["wo"]
+
+
+def apply_moe(p: Params, cfg: LMConfig, x: torch.Tensor,
+              impl: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d], aux loss).  Float32 routing and the
+    sorted capacity-bucket dispatch of the reference.  The combine scales
+    each kept row by its gate in float32, sums by token in float64 (the
+    ``segment_sum`` kernel's accumulator) and rounds once, to float32 and
+    then the model's type, where the JAX package adds in the model's type.
+    ``impl="torch"``: plain indexing and ``index_add``; ``"cuda"``: the
+    dispatch and combine on the graph kernels over one
+    :class:`TokenPlan`."""
+    B, S, d = x.shape
+    E, T = cfg.n_experts, B * S
+    C = capacity(cfg, T)
+    xt = x.reshape(T, d)
+    gate, eidx, aux = route(p, cfg, xt.float())
+    plan = token_plan(eidx, C, E)
+    if resolve_impl(impl) == "torch":
+        keep = plan.keep
+        st = plan.order[keep] // cfg.top_k
+        slots = plan.slot[keep].long()
+        # a token's bucket gradients sum in float32 and round once, as the
+        # kernel route's do, before they meet the router's
+        xb = x.new_zeros((E * C, d))
+        xb[slots] = xt.float()[st].to(x.dtype)
+        yb = _experts(p, xb.view(E, C, d)).reshape(E * C, d)
+        contrib = yb[slots].float() * gate.reshape(-1)[plan.order[keep],
+                                                       None]
+        y = torch.zeros((T, d), dtype=torch.float64, device=x.device) \
+            .index_add(0, st, contrib.double()).float()
+    else:
+        xb = _Dispatch.apply(xt.contiguous(), plan)
+        yb = _experts(p, xb.view(E, C, d)).reshape(E * C, d)
+        y = _Combine.apply(yb, gate.reshape(-1).contiguous(), plan)
+    y = y.to(x.dtype)
+    if cfg.n_shared_experts:
+        y = y + apply_mlp(p["shared"], xt)
+    return y.view(B, S, d), aux
+
+
+def _ffn(p: Params, cfg: LMConfig, z: torch.Tensor, impl: str = "cuda"):
+    """The layer's feed-forward: (y, aux), the MoE or the dense MLP (aux
+    0)."""
+    if cfg.moe:
+        return apply_moe(p["moe"], cfg, z, impl)
+    return apply_mlp(p["mlp"], z), torch.zeros((), device=z.device)
+
+
 def apply_layer(p: Params, cfg: LMConfig, x: torch.Tensor,
-                positions: torch.Tensor, window: int, impl: str = "cuda"):
-    """One pre-norm decoder layer over [B, S, d]: (x', k, v)."""
+                positions: torch.Tensor, window: int, impl: str = "cuda",
+                attn_impl: Optional[str] = None):
+    """One pre-norm decoder layer over [B, S, d]: (x', k, v, aux).
+    Attention takes ``attn_impl`` (``impl`` when None), the MoE ``impl``."""
     h, k, v = attention_with_kv(p["attn"], cfg,
                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                positions, window, impl)
+                                positions, window, attn_impl or impl)
     x = x + h
-    return x + apply_mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps)), k, v
+    y, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), impl)
+    return x + y, k, v, aux
 
 
 # ---------------------------------------------------------------------------
@@ -223,15 +458,30 @@ class MLP(ParamTree):
         return apply_mlp(self.tree(), x)
 
 
+class MoE(ParamTree):
+    def __init__(self, cfg: LMConfig, params: Params):
+        super().__init__(params)
+        self.cfg = cfg
+
+    def forward(self, x, impl: str = "cuda"):
+        """(y, aux loss)."""
+        return apply_moe(self.tree(), self.cfg, x, impl)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LMConfig, params: Params, window: int):
         super().__init__()
         self.ln1 = RMSNorm(params["ln1"], cfg.norm_eps)
         self.attn = Attention(cfg, params["attn"])
         self.ln2 = RMSNorm(params["ln2"], cfg.norm_eps)
-        self.mlp = MLP(params["mlp"])
+        if cfg.moe:
+            self.moe = MoE(cfg, params["moe"])
+        else:
+            self.mlp = MLP(params["mlp"])
         self.window = window
 
     def forward(self, x, positions, impl: str = "cuda"):
         x = x + self.attn(self.ln1(x), positions, self.window, impl)
-        return x + self.mlp(self.ln2(x))
+        z = self.ln2(x)
+        return x + (self.moe(z, impl)[0] if hasattr(self, "moe")
+                    else self.mlp(z))

@@ -1,4 +1,4 @@
-"""Decoder-only LM: init, forward, prefill and decode, as in
+"""Decoder-only LM: init, forward, loss, prefill and decode, as in
 ``repro.models.transformer.model``.
 
 Parameters are a dict: ``embed`` [vocab, d], ``lm_head`` [d, vocab],
@@ -17,33 +17,49 @@ Decoding comes in two forms over the same layers:
 
 Prefill (and forward) run attention through the flash kernel on the card
 (``impl="cuda"``), where the JAX ``prefill`` hard-codes its XLA path.
+:func:`loss_fn` runs attention through the plain version always (the flash
+kernels have no backward; JAX's ``loss_fn`` takes ``impl="xla"``), and its
+``impl`` picks the MoE route.  MoE layers decode through the dense
+:func:`serve_step` only: the paged path waits (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.backend import resolve_device
 from repro_torch.models.transformer import kvcache
-from repro_torch.models.transformer.layers import (LMConfig, Params,
-                                                   apply_layer, apply_mlp,
+from repro_torch.models.transformer.layers import (LMConfig, Params, _ffn,
+                                                   apply_layer,
                                                    init_attention, init_mlp,
-                                                   init_rmsnorm, qkv_proj,
-                                                   rmsnorm, rope)
+                                                   init_moe, init_rmsnorm,
+                                                   qkv_proj, rmsnorm, rope)
 
 NEG_INF = -1e30
 
 
+def _init_layer(gen, cfg: LMConfig, dev) -> Params:
+    p = {"ln1": init_rmsnorm(cfg.d_model, dev),
+         "ln2": init_rmsnorm(cfg.d_model, dev),
+         "attn": init_attention(gen, cfg, dev)}
+    if cfg.moe:
+        p["moe"] = init_moe(gen, cfg, dev)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, dev)
+    return p
+
+
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
     """Random weights from ``seed``, made on ``device`` (the card by default)
-    in the config's type, never as float32 first."""
+    in the config's type, never as float32 first.  On ``"meta"`` the
+    tensors have shapes and no bytes (the registry's specs); their
+    generator then lives on the host."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    layers = [{"ln1": init_rmsnorm(cfg.d_model, dev),
-               "ln2": init_rmsnorm(cfg.d_model, dev),
-               "attn": init_attention(gen, cfg, dev),
-               "mlp": init_mlp(gen, cfg, dev)} for _ in range(cfg.n_layers)]
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
+    layers = [_init_layer(gen, cfg, dev) for _ in range(cfg.n_layers)]
     return {
         "embed": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                              dtype=cfg.dtype, device=dev).mul_(0.02),
@@ -69,9 +85,11 @@ def embed(params: Params, cfg: LMConfig, tokens: torch.Tensor):
     # the scale is rounded to the model's type before the multiply, as in
     # the reference (sqrt(4608) = 67.88 is 68.0 in bf16).  A Python number
     # holding that value gives the same product with no copy to the device,
-    # which a CUDA graph's capture forbids
+    # which a CUDA graph's capture forbids.  ``F.embedding``'s gradient sums
+    # a token's rows in float32 and rounds once (an index's adds in the
+    # table's type, one rounding per occurrence)
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
-    return params["embed"][tokens.long()] * scale
+    return F.embedding(tokens.long(), params["embed"]) * scale
 
 
 def _head(params: Params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
@@ -89,13 +107,33 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor,
-            impl: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, vocab] float32, aux loss 0)."""
+            impl: str = "cuda", attn_impl: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, vocab] float32, the layers' summed
+    MoE aux loss, 0 for a dense model).  Attention takes ``attn_impl``
+    (``impl`` when None), the MoE ``impl``."""
     positions = _positions(tokens)
     x = embed(params, cfg, tokens)
+    aux = torch.zeros((), device=tokens.device)
     for lp, window in zip(params["layers"], cfg.layer_windows):
-        x = apply_layer(lp, cfg, x, positions, window, impl)[0]
-    return _head(params, cfg, x), torch.zeros((), device=tokens.device)
+        x, _, _, a = apply_layer(lp, cfg, x, positions, window, impl,
+                                 attn_impl)
+        aux = aux + a
+    return _head(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels >= 0 (logsumexp of
+    the float32 logits) plus 0.01 x the aux loss.  Attention is the plain
+    version; ``impl`` picks the MoE route."""
+    logits, aux = forward(params, cfg, tokens, impl=impl, attn_impl="torch")
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = labels >= 0
+    ll = logits.gather(-1, labels.long().clamp(min=0)[..., None])[..., 0]
+    nll = torch.where(mask, logz - ll, 0.0).sum() \
+        / mask.sum().clamp(min=1)
+    return nll + 0.01 * aux
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
@@ -120,8 +158,8 @@ def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     v_cache = torch.empty(shape, dtype=x.dtype, device=x.device)
     for li, (lp, window) in enumerate(zip(params["layers"],
                                           cfg.layer_windows)):
-        x, k_cache[li], v_cache[li] = apply_layer(lp, cfg, x, positions,
-                                                  window, impl)
+        x, k_cache[li], v_cache[li], _ = apply_layer(lp, cfg, x, positions,
+                                                     window, impl)
     # the last position for every row, as in the reference: for a shorter,
     # padded prompt that is a pad position
     logits = _head(params, cfg, x[:, -1])
@@ -146,7 +184,7 @@ def _decode_qkv(p: Params, cfg: LMConfig, x: torch.Tensor,
 def _decode_out(p: Params, cfg: LMConfig, x: torch.Tensor,
                 o: torch.Tensor) -> torch.Tensor:
     x = x + o.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"]
-    return x + apply_mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), "torch")[0]
 
 
 def _dense_decode_attention(cfg: LMConfig, q, k_cache, v_cache, lengths,
@@ -201,6 +239,10 @@ def serve_step_paged(params: Params, cfg: LMConfig,
     to its chains (``kvcache.append``) and attends over them
     (``kvcache.attend``, the paged kernel with ``impl="cuda"``).  With
     ``inplace`` the caches' pools are written in place."""
+    if cfg.moe:
+        raise NotImplementedError(
+            "serve_step_paged: MoE layers decode through the dense "
+            "serve_step; the paged path waits (ROADMAP.md, queue 1)")
     x = embed(params, cfg, tokens)
     out = []
     for lp, window, cache in zip(params["layers"], cfg.layer_windows,

@@ -26,21 +26,27 @@ def _is_container(node) -> bool:
     return isinstance(node, (dict, list, tuple))
 
 
+# The walkers recurse through module-level functions that take their
+# accumulators as arguments: a nested recursive function refers to itself
+# through its closure, a reference cycle that would keep every leaf it
+# collected alive until the garbage collector runs (a training step's
+# whole parameter, gradient and moment trees, tens of GB on the card).
+
+def _walk_paths(node, prefix, paths, leaves) -> None:
+    if node is None:
+        return
+    if _is_container(node):
+        for key, child in _children(node):
+            _walk_paths(child, prefix + (key,), paths, leaves)
+    else:
+        paths.append("/".join(prefix))
+        leaves.append(node)
+
+
 def flatten_with_paths(tree) -> Tuple[List[str], List[Any]]:
     """(paths, leaves) in flatten order."""
     paths, leaves = [], []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        if _is_container(node):
-            for key, child in _children(node):
-                walk(child, prefix + (key,))
-        else:
-            paths.append("/".join(prefix))
-            leaves.append(node)
-
-    walk(tree, ())
+    _walk_paths(tree, (), paths, leaves)
     return paths, leaves
 
 
@@ -48,27 +54,38 @@ def leaves(tree) -> List[Any]:
     return flatten_with_paths(tree)[1]
 
 
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        out = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: out[k] for k in node}               # the template's order
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_build(v, it) for v in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
+
+
 def unflatten(template, new_leaves) -> Any:
     """A tree of ``template``'s structure holding ``new_leaves`` in flatten
     order."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}           # the template's order
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(build(v) for v in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    out = build(template)
+    out = _build(template, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the template holds")
     return out
+
+
+def _walk_up_to(t, node, out) -> None:
+    if t is None:
+        return
+    if _is_container(t):
+        kids = dict(_children(node))
+        for key, child in _children(t):
+            _walk_up_to(child, kids[key], out)
+    else:
+        out.append(node)
 
 
 def flatten_up_to(template, tree) -> List[Any]:
@@ -76,18 +93,7 @@ def flatten_up_to(template, tree) -> List[Any]:
     ``treedef.flatten_up_to``): the optimizer's moment trees, whose leaves
     may themselves be ``QTensor`` pairs."""
     out = []
-
-    def walk(t, node):
-        if t is None:
-            return
-        if _is_container(t):
-            kids = dict(_children(node))
-            for key, child in _children(t):
-                walk(child, kids[key])
-        else:
-            out.append(node)
-
-    walk(template, tree)
+    _walk_up_to(template, tree, out)
     return out
 
 

@@ -1275,3 +1275,80 @@ def test_lane_sum_at_the_training_widths_matches_float64(gen, F):
                                        rtol=1e-5, atol=1e-6)
         assert torch.equal(got, lane_sum(plan, side, grad))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# LM training: the MoE dispatch and combine on the graph kernels
+# ---------------------------------------------------------------------------
+
+def test_lm_moe_step_through_the_kernels_matches_plain(gen):
+    """qwen3-moe at its float32 smoke config, its capacity cut to 1.25 so
+    lanes drop, 8 sequences of 64 ``token_stream`` tokens: the kernel route
+    against ``impl="torch"``; 4 block_gather and 2 segment_sum launches a
+    layer (dispatch, combine gather and sum; their backward)."""
+    import dataclasses
+    from repro_torch.configs.qwen3_moe_30b_a3b import smoke_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models.transformer import model as M
+    cfg = dataclasses.replace(smoke_config(), capacity_factor=1.25)
+    params = M.init_params(cfg, 3, device="cuda")
+    batch = next(token_stream(cfg.vocab, 8, 64, seed=4, device="cuda"))
+    _routes_agree(
+        lambda p, b, impl="cuda": M.loss_fn(p, cfg, b[0], b[1], impl),
+        params, batch, {"block_gather": 4 * cfg.n_layers,
+                        "segment_sum": 2 * cfg.n_layers})
+
+
+def test_moe_kernel_route_matches_plain_at_full_width_bf16(gen):
+    """One qwen3-moe MoE layer at full width in bf16 (d 2048, 128 experts
+    top-8, d_ff 768) over 4,096 tokens (C = 321): y within one bf16 ulp
+    (2^-7 relative) of the plain route's, both summing in float32 and
+    rounding once; every gradient leaf's largest difference within 2^-7 of
+    its largest |value|; the launches of one forward and backward."""
+    from repro_torch import backend
+    from repro_torch import tree as T
+    from repro_torch.configs.qwen3_moe_30b_a3b import full_config
+    from repro_torch.models.transformer import layers as L
+    cfg = full_config()
+    p = L.init_moe(gen, cfg, "cuda")
+    x = torch.randn((1, 4096, cfg.d_model), generator=gen, device="cuda",
+                    dtype=cfg.dtype)
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    assert L.capacity(cfg, 4096) == 321
+
+    def run(impl):
+        leaves = [t.detach().requires_grad_() for t in T.leaves(p)]
+        xx = x.detach().requires_grad_()
+        y, aux = L.apply_moe(T.unflatten(p, leaves), cfg, xx, impl)
+        (y.float() * w).sum().add(aux).backward()
+        return y.detach(), [t.grad for t in leaves] + [xx.grad]
+
+    backend.reset_launch_counts()
+    yk, gk = run("cuda")
+    assert backend.LAUNCHES["block_gather"] == 4
+    assert backend.LAUNCHES["segment_sum"] == 2
+    yt, gt = run("torch")
+    assert backend.LAUNCHES["block_gather"] == 4
+    torch.testing.assert_close(yk.float(), yt.float(), rtol=2 ** -7,
+                               atol=1e-6 * float(yt.abs().max()))
+    for a, b in zip(gk, gt):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) \
+            <= 2 ** -7 * float(b.float().abs().max())
+
+
+def test_flash_attention_refuses_autograd_on_the_card(gen):
+    """The flash kernels have no backward: a CUDA q that asks for a
+    gradient raises before a launch; under no_grad the kernel runs."""
+    from repro_torch import backend
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    q, k, v = (torch.randn((1, 4, 256, 128), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_()
+    before = backend.LAUNCHES["flash_attention_wgmma"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v, scale=128 ** -0.5)
+    assert backend.LAUNCHES["flash_attention_wgmma"] == before
+    with torch.no_grad():
+        flash_attention(q, k, v, scale=128 ** -0.5)
+    assert backend.LAUNCHES["flash_attention_wgmma"] == before + 1

@@ -199,10 +199,10 @@ def test_smoke_losses_match_jax_step_fn(impl):
 
 
 def test_build_smoke_problem_families():
-    """The GNN archs (Equiformer-v2 among them) and SASRec build and take a
-    step on the host; SASRec's batches cycle through 32 cached ones, each
-    with its lookup plan; the LM archs of the JAX registry name the
-    roadmap."""
+    """Every arch of the registry (the LM archs, the GNN archs with
+    Equiformer-v2, SASRec) builds and takes a step on the host; SASRec's
+    and the LMs' batches cycle through 32 cached ones, SASRec's each with
+    its lookup plan; an unknown arch is refused."""
     for arch in train.ARCH_MODULES:
         cfg, params, loss_fn, batches = train.build_smoke_problem(
             arch, 8, device="cpu")
@@ -211,9 +211,12 @@ def test_build_smoke_problem_families():
     assert batches(33) is batches(1) and batches(0) is not batches(1)
     assert batches(0).plan.built_from == tuple(batches(0)[:3])
     assert batches(0).seq.shape == (8, 10)
-    for arch in ("gemma2-27b", "qwen3-moe-30b-a3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train.build_smoke_problem(arch, 8, device="cpu")
+    _, _, _, batches = train.build_smoke_problem("qwen3-moe-30b-a3b", 8,
+                                                 device="cpu")
+    assert batches(33) is batches(1) and batches(0) is not batches(1)
+    assert batches(0)[0].shape == batches(0)[1].shape == (8, 64)
+    with pytest.raises(ValueError, match="unknown arch"):
+        train.build_smoke_problem("gpt-2", 8, device="cpu")
 
 
 def test_main_recovers_and_trains(tmp_path, capsys):

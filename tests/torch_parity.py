@@ -50,12 +50,11 @@ def assert_exact(got, ref) -> None:
 
 
 def lm_config(jax_cfg):
-    """The port's LMConfig with the values of a JAX ``LMConfig`` (dense
-    models only: the port has no MoE yet)."""
+    """The port's LMConfig with the values of a JAX ``LMConfig`` (its SPMD
+    fields left out)."""
     import dataclasses
 
     from repro_torch.models.transformer.layers import LMConfig
-    assert not jax_cfg.moe
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     kw = {f.name: getattr(jax_cfg, f.name) for f in dataclasses.fields(LMConfig)}
     kw["dtype"] = dtypes[np.dtype(jax_cfg.dtype).name]
