@@ -128,6 +128,30 @@ Phases, one report line each:
    ``setup.flash_f32_sass`` say how many wgmma instructions (HGMMA) each
    tensor-core kernel's SASS holds (none fails the run), its registers and
    spills and its build seconds;
+6b. MoE serving, once phase 6's state is freed (the allocated and reserved
+   memory printed at its start): qwen3-moe-30b-a3b at full width and all
+   48 layers (30.53 B parameters, bf16 weights from ``--seed`` made on the
+   card; ``MOE_LAYERS``).  With the launch counters at 0,
+   ``launch.serve.serve`` takes 8 requests (prompts of 1,024-3,072 random
+   tokens, padded to the longest), prefills them (flash at 32 / 4 heads,
+   no softcap; the MoE at C = 1,921 slots an expert) and decodes 64 greedy
+   steps twice, through one CUDA graph and by the eager loop: the same
+   tokens on both, and exactly 48 flash, 96 ``block_gather`` and 48
+   ``segment_sum`` launches in prefill and 48 paged, 96 and 48 in each
+   decode step (the prefill counted alone again).  One eager MoE decode
+   step under ``torch.cuda.set_sync_debug_mode("error")``.  A teacher-
+   forced check over 4 steps, layer by layer from the post-prefill state:
+   on each layer's input the MoE block on the kernel route bit for bit
+   ``impl="torch"``'s and paged attention within its phase-6 bound of the
+   plain version; the logits against the dense plain ``serve_step``
+   within LOGIT_REL_L2 on the rows whose routes (experts and kept slots,
+   C = 1 at B = 8) agreed at every layer, how many (row, layer) routes
+   changed and the share of lanes kept printed.  It prints prefill s, fill
+   s, decode ms a step (median) on each route, capture s, pages used,
+   tokens/s and peak memory.  Then flash (G = 8; SDPA its library call)
+   and paged (G = 8) against their plain versions, and both graph kernels
+   at the MoE's prefill (24,576 tokens) and decode (8 tokens) shapes, each
+   timed beside its plain version, its library call and its bound;
 7. recsys serving, once the LM state is freed: SASRec at its full published
    config (2^20-row item table, embed_dim 50, 2 blocks, 1 head, seq_len
    50), weights from ``--seed``, left-padded histories of 25-50 items made
@@ -208,8 +232,10 @@ Phases, one report line each:
    gradient leaf's largest difference within 2^-6 of its largest |value|;
    see ``LM_TRAIN_GRAD_RTOL``), 4L block_gather + 2L segment_sum launches
    a step; 20 supervised steps as GIN's (the step-10 state copied to the
-   host for the restart's bit-for-bit check): step ms, losses, checkpoint
-   bytes and the run's write s, peak memory.  Then both kernels at the
+   host for the restart's bit-for-bit check; the checkpoints in the JAX
+   package's period-stacked tree, as ``launch/train.py`` writes an LM's):
+   step ms, losses, checkpoint bytes and the run's write s, peak memory.
+   Then both kernels at the
    MoE's shapes (the dispatch, the combine's gather and its sum by token
    at F = 2048, the combine's backward into the buckets), each against its
    plain version and timed beside it, its library call and its bound.
@@ -303,6 +329,36 @@ FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-4, 1e-5
 # this script, seeds 0 and 1).  The kernel route must stay within 3 %; a
 # wrong kernel is off by about 100 %
 LOGIT_REL_L2 = 3e-2
+# phase 6b: MoE serving, qwen3-moe-30b-a3b at full width and all 48
+# layers (30.53 B parameters, 61.1 GB in bf16: one card holds them with
+# the prefill's transients), 8 requests of 1,024-3,072 prompt tokens, 64
+# greedy decode steps on each route, 4 teacher-forced steps checked layer
+# by layer
+MOE_LAYERS, MOE_REQUESTS, MOE_DECODE, MOE_CHECK_STEPS = 48, 8, 64, 4
+MOE_PROMPT_MIN, MOE_PROMPT_MAX = 1024, 3072
+MOE_KERNELS = ("flash_attention_wgmma", "paged_attention", "block_gather",
+               "segment_sum")
+# the kernels line's phase-6b entries: kernel -> the row's shape
+MOE_SERVE_MAIN = {"flash_attention_wgmma": "moe prefill G=8",
+                  "paged_attention": "moe decode G=8",
+                  "block_gather": "moe decode dispatch F=2048 bf16",
+                  "segment_sum": "moe decode combine F=2048"}
+
+
+def moe_prefill_launches(n_layers: int) -> dict:
+    """MoE prefill: per layer one flash call, the MoE's dispatch and
+    combine gathers and its sum by token."""
+    return {"flash_attention_wgmma": n_layers, "paged_attention": 0,
+            "block_gather": 2 * n_layers, "segment_sum": n_layers}
+
+
+def moe_step_launches(n_layers: int) -> dict:
+    """An MoE decode step: per layer one paged call, the MoE's two gathers
+    and its sum by token."""
+    return {"flash_attention_wgmma": 0, "paged_attention": n_layers,
+            "block_gather": 2 * n_layers, "segment_sum": n_layers}
+
+
 # SASRec serving at its full published config, the three serve shapes of
 # configs/sasrec.py
 RECSYS_KERNELS = ("embedding_bag", "block_gather")
@@ -897,18 +953,20 @@ def time_flex(torch, timer, q, k, v, window, softcap, got, check_ref=None):
 def time_flash(torch, timer, name, q, k, v, window, softcap, library,
                clock_mhz):
     """A flash kernel at a prefill layer's shape against its plain version
-    (batch row 0, heads 0-3, every row; bit-identical on a repeat), timed
-    beside the plain version over the whole shape, the floors and, with
-    ``library``, torch's compiled ``flex_attention`` (the same function;
-    for float32 with ``allow_tf32`` held False and its output held to the
-    float32 bound) and, without a window, SDPA (no softcap).  bf16 goes
+    (batch row 0, the first FLASH_CHECK_HEADS heads rounded up to whole kv
+    groups, every row; bit-identical on a repeat), timed beside the plain
+    version over the whole shape, the floors and, with ``library``, one
+    PyTorch call of the same function: torch's compiled ``flex_attention``
+    with a softcap (for float32 with ``allow_tf32`` held False and its
+    output held to the float32 bound), SDPA without softcap or window.
+    Without a window SDPA (no softcap) is timed beside it.  bf16 goes
     through the bf16 tensor-core kernel, float32 through the split-TF32
     one."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, H, S, D = q.shape
     G = H // k.shape[1]
-    hs = FLASH_CHECK_HEADS
+    hs = G * -(-FLASH_CHECK_HEADS // G)
     bf16 = q.dtype == torch.bfloat16
     kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=softcap)
     got = flash_attention(q, k, v, **kw)
@@ -955,13 +1013,25 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
     if not bf16:
         floors["cuda_core_products"] = ops / FP32_OPS_PER_S * 1e3
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_call():
+        return sdpa(q, k, v, is_causal=True, scale=D ** -0.5,
+                    enable_gqa=True)
+
     check_ref = None if bf16 else (ref, tol)
     if library and not bf16:
         check(not torch.backends.cuda.matmul.allow_tf32,
               "float32 flex_attention timed with allow_tf32 on")
-    flex_ms, flex_note = (time_flex(torch, timer, q, k, v, window, softcap,
-                                    got, check_ref) if library
-                          else (None, "no library call timed"))
+    if library and softcap == 0 and window == 0 and bf16:
+        flex_ms = timer.ms(sdpa_call)  # SDPA computes this very function
+        diff = float((sdpa_call().float() - got.float()).abs().max())
+        flex_note = f"SDPA (is_causal, enable_gqa), max |sdpa - kernel| " \
+            f"{diff:.3g}"
+    elif library:
+        flex_ms, flex_note = time_flex(torch, timer, q, k, v, window,
+                                       softcap, got, check_ref)
+    else:
+        flex_ms, flex_note = None, "no library call timed"
     row = dict(
         name="flash_attention_wgmma" if bf16 else "flash_attention",
         shape=name, dtype=str(q.dtype).replace("torch.", ""), B=B, H=H,
@@ -975,9 +1045,8 @@ def time_flash(torch, timer, name, q, k, v, window, softcap, library,
                     torch.backends.cuda.matmul.allow_tf32),
         # SDPA computes the same causal GQA attention without the softcap;
         # bf16 only (in float32 it falls back to a 37 GB score matrix)
-        sdpa_ms=(timer.ms(lambda: sdpa(q, k, v, is_causal=True,
-                                       scale=D ** -0.5, enable_gqa=True))
-                 if library and window == 0 and bf16 else None),
+        sdpa_ms=(timer.ms(sdpa_call) if library and window == 0 and bf16
+                 else None),
         bound_ms=floors[binding],
         bound_by="bytes" if binding == "bytes" else "operations",
         binding_floor=binding, **{f"{k_}_floor_ms": v_
@@ -1353,6 +1422,381 @@ def lm_f32_path(torch, timer, dev, seed, report) -> None:
                             launches=launches)
     say("lm.f32_serve", config=cfg.name, seconds=f"{sec:.3f}",
         launches=launches, tokens="equal to the host's")
+
+
+# ---------------------------------------------------------------------------
+# MoE serving: qwen3-moe-30b-a3b at full size
+# ---------------------------------------------------------------------------
+
+def moe_teacher_forced(torch, cfg, params, caches, dense, tokens, steps):
+    """MOE_CHECK_STEPS decode steps fed the served tokens, layer by layer
+    from the post-prefill state, on three sides: the kernel route over the
+    paged caches; the dense plain decoder (``serve_step``'s arithmetic over
+    a dense cache) fed, at every layer, the kernel side's input and K/V
+    (teacher-forced); and the dense plain decoder run on its own, its
+    logits held to ``serve_step``'s bit for bit.  At every layer, on the
+    kernel side's input: paged attention against its plain version
+    (ATTN_RTOL / ATTN_ATOL), the MoE block on the kernel route against
+    ``impl="torch"`` bit for bit, and the layer's output (the hidden state
+    the next layer reads) against the teacher-forced dense layer's within
+    LOGIT_REL_L2, relative L2 per row, on the rows whose route -- the
+    (expert, kept) pairs of its K lanes -- is the same on both (the
+    difference over the layer's own update is recorded beside it); the
+    step's logits likewise.  The dense
+    decoder on its own is compared, not held: at random init a bf16
+    rounding moves a route somewhere in 48 layers and capacity couples the
+    rows, so its logits part from the kernel route's (``rel_l2_free``,
+    ``first_layer_apart``).  Each step's record is appended to ``steps``
+    as it ends; returns the share of the kernel side's lanes that kept a
+    slot."""
+    from repro_torch.models.transformer import kvcache as KV
+    from repro_torch.models.transformer import layers as L
+    from repro_torch.models.transformer import model as M
+    B, E, K = tokens.shape[0], cfg.n_experts, cfg.top_k
+    C = L.capacity(cfg, B)
+    b_idx = torch.arange(B, device=tokens.device)
+    scale = cfg.head_dim ** -0.5
+    forced = {k: v.clone() for k, v in dense.items()}
+
+    def routed(z, p):
+        """bool[B, E] pair: the experts each row routes to (top-k), and
+        those it keeps a slot of."""
+        _, eidx, _ = L.route(p, cfg, z.reshape(B, -1).float())
+        plan = L.token_plan(eidx, C, E)
+        keep = torch.zeros_like(plan.keep)
+        keep[plan.order] = plan.keep
+        chosen = torch.zeros((B, E), dtype=torch.bool, device=z.device)
+        chosen[b_idx[:, None], eidx] = True
+        kept = torch.zeros_like(chosen)
+        kept[b_idx[:, None], eidx] = keep.view(B, K)
+        return chosen, kept
+
+    def dense_layer(lp, x, cache, li, q, k, v, lengths):
+        """serve_step's layer on x [B, 1, d] with q, k, v of x: (x', z)."""
+        pos = lengths.long()
+        cache["k"][li, b_idx, :, pos] = k
+        cache["v"][li, b_idx, :, pos] = v
+        o = M._dense_decode_attention(cfg, q, cache["k"][li],
+                                      cache["v"][li], lengths, 0)
+        x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
+        z = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        return x + L.apply_moe(lp["moe"], cfg, z, "torch")[0], z
+
+    def rel(a, b, base):
+        """Per row: |a - b| / |base| (relative L2 over the row)."""
+        return ((a.float() - b.float()).reshape(B, -1).norm(dim=1)
+                / base.float().reshape(B, -1).norm(dim=1).clamp(min=1e-30))
+
+    kept_lanes = lanes = 0
+    for step in range(MOE_CHECK_STEPS):
+        tok = tokens[:, step:step + 1]
+        ref, _ = M.serve_step(params, cfg, dense, tok)
+        lengths = dense["lengths"]
+        xk = M.embed(params, cfg, tok)
+        xd = xk.clone()
+        differ = torch.zeros((B, cfg.n_layers), dtype=torch.bool,
+                             device=tok.device)
+        apart = torch.zeros_like(differ)
+        layer_rel = torch.zeros((B, cfg.n_layers), device=tok.device)
+        update_rel = torch.zeros_like(layer_rel)
+        attn_err = attn_worst = 0.0
+        for li, lp in enumerate(params["layers"]):
+            q, k, v = M._decode_qkv(lp, cfg, xk, caches[li].lengths)
+            caches[li] = KV.append(caches[li], k, v, inplace=True)
+            o = KV.attend(caches[li], q, scale=scale, impl="cuda")
+            o_plain = KV.attend(caches[li], q, scale=scale, impl="torch")
+            err = (o.float() - o_plain.float()).abs()
+            attn_err = max(attn_err, float(err.max()))
+            attn_worst = max(attn_worst, float(
+                (err / (ATTN_ATOL + ATTN_RTOL * o_plain.float().abs()))
+                .max()))
+            # the dense layer on the same input and K/V
+            xf, zf = dense_layer(lp, xk, forced, li, q, k, v, lengths)
+            x_mid = xk + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
+            zk = L.rmsnorm(lp["ln2"], x_mid, cfg.norm_eps)
+            yk, _ = L.apply_moe(lp["moe"], cfg, zk, "cuda")
+            yt, _ = L.apply_moe(lp["moe"], cfg, zk, "torch")
+            check(torch.equal(yk, yt),
+                  f"moe check step {step} layer {li}: the MoE block on the "
+                  f"kernel route differs from impl=\"torch\"")
+            x_out = x_mid + yk
+            layer_rel[:, li] = rel(x_out, xf, xf)
+            update_rel[:, li] = rel(x_out, xf, xf - xk)
+            (ck, kk), (cf, kf) = routed(zk, lp["moe"]), routed(zf, lp["moe"])
+            differ[:, li] = ((ck != cf) | (kk != kf)).any(-1)
+            kept_lanes += int(kk.sum())
+            lanes += B * K
+            # the dense decoder on its own
+            xd, zd = dense_layer(lp, xd, dense, li,
+                                 *M._decode_qkv(lp, cfg, xd, lengths),
+                                 lengths)
+            cd, kd = routed(zd, lp["moe"])
+            apart[:, li] = ((ck != cd) | (kk != kd)).any(-1)
+            xk = x_out
+        check(attn_worst <= 1.0,
+              f"moe check step {step}: paged attention off its plain "
+              f"version by {attn_worst:.3g} of the bound")
+        check(torch.equal(M._head(params, cfg, xd[:, 0]), ref),
+              f"moe check step {step}: the dense decoder is not "
+              f"serve_step's arithmetic")
+        dense["lengths"] = forced["lengths"] = lengths + 1
+        paged = M._head(params, cfg, xk[:, 0])
+        logit_rel = rel(paged, M._head(params, cfg, xf[:, 0]), paged)
+        held = ~differ
+        worst_layer = float(layer_rel[held].max()) if bool(held.any()) \
+            else None
+        worst_update = float(update_rel[held].max()) if bool(held.any()) \
+            else None
+        held_rows = ~differ[:, -1]
+        worst_logits = float(logit_rel[held_rows].max()) \
+            if bool(held_rows.any()) else None
+        steps.append(dict(
+            step=step, row_layers_held=int(held.sum()),
+            row_layers_differ=int(differ.sum()),
+            layer_rel_l2_max=worst_layer, logits_rel_l2_max=worst_logits,
+            layer_update_rel_l2_max=worst_update,
+            paged_max_abs_err=attn_err, paged_err_over_bound=attn_worst,
+            row_layers_apart=int(apart.sum()),
+            first_layer_apart=[int(r.nonzero()[0]) if bool(r.any()) else None
+                               for r in apart],
+            rel_l2_free=float((paged - ref).norm() / ref.norm()),
+            greedy_reproduced=bool(torch.equal(
+                paged.argmax(-1).to(torch.int32), tokens[:, step + 1]))))
+        check(worst_layer is not None and worst_layer <= LOGIT_REL_L2,
+              f"moe check step {step}: a layer's output off the teacher-"
+              f"forced dense layer's by {worst_layer} relative L2 (> "
+              f"{LOGIT_REL_L2}) on the {int(held.sum())} (row, layer) "
+              f"routes that agree")
+        check(worst_logits is None or worst_logits <= LOGIT_REL_L2,
+              f"moe check step {step}: logits off the teacher-forced dense "
+              f"decoder's by {worst_logits} relative L2 (> "
+              f"{LOGIT_REL_L2})")
+    return kept_lanes / lanes
+
+
+def moe_serve_phase(torch, timer, dev, seed, report, clock_mhz,
+                    profile=False) -> None:
+    """Phase 6b: serve 8 requests of qwen3-moe-30b-a3b (full width, all 48
+    layers, bf16) through flash prefill and paged decode with the MoE's
+    dispatch and combine on the graph kernels, decoded through one CUDA
+    graph and by the eager loop; the exact launches; one eager step under
+    sync debug mode "error"; the teacher-forced check
+    (``moe_teacher_forced``); each kernel at its MoE-serving shapes."""
+    from repro_torch import backend
+    from repro_torch.configs.qwen3_moe_30b_a3b import full_config
+    from repro_torch.launch.serve import fill_paged, pages_per_seq, serve
+    from repro_torch.models.transformer import kvcache as KV
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer.layers import (attention_inputs,
+                                                       capacity, rmsnorm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("moe.memory", allocated=torch.cuda.memory_allocated(),
+        reserved=torch.cuda.memory_reserved())
+    cfg = dataclasses.replace(full_config(), n_layers=MOE_LAYERS)
+    params, init_s = timer.wall(lambda: M.init_params(cfg, seed + 71,
+                                                      device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 73)
+    B = MOE_REQUESTS
+    lens = torch.randint(MOE_PROMPT_MIN, MOE_PROMPT_MAX + 1, (B,),
+                         generator=gen, device=dev, dtype=torch.int32)
+    S = int(lens.max())
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                            dtype=torch.int32)
+    n_params = M.param_count(params)
+    out = report["moe_serve"] = dict(
+        config=cfg.name, layers=cfg.n_layers,
+        full_layers=full_config().n_layers, params=n_params,
+        weight_bytes=2 * n_params, init_seconds=init_s, requests=B,
+        prompt_lens=lens.tolist(), padded_prompt=S,
+        decode_steps=MOE_DECODE, page=cfg.kv_page_size,
+        capacity_prefill=capacity(cfg, B * S),
+        capacity_decode=capacity(cfg, B),
+        allocated_after_init=torch.cuda.memory_allocated())
+    say("moe.setup", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                        for k, v in out.items() if k != "prompt_lens"})
+
+    # the serve path, launch counters at 0: decode through one CUDA graph,
+    # then the eager loop
+    pre, step_n = moe_prefill_launches(cfg.n_layers), \
+        moe_step_launches(cfg.n_layers)
+    want = {k: pre[k] + MOE_DECODE * step_n[k] for k in MOE_KERNELS}
+    live_tokens = int(lens.sum())
+    tokens = {}
+    for route, graph in (("graph", None), ("eager", False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        backend.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, serve_s = timer.wall(lambda: serve(cfg, params, prompts, lens,
+                                                MOE_DECODE, device=dev,
+                                                graph=graph))
+        launches = {k: backend.LAUNCHES[k] for k in MOE_KERNELS}
+        check(launches == want, f"the {route} MoE serve launched "
+              f"{launches}, not {want}")
+        check(backend.LAUNCHES["flash_attention"] == 0,
+              "a bf16 prefill reached the float32 flash kernel")
+        check(res.graph == (route == "graph"),
+              f"the {route} MoE serve decoded with graph={res.graph}")
+        check(bool(torch.isfinite(res.prefill_logits).all()),
+              "MoE prefill logits not finite")
+        check(res.tokens.shape == (B, MOE_DECODE + 1)
+              and int(res.tokens.min()) >= 0
+              and int(res.tokens.max()) < cfg.vocab,
+              "MoE generated tokens malformed")
+        step_s = sorted(res.decode_s)
+        median = step_s[len(step_s) // 2]
+        p_ = "" if route == "graph" else "eager_"
+        out.update({
+            f"{p_}serve_seconds": serve_s, f"{p_}prefill_s": res.prefill_s,
+            f"{p_}fill_s": res.fill_s,
+            f"{p_}decode_ms_per_step_median": 1e3 * median,
+            f"{p_}decode_ms_per_step_mean": 1e3 * sum(step_s) / len(step_s),
+            f"{p_}decode_ms_per_step_max": 1e3 * step_s[-1],
+            f"{p_}decode_first_step_ms": 1e3 * res.decode_s[0],
+            f"{p_}decode_tokens_per_s": B / median,
+            f"{p_}max_memory_allocated": torch.cuda.max_memory_allocated(),
+            f"{p_}max_memory_reserved": torch.cuda.max_memory_reserved(),
+            f"{p_}launches": launches})
+        if route == "graph":
+            out.update(graph_capture_s=res.capture_s,
+                       prompt_tokens=live_tokens,
+                       prompt_tokens_per_s=live_tokens / res.prefill_s,
+                       pages_used=res.pages_used,
+                       pool_pages=int(res.caches[0].free_stack.numel()))
+            first_logits = res.prefill_logits
+        tokens[route] = res.tokens
+        del res
+    check(torch.equal(tokens["graph"], tokens["eager"]),
+          "the graph and eager MoE decode routes' greedy tokens differ")
+    out["greedy_tokens_equal_across_routes"] = True
+    tokens = tokens["graph"]
+    say("moe.serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                        for k, v in out.items()
+                        if k.startswith(("prefill", "prompt_tokens", "fill",
+                                         "decode_", "pages", "pool",
+                                         "max_mem", "graph_", "greedy"))})
+    say("moe.serve_eager", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                              for k, v in out.items()
+                              if k.startswith("eager_")
+                              and k != "eager_launches"})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # prefill again with the counters at 0: its launches alone
+    toks = torch.where(torch.arange(S, device=dev)[None, :] < lens[:, None],
+                       prompts, 0)
+    backend.reset_launch_counts()
+    logits0, dense = M.prefill(params, cfg, toks)
+    got = {k: backend.LAUNCHES[k] for k in MOE_KERNELS}
+    check(got == pre, f"MoE prefill launched {got}, not {pre}")
+    out["prefill_repeat_bit_identical"] = bool(torch.equal(logits0,
+                                                           first_logits))
+    del logits0
+
+    # flash at G = 8 on layer 0's own inputs
+    rows = report["moe_serve_kernels"] = []
+    x = M.embed(params, cfg, toks)
+    lp = params["layers"][0]
+    q, k, v = attention_inputs(lp["attn"], cfg,
+                               rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                               torch.arange(S, device=dev, dtype=torch.int32)
+                               [None].expand(B, S))
+    rows.append(time_flash(torch, timer, MOE_SERVE_MAIN[
+        "flash_attention_wgmma"], q, k, v, 0, 0.0, True, clock_mhz))
+    del q, k, v, x
+
+    # the caches serve decodes over; paged at G = 8 on layer 0's
+    caches = fill_paged(cfg, dense, lens,
+                        pages_per_seq(S, MOE_DECODE, cfg.kv_page_size),
+                        cfg.kv_page_size)
+    qd = torch.randn((B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                      cfg.head_dim), generator=gen, device=dev,
+                     dtype=cfg.dtype)
+    rows.append(time_paged(torch, timer, MOE_SERVE_MAIN["paged_attention"],
+                           caches[0], qd, 0, 0.0))
+    del qd
+
+    # one eager MoE decode step as serve's eager loop runs it, on copies of
+    # the caches, under sync debug mode "error"
+    copies = [KV.PagedKVCache(*(t_.clone() for t_ in c)) for c in caches]
+    tok = tokens[:, :1]
+    backend.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_logits, _ = M.serve_step_paged(params, cfg, copies, tok,
+                                            inplace=True)
+    except RuntimeError as e:
+        raise SmokeFailure(f"the eager MoE decode step read the device "
+                           f"from the host: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k: backend.LAUNCHES[k] for k in MOE_KERNELS}
+    check(got == step_n, f"an MoE decode step launched {got}, not {step_n}")
+    check(torch.equal(step_logits.argmax(-1).to(torch.int32), tokens[:, 1]),
+          "the sync-debug step's greedy tokens are not the served ones")
+    out["sync_debug_step"] = dict(launches=got, ok=True)
+    if profile:   # one replayed, then one eager step, on the copies
+        from repro_torch.launch.serve import DecodeGraph
+        replay = DecodeGraph(params, cfg, copies, tokens[:, 1:2])
+        for key, fn in (("profile_decode_step",
+                         lambda: replay.step(tokens[:, 2:3])),
+                        ("profile_decode_step_eager",
+                         lambda: M.serve_step_paged(params, cfg, copies,
+                                                    tokens[:, 3:4],
+                                                    inplace=True))):
+            _, prof = profiled(torch, fn)
+            report[f"moe_{key}"] = prof
+            say(f"moe.{key}", wall_ms=f"{prof['wall_s'] * 1e3:.4g}",
+                device_busy_ms=f"{prof['device_busy_s'] * 1e3:.4g}",
+                device_busy_share=f"{prof['device_busy_share']:.3f}",
+                top=", ".join(f"{r['op'][:40]} x{r['count']} "
+                              f"{r['device_ms']:.3f}ms"
+                              for r in prof["top"][:8]))
+        del replay
+    del copies, step_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the teacher-forced check against the dense plain decoder
+    dense_c = M.init_cache(cfg, B, S + MOE_CHECK_STEPS, device=dev)
+    live = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    for name in ("k", "v"):
+        dense_c[name][:, :, :, :S] = dense[name] * live[None, :, None, :,
+                                                          None]
+    dense_c["lengths"] = lens.clone()
+    del dense
+    steps = out["check_steps"] = []
+    kept_share = out["decode_kept_lane_share"] = moe_teacher_forced(
+        torch, cfg, params, caches, dense_c, tokens, steps)
+
+    def joined(key, fmt="{}"):
+        return "/".join("-" if s_[key] is None else fmt.format(s_[key])
+                        for s_ in steps)
+
+    say("moe.check", steps=len(steps),
+        row_layers_held=joined("row_layers_held"),
+        row_layers_differ=joined("row_layers_differ"),
+        layer_rel_l2_max=joined("layer_rel_l2_max", "{:.4g}"),
+        layer_update_rel_l2_max=joined("layer_update_rel_l2_max", "{:.4g}"),
+        logits_rel_l2_max=joined("logits_rel_l2_max", "{:.4g}"),
+        paged_err_over_bound=joined("paged_err_over_bound", "{:.3g}"),
+        row_layers_apart=joined("row_layers_apart"),
+        first_layer_apart=steps[0]["first_layer_apart"],
+        rel_l2_free=joined("rel_l2_free", "{:.4g}"),
+        kept_lane_share=f"{kept_share:.4f}",
+        moe_block_bit_identical=True,
+        prefill_repeat_bit_identical=out["prefill_repeat_bit_identical"])
+    del caches, dense_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the graph kernels at the MoE's prefill and decode shapes
+    p0 = params["layers"][0]["moe"]
+    for tag, T in (("moe prefill", B * S), ("moe decode", B)):
+        rows += moe_kernel_rows(torch, timer, dev, p0, cfg, T, tag,
+                                seed + 79)
 
 
 # ---------------------------------------------------------------------------
@@ -1874,10 +2318,11 @@ def small_kernel_rows(torch, timer, dev, arch, g, table, F, seed):
 
 
 def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
-                   kernels=GRAPH_KERNELS, snapshot_device=None):
+                   kernels=GRAPH_KERNELS, snapshot_device=None, layout=None):
     """``TRAIN_STEPS`` steps of launch/train.py's step over ``batches(step)``
-    under ``TrainSupervisor`` (a checkpoint every ``TRAIN_CKPT_EVERY``, one
-    failure injected at ``TRAIN_FAIL_AT``), every launch counter at 0.
+    under ``TrainSupervisor`` (a checkpoint every ``TRAIN_CKPT_EVERY`` in
+    ``layout``, one failure injected at ``TRAIN_FAIL_AT``), every launch
+    counter at 0.
     Records each call's step, wall time and loss, the state a restart
     resumes from (held against a copy of the step-10 state kept on
     ``snapshot_device``, the card by default), any exception out of the
@@ -1922,7 +2367,8 @@ def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         sup = TrainSupervisor(ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
                               injector=FailureInjector([TRAIN_FAIL_AT]),
-                              straggler=StragglerPolicy(), device=dev)
+                              straggler=StragglerPolicy(), device=dev,
+                              layout=layout)
         # the first state is held by the supervisor alone, so a step's
         # update frees it as the model's later states are freed
         first = [(params, init_opt_state(params, opt_cfg))]
@@ -2332,19 +2778,22 @@ def model_train_phase(torch, timer, dev, seed, report,
 # LM training: qwen3-moe at full width, the MoE on the graph kernels
 # ---------------------------------------------------------------------------
 
-def lm_kernel_rows(torch, timer, dev, params, cfg, seed):
-    """Both graph kernels at the MoE's shapes over a token plan of layer 0's
-    router (T = 4,096 tokens, K = 8, C = 321): the dispatch (41,088 bucket
-    rows from the 4,096 token rows, bf16 gathered as float32 pairs), the
-    combine's gather (32,768 lanes from the buckets; the dispatch's
-    backward has its shape) and its sum by token at F = 2048 (the
-    dispatch's backward sum too), and the combine's backward (the token
-    gradients, float32, into the buckets)."""
+def moe_kernel_rows(torch, timer, dev, p0, cfg, T, tag, seed,
+                    backward=None):
+    """Both graph kernels at an MoE call's shapes over the token plan that
+    router ``p0`` gives T random bf16 token rows (K lanes a token, C =
+    ``capacity(cfg, T)`` slots an expert): the dispatch (the E·C bucket
+    rows gathered from the token rows, bf16 as float32 pairs), the
+    combine's gather (the T·K lanes from the buckets; the dispatch's
+    backward has its shape) and its sum by token at F = d_model (the
+    dispatch's backward sum too); with ``backward`` (that row's name) the
+    combine's backward (float32 token gradients into the buckets).  Rows
+    ``{tag} dispatch``, ``{tag} combine`` (bf16: the gather; float32: the
+    sum)."""
     from repro_torch.models.transformer import layers as L
-    gen = torch.Generator(device=dev).manual_seed(seed + 61)
-    T, d = LM_TRAIN_SEQ, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = cfg.d_model
     xt = torch.randn((T, d), generator=gen, device=dev, dtype=cfg.dtype)
-    p0 = params["layers"][0]["moe"]
     _, eidx, _ = L.route(p0, cfg, xt.float())
     plan = L.token_plan(eidx, L.capacity(cfg, T), cfg.n_experts)
     n_slots = plan.E * plan.C
@@ -2354,22 +2803,35 @@ def lm_kernel_rows(torch, timer, dev, params, cfg, seed):
 
     yb = torch.randn((n_slots, d), generator=gen, device=dev,
                      dtype=cfg.dtype)
-    grad_y = torch.randn((T, d), generator=gen, device=dev)
-    rows = [time_stream_gather(torch, timer, LM_TRAIN_MAIN["block_gather"],
+    rows = [time_stream_gather(torch, timer, f"{tag} dispatch F={d} bf16",
                                pairs(xt), plan.tok_of_slot),
-            time_stream_gather(torch, timer, "lm fwd combine F=2048 bf16",
-                               pairs(yb), plan.slot_of_lane),
-            time_stream_gather(torch, timer, "lm bwd combine F=2048",
-                               torch.cat([grad_y,
-                                          grad_y.new_zeros((1, d))]),
-                               plan.tok_of_slot)]
+            time_stream_gather(torch, timer, f"{tag} combine F={d} bf16",
+                               pairs(yb), plan.slot_of_lane)]
+    if backward:
+        grad_y = torch.randn((T, d), generator=gen, device=dev)
+        rows.append(time_stream_gather(
+            torch, timer, backward,
+            torch.cat([grad_y, grad_y.new_zeros((1, d))]), plan.tok_of_slot))
+        del grad_y
     lanes = L._rows(yb, plan.slot_of_lane).float()
-    rows.append(time_stream_sum(torch, timer, LM_TRAIN_MAIN["segment_sum"],
+    del yb
+    rows.append(time_stream_sum(torch, timer, f"{tag} combine F={d}",
                                 lanes, plan.row_ptr, plan.partition(d)))
     for r in rows:
         r.update(tokens=T, slots=n_slots, capacity=plan.C,
                  kept_lanes=int(plan.keep.sum()))
     return rows
+
+
+def lm_kernel_rows(torch, timer, dev, params, cfg, seed):
+    """Both graph kernels at the MoE's training shapes over a token plan of
+    layer 0's router (T = 4,096 tokens, K = 8, C = 321): the dispatch
+    (41,088 bucket rows from the 4,096 token rows), the combine's gather
+    (32,768 lanes) and its sum by token at F = 2048, and the combine's
+    backward (``moe_kernel_rows``)."""
+    return moe_kernel_rows(torch, timer, dev, params["layers"][0]["moe"],
+                           cfg, LM_TRAIN_SEQ, "lm fwd", seed + 61,
+                           backward="lm bwd combine F=2048")
 
 
 def lm_train_phase(torch, timer, dev, seed, report, profile=False) -> None:
@@ -2380,6 +2842,7 @@ def lm_train_phase(torch, timer, dev, seed, report, profile=False) -> None:
     from repro_torch import tree as T
     from repro_torch.configs.qwen3_moe_30b_a3b import full_config
     from repro_torch.data.synthetic import token_stream
+    from repro_torch.interop import lm_checkpoint_layout
     from repro_torch.models.transformer import model as M
     from repro_torch.models.transformer.layers import capacity
     from repro_torch.optim import AdamWConfig
@@ -2417,9 +2880,12 @@ def lm_train_phase(torch, timer, dev, seed, report, profile=False) -> None:
     # state with their moments), so each step's update frees the last
     first = [params]
     del params
+    # checkpoints in the JAX package's tree, as launch/train.py writes an
+    # LM's: the layers stacked by period on the host copy
     state, step_fn, rec = supervised_run(
         torch, timer, lambda s: cache[s % len(cache)], first.pop(), loss_fn,
-        AdamWConfig(lr=1e-3), dev, tuple(want), snapshot_device="cpu")
+        AdamWConfig(lr=1e-3), dev, tuple(want), snapshot_device="cpu",
+        layout=lm_checkpoint_layout(cfg.period))
     gc.collect()
     torch.cuda.empty_cache()
     # the run's own checkpoints give the write times: one more write of the
@@ -3584,7 +4050,10 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     t0 = time.perf_counter()
     lm_phase(torch, timer, dev, seed, report, clock_mhz, profile)
     report["lm_seconds"] = time.perf_counter() - t0
-    gc.collect()                       # the LM state goes before SASRec's
+    t0 = time.perf_counter()           # phase 6b frees the LM state first
+    moe_serve_phase(torch, timer, dev, seed, report, clock_mhz, profile)
+    report["moe_serve_seconds"] = time.perf_counter() - t0
+    gc.collect()                       # the MoE state goes before SASRec's
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     recsys_phase(torch, timer, dev, seed, report, profile)
@@ -3644,6 +4113,20 @@ def lm_train_entry(report: dict, name: str) -> dict:
                 library_ms=main["library_ms"])
 
 
+def moe_serve_entry(report: dict, name: str) -> dict:
+    """Kernel ``name``'s phase-6b entry: its row at the MoE-serving shape of
+    ``MOE_SERVE_MAIN`` (the graph kernels: the decode step's), its launches
+    on the graph-route serve, the largest error over its phase-6b rows."""
+    rows = [r for r in report["moe_serve_kernels"] if r["name"] == name]
+    main = next(r for r in rows if r["shape"] == MOE_SERVE_MAIN[name])
+    return dict(shape=main["shape"],
+                launches=report["moe_serve"]["launches"][name],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
+
+
 def kernels_line(report: dict) -> dict:
     """The ``kernels`` JSON object: each kernel at its path's dominant shape
     (the push sweep's first row: x[src] over the sweep plan and the CSR sum
@@ -3659,7 +4142,9 @@ def kernels_line(report: dict) -> dict:
     kernels and ``embedding_bag``) the same for phase 9's Equiformer-v2
     (K·C = 6272) and SASRec (F = 50) runs; the ``lm_train`` entries the
     same for phase 10's MoE (the dispatch, F = 2048 bf16; the combine's sum
-    by token)."""
+    by token); the ``moe_serve`` entries of the graph kernels and both
+    attention kernels the same for phase 6b's qwen3-moe serve (the decode
+    step's dispatch and sum by token, flash and paged at G = 8)."""
     launches = report["service"]["launches"]
     meta = {
         "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
@@ -3739,6 +4224,9 @@ def kernels_line(report: dict) -> dict:
         if table is meta:            # phase 10's MoE dispatch and combine
             for row in out[-2:]:
                 row["lm_train"] = lm_train_entry(report, row["name"])
+        if table in (meta, lm_meta):     # phase 6b, MoE serving
+            for row in out[-2:]:
+                row["moe_serve"] = moe_serve_entry(report, row["name"])
         if table is meta:            # the sealed run's push stream
             for row in out[-2:]:
                 main = next(r for r in report["tier"]["kernels"]
@@ -3778,7 +4266,8 @@ def main(argv=None) -> int:
                          "2,000 requests of the serve trace, the last "
                          "flush and a PageRank at 8 shards, the LM "
                          "check's prefill, one replayed and one eager "
-                         "paged decode step, one serve_bulk chunk of "
+                         "paged decode step of Gemma-2 and of qwen3-moe, "
+                         "one serve_bulk chunk of "
                          "SASRec, one gin-tu, Equiformer-v2, SASRec and "
                          "qwen3-moe training step (their times then "
                          "include the profiler's cost)")
@@ -3811,6 +4300,9 @@ def main(argv=None) -> int:
         shard_seconds=f"{report['shard_seconds']:.1f}",
         shard_max_memory_allocated=report["shard"]["max_memory_allocated"],
         lm_seconds=f"{report['lm_seconds']:.1f}",
+        moe_serve_seconds=f"{report['moe_serve_seconds']:.1f}",
+        moe_serve_max_memory_allocated=report["moe_serve"][
+            "max_memory_allocated"],
         recsys_seconds=f"{report['recsys_seconds']:.1f}",
         train_seconds=f"{report['train_seconds']:.1f}",
         train_max_memory_allocated=report["train"]["max_memory_allocated"],

@@ -1,2 +1,2 @@
-from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer, latest_step,
-                                               restore, save)
+from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer, Stacked,
+                                               latest_step, restore, save)

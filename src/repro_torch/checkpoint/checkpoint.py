@@ -10,6 +10,15 @@ the other wrote, bit for bit.  ``restore`` maps files to the template's
 leaves by index and puts them on ``device`` (the card unless the caller
 names another), where the JAX package takes a sharding tree.
 
+A ``layout`` is written where the port's tree and the JAX package's differ
+in shape: it maps the tree with every leaf replaced by its flatten index to
+the tree that is written, whose leaves are those indices or
+:class:`Stacked` groups of them (``interop.lm_checkpoint_layout``: the LM's
+layer list as JAX's period-stacked ``periods/l{i}`` plus ``tail``).  A
+stacked leaf is assembled on the host copy, each of its parts copied from
+the device straight into its slice, and ``restore`` with the same layout
+cuts it back into the template's leaves.
+
 Async: ``save_async`` copies every leaf to host memory on the caller's
 thread (the step barrier) and writes the files on a background thread, so
 training overlaps the write.
@@ -22,7 +31,7 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -37,13 +46,38 @@ from repro_torch.backend import resolve_device
 _BF16_NPY = np.dtype("V2")
 
 
+class Stacked:
+    """A written leaf that stacks several leaves of the tree (by flatten
+    index, in order) along a new first axis."""
+
+    __slots__ = ("indices",)
+
+    def __init__(self, indices):
+        self.indices = tuple(indices)
+
+
+def _numpy(host: torch.Tensor) -> np.ndarray:
+    if host.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(_BF16_NPY)
+    return host.numpy()
+
+
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        host = leaf.detach().to("cpu", copy=True)
-        if host.dtype == torch.bfloat16:
-            return host.view(torch.int16).numpy().view(_BF16_NPY)
-        return host.numpy()
+        return _numpy(leaf.detach().to("cpu", copy=True))
     return np.array(leaf)
+
+
+def _stack_to_host(parts: List[Any]) -> np.ndarray:
+    """``parts`` stacked on the host: each tensor copied from its device
+    into its slice of one host array, with no stacked copy on the device."""
+    if not all(isinstance(x, torch.Tensor) for x in parts):
+        return np.stack([np.asarray(x) for x in parts])
+    out = torch.empty((len(parts),) + tuple(parts[0].shape),
+                      dtype=parts[0].dtype)
+    for row, x in zip(out, parts):
+        row.copy_(x.detach())
+    return _numpy(out)
 
 
 def _dtype_name(a: np.ndarray) -> str:
@@ -91,21 +125,47 @@ def _write(out: Path, step: int, paths: List[str], host: List[np.ndarray],
     return out
 
 
-def save(ckpt_dir: str | os.PathLike, step: int, tree: Any) -> Path:
+def _written(tree: Any, layout: Optional[Callable]):
+    """(paths, groups, treedef) of what a checkpoint of ``tree`` holds:
+    each group the flatten index of one leaf of ``tree``, or a
+    :class:`Stacked` of several."""
+    n = len(T.leaves(tree))
+    if layout is None:
+        return T.flatten_with_paths(tree)[0], list(range(n)), _treedef(tree)
+    saved = layout(T.unflatten(tree, range(n)))
+    paths, groups = T.flatten_with_paths(saved)
+    return paths, groups, _treedef(saved)
+
+
+def _host_copy(tree: Any, layout: Optional[Callable]):
+    """(paths, host arrays, treedef): the step barrier's copy."""
+    paths, groups, treedef = _written(tree, layout)
+    leaves = T.leaves(tree)
+    host = [_stack_to_host([leaves[i] for i in g.indices])
+            if isinstance(g, Stacked) else _to_host(leaves[g])
+            for g in groups]
+    return paths, host, treedef
+
+
+def save(ckpt_dir: str | os.PathLike, step: int, tree: Any,
+         layout: Optional[Callable] = None) -> Path:
     """Synchronous checkpoint write; returns the step directory."""
-    paths, leaves = T.flatten_with_paths(tree)
-    return _write(Path(ckpt_dir) / f"step_{step:09d}", step, paths,
-                  [_to_host(x) for x in leaves], _treedef(tree))
+    paths, host, treedef = _host_copy(tree, layout)
+    return _write(Path(ckpt_dir) / f"step_{step:09d}", step, paths, host,
+                  treedef)
 
 
 class AsyncCheckpointer:
     """Orbax-style async writer: snapshot on-thread, persist off-thread;
-    keeps the newest ``keep`` checkpoints.  ``write_seconds`` holds each
-    finished write's time on the writer thread."""
+    keeps the newest ``keep`` checkpoints, each in ``layout``.
+    ``write_seconds`` holds each finished write's time on the writer
+    thread."""
 
-    def __init__(self, ckpt_dir: str | os.PathLike, keep: int = 3):
+    def __init__(self, ckpt_dir: str | os.PathLike, keep: int = 3,
+                 layout: Optional[Callable] = None):
         self.ckpt_dir = Path(ckpt_dir)
         self.keep = keep
+        self.layout = layout
         self.write_seconds: List[float] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
@@ -121,9 +181,7 @@ class AsyncCheckpointer:
 
     def save_async(self, step: int, tree: Any):
         self.wait()                                     # one in flight
-        paths, leaves = T.flatten_with_paths(tree)
-        host = [_to_host(x) for x in leaves]            # barrier
-        treedef = _treedef(tree)
+        paths, host, treedef = _host_copy(tree, self.layout)   # barrier
 
         def write():
             try:
@@ -152,9 +210,12 @@ def latest_step(ckpt_dir: str | os.PathLike) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | os.PathLike, template: Any,
-            step: Optional[int] = None, device=None) -> Any:
-    """Restore into the structure of ``template`` (leaf ``i`` from file
-    ``i``), every leaf a tensor on ``device``."""
+            step: Optional[int] = None, device=None,
+            layout: Optional[Callable] = None) -> Any:
+    """Restore into the structure of ``template``, every leaf a tensor on
+    ``device``: leaf ``i`` from file ``i``, or, with a ``layout``, from
+    where that layout writes it (a stacked file cut back into its
+    leaves)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -162,10 +223,21 @@ def restore(ckpt_dir: str | os.PathLike, template: Any,
     dev = resolve_device(device)
     src = Path(ckpt_dir) / f"step_{step:09d}"
     manifest = json.loads((src / "manifest.json").read_text())
+    _, groups, _ = _written(template, layout)
     n = len(manifest["leaves"])
-    if n != len(T.leaves(template)):
+    if n != len(groups):
         raise ValueError(f"checkpoint {src} holds {n} leaves, the template "
-                         f"{len(T.leaves(template))}")
-    return T.unflatten(template, [
-        _from_host(np.load(src / f"{i}.npy"), leaf["dtype"]).to(dev)
-        for i, leaf in enumerate(manifest["leaves"])])
+                         f"{len(groups)}")
+    out: List[Any] = [None] * len(T.leaves(template))
+    for i, (g, leaf) in enumerate(zip(groups, manifest["leaves"])):
+        a = np.load(src / f"{i}.npy")
+        if not isinstance(g, Stacked):
+            out[g] = _from_host(a, leaf["dtype"]).to(dev)
+            continue
+        if a.shape[:1] != (len(g.indices),):
+            raise ValueError(f"checkpoint {src} leaf {leaf['path']} stacks "
+                             f"{a.shape[:1]}, the template "
+                             f"{len(g.indices)} leaves")
+        for part, j in zip(a, g.indices):
+            out[j] = _from_host(part, leaf["dtype"]).to(dev)
+    return T.unflatten(template, out)

@@ -5,7 +5,9 @@ The JAX package's ``CBList``, ``BlockStore``, ``UpdateLog``, ``CSRGraph``,
 dataclasses of arrays; anything with the same field names whose leaves ``np.asarray``
 accepts converts here (nothing of the JAX package is imported).  Values are copied unchanged — int32 stays int32 — so a layout
 moved across and back compares bit for bit.  ``lm_params_from_jax`` turns
-the JAX LM's period-stacked parameter tree into the port's layer list;
+the JAX LM's period-stacked parameter tree into the port's layer list, and
+``lm_checkpoint_layout`` writes an LM train state's checkpoint in that
+period-stacked tree;
 ``sasrec_params_from_jax`` and ``gnn_params_from_jax`` carry a SASRec or
 GNN tree over as it is.
 """
@@ -16,7 +18,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.backend import resolve_device
+from repro_torch.checkpoint import Stacked
 from repro_torch.core.blockstore import BlockStore
 from repro_torch.core.cblist import CBList
 from repro_torch.core.csr import CSRGraph
@@ -153,13 +157,22 @@ def log_to_numpy(log: UpdateLog) -> Dict[str, np.ndarray]:
     return {k: to_numpy(getattr(log, k)) for k in UpdateLog._fields}
 
 
+def lm_layer_groups(n_layers: int, period: int):
+    """Where the port's LM layers sit in the JAX package's tree:
+    (``groups``, ``tail``), ``groups[i]`` the port's indices of the layers
+    stacked in ``periods["l{i}"]`` (layer ``p * period + i`` at index p),
+    ``tail`` those of the ``tail`` list, in order."""
+    n_full = n_layers // period
+    return ([[p * period + i for p in range(n_full)] for i in range(period)],
+            list(range(n_full * period, n_layers)))
+
+
 def lm_params_from_jax(tree, device=None) -> Dict[str, Any]:
     """The port's LM parameters from a JAX ``init_params`` tree (numpy or
-    JAX leaves): layer ``p * period + i`` is ``periods["l{i}"]`` at index p,
-    then the ``tail`` layers in order.  Every leaf is cut at its period
-    index, so a MoE layer's stacked experts [n_periods, E, d, f] become its
-    [E, d, f].  A JAX gradient tree has the parameters' structure and maps
-    the same way."""
+    JAX leaves), its layers placed by :func:`lm_layer_groups`.  Every leaf
+    is cut at its period index, so a MoE layer's stacked experts
+    [n_periods, E, d, f] become its [E, d, f].  A JAX gradient or AdamW
+    moment tree has the parameters' structure and maps the same way."""
     def conv(node, index=None):
         if isinstance(node, dict):
             return {k: conv(v, index) for k, v in node.items()}
@@ -168,13 +181,60 @@ def lm_params_from_jax(tree, device=None) -> Dict[str, Any]:
 
     periods = tree["periods"]
     subs = [periods[f"l{i}"] for i in range(len(periods))]
-    layers = []
-    if subs[0] is not None:
-        n_full = len(np.asarray(subs[0]["ln1"]["scale"]))
-        layers = [conv(sub, p) for p in range(n_full) for sub in subs]
-    layers += [conv(lp) for lp in tree.get("tail", [])]
+    tail = tree.get("tail", [])
+    n_full = (0 if subs[0] is None
+              else len(np.asarray(subs[0]["ln1"]["scale"])))
+    groups, tail_ids = lm_layer_groups(n_full * len(subs) + len(tail),
+                                       len(subs))
+    layers: list = [None] * (n_full * len(subs) + len(tail))
+    for sub, ids in zip(subs, groups):
+        for p, li in enumerate(ids):
+            layers[li] = conv(sub, p)
+    for lp, li in zip(tail, tail_ids):
+        layers[li] = conv(lp)
     return {"embed": conv(tree["embed"]), "lm_head": conv(tree["lm_head"]),
             "ln_f": conv(tree["ln_f"]), "layers": layers}
+
+
+_LM_KEYS = frozenset(("embed", "lm_head", "ln_f", "layers"))
+
+
+def _jax_lm_layout(node, period: int):
+    """A port LM tree of flatten indices in the JAX package's layout: the
+    layers of ``periods["l{i}"]`` stacked leaf by leaf (``None`` with no
+    full period), the ``tail`` key only when there is a tail."""
+    layers = node["layers"]
+    groups, tail = lm_layer_groups(len(layers), period)
+    out = {k: v for k, v in node.items() if k != "layers"}
+    out["periods"] = {
+        f"l{i}": (T.unflatten(layers[ids[0]], [
+            Stacked(ix) for ix in zip(*(T.leaves(layers[j]) for j in ids))])
+            if ids else None)
+        for i, ids in enumerate(groups)}
+    if tail:
+        out["tail"] = [layers[j] for j in tail]
+    return out
+
+
+def lm_checkpoint_layout(period: int):
+    """The checkpoint layout (``repro_torch.checkpoint``'s ``layout=``) of
+    an LM train state in the JAX package's tree: every LM parameter tree in
+    it (the parameters, AdamW's ``m`` and ``v``) written as
+    ``periods/l{i}`` [n_periods, ...] plus ``tail`` by
+    :func:`lm_layer_groups`, the rest as it is, so the JAX package's
+    ``restore`` reads the port's checkpoints and the port's reads JAX's,
+    bit for bit."""
+    def layout(node):
+        if isinstance(node, dict):
+            if _LM_KEYS <= node.keys():
+                return _jax_lm_layout(node, period)
+            return {k: layout(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(layout(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(layout(v) for v in node)
+        return node
+    return layout
 
 
 def sasrec_params_from_jax(tree, device=None) -> Dict[str, Any]:

@@ -6,12 +6,16 @@ chains to each sequence's own prompt length (``kvcache.append_many``, the
 CBList tail insert), then decodes greedily through ``serve_step_paged``:
 every step appends the new token's K/V to its chain and attends over the
 chain with the paged kernel.  Finished sequences keep their pages, as in
-the JAX driver.
+the JAX driver.  Every LM config of ``configs/`` serves through it: an MoE
+config (qwen3-moe-30b-a3b, kimi-k2-1t-a32b) routes each step's tokens in
+every layer and runs the dispatch and combine on the graph kernels, in
+the eager step and in the captured one alike.
 
 On the card the decode step runs as one CUDA graph (:class:`DecodeGraph`):
 the first step runs eagerly, then ``serve_step_paged`` is captured over
 the caches, whose tensors an in-place step never moves, and every later
-step is one replay, in place of some 20 launches a layer from the host.
+step is one replay, in place of some 20 launches a layer from the host
+(some 30 in an MoE layer).
 This is the port's counterpart of the JAX decoder compiled under ``jit``.
 ``graph=False`` keeps the eager loop on the card.
 
@@ -93,10 +97,6 @@ class DecodeGraph:
 
     def __init__(self, params: Params, cfg: LMConfig,
                  caches: List[kvcache.PagedKVCache], tok: torch.Tensor):
-        if cfg.moe:
-            raise NotImplementedError(
-                "DecodeGraph: MoE layers decode through the dense "
-                "serve_step; the paged path waits (ROADMAP.md, queue 1)")
         side = torch.cuda.Stream(device=tok.device)
         side.wait_stream(torch.cuda.current_stream(tok.device))
         with torch.cuda.stream(side):

@@ -6,6 +6,9 @@ device.
 
 Composes: arch config -> model loss -> AdamW (+clip) -> TrainSupervisor
 (async checkpointing, failure injection, straggler policy) -> batches.
+An LM's checkpoints are written in the JAX package's tree (its layers
+stacked by period, ``interop.lm_checkpoint_layout``), so either package
+resumes the other's run.
 :func:`make_step` is the JAX ``step_fn`` (loss and gradients, clip to a
 global norm of 1, ``warmup_cosine`` over 10 warmup steps, AdamW), eager
 under autograd.  On the card the MoE's dispatch and combine, the GNNs'
@@ -33,6 +36,7 @@ from repro_torch import tree as T
 from repro_torch.backend import resolve_device
 from repro_torch.configs.registry import ARCH_MODULES, GNN_MODEL_MODULES
 from repro_torch.data.synthetic import rmat_edges, sasrec_batches, token_stream
+from repro_torch.interop import lm_checkpoint_layout
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.optim import (AdamWConfig, adamw_update, clip_by_global_norm,
                                init_opt_state, warmup_cosine)
@@ -168,9 +172,12 @@ def main(argv=None):
     step_fn = make_step(loss_fn, opt_cfg, args.steps)
 
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    layout = (lm_checkpoint_layout(cfg.period)
+              if arch_module(args.arch).FAMILY == "lm" else None)
     sup = TrainSupervisor(ckpt_dir, ckpt_every=args.ckpt_every,
                           injector=FailureInjector(args.fail_at),
-                          straggler=StragglerPolicy(), device=dev)
+                          straggler=StragglerPolicy(), device=dev,
+                          layout=layout)
 
     losses = []
 

@@ -30,7 +30,6 @@ from repro_torch.backend import resolve_impl
 from repro_torch.kernels.block_gather.ops import gather_rows
 from repro_torch.kernels.flash_attention import attention as flash_attention
 from repro_torch.kernels.segment_matmul.ops import (csr_items_per_cta,
-                                                    merge_path_partition,
                                                     segment_sum_csr)
 
 Params = Dict[str, Any]
@@ -216,7 +215,11 @@ def route(p: Params, cfg: LMConfig, xf: torch.Tensor):
     probs = torch.softmax(xf @ p["router"], dim=-1)
     gate, eidx = torch.topk(probs, K, dim=-1)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
-    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / (T * K)
+    # the lanes an expert takes, counted in float32 (exact below 2^24
+    # lanes) with no read of the device from the host, which ``bincount``
+    # makes on the card and a CUDA graph's capture forbids
+    ce = xf.new_zeros(E).index_add_(0, eidx.reshape(-1),
+                                    xf.new_ones(T * K)) / (T * K)
     return gate, eidx, E * torch.sum(probs.mean(dim=0) * ce)
 
 
@@ -232,7 +235,9 @@ class TokenPlan:
     order.  For the kernels: ``slot_of_lane`` (token-major; ``E * C``, the
     zero row, when dropped), ``tok_of_slot`` (``T``, the zero row, for an
     empty slot) and ``row_ptr`` (token ``t``'s lanes, ``K`` a token).  All
-    int32 but ``order`` and ``keep``.
+    int32 but ``order`` and ``keep``.  Building a plan and summing over it
+    read nothing back from the device, so a decode step that routes its
+    tokens can be captured in a CUDA graph.
     """
     T: int
     K: int
@@ -247,10 +252,21 @@ class TokenPlan:
     _parts: Dict = dataclasses.field(default_factory=dict)
 
     def partition(self, F: int) -> torch.Tensor:
-        """The merge-path partition of the lanes by token at width F."""
+        """The merge-path partition of the lanes by token at width F:
+        ``merge_path_partition(row_ptr, csr_items_per_cta(F))``, made from
+        the host ints (T, K) alone.  Row r's end on the merge path is
+        ``row_ptr[r + 1] + r + 1 = (r + 1)(K + 1)``, so diagonal d splits
+        after ``min(d // (K + 1), T)`` rows."""
         key = csr_items_per_cta(F)
         if key not in self._parts:
-            self._parts[key] = merge_path_partition(self.row_ptr, key)
+            total = self.T * (self.K + 1)
+            diag = (torch.arange(-(-total // key) + 1, dtype=torch.int64,
+                                 device=self.row_ptr.device)
+                    * key).clamp_(max=total)
+            rows = torch.div(diag, self.K + 1,
+                             rounding_mode="floor").clamp_(max=self.T)
+            self._parts[key] = torch.stack([rows, diag - rows],
+                                           dim=1).to(torch.int32)
         return self._parts[key]
 
     def sum_by_token(self, lanes: torch.Tensor) -> torch.Tensor:
@@ -265,8 +281,9 @@ def token_plan(eidx: torch.Tensor, C: int, E: int) -> TokenPlan:
     T, K = eidx.shape
     dev = eidx.device
     se, order = torch.sort(eidx.reshape(-1), stable=True)
-    counts = torch.bincount(se, minlength=E)
-    estart = torch.cumsum(counts, 0) - counts
+    # where each expert's lanes start in the sorted ids (no host read)
+    estart = torch.searchsorted(se, torch.arange(E, dtype=se.dtype,
+                                                 device=dev))
     rank = torch.arange(T * K, device=dev) - estart[se]
     keep = rank < C
     slot = torch.where(keep, se * C + rank, E * C)

@@ -13,14 +13,22 @@ Decoding comes in two forms over the same layers:
   attention, the JAX package's decoder and the port's reference;
 * :func:`serve_step_paged` — one :class:`PagedKVCache` per layer: the token's
   K/V are appended to its sequence's page chain and attention reads the
-  chain through the paged kernel.  Same logits as :func:`serve_step`.
+  chain through the paged kernel; an MoE layer routes the step's B tokens
+  and runs its dispatch and combine on the graph kernels.  Same logits as
+  :func:`serve_step`.
+
+An MoE layer decodes as the JAX ``_decode_layer`` does: one MoE call over
+the B tokens of the step at ``capacity(cfg, B)`` slots an expert, overflow
+dropped (the residual passes through), the aux loss discarded.  Capacity
+couples the rows: which lanes keep a slot depends on every row's routing.
 
 Prefill (and forward) run attention through the flash kernel on the card
 (``impl="cuda"``), where the JAX ``prefill`` hard-codes its XLA path.
 :func:`loss_fn` runs attention through the plain version always (the flash
 kernels have no backward; JAX's ``loss_fn`` takes ``impl="xla"``), and its
-``impl`` picks the MoE route.  MoE layers decode through the dense
-:func:`serve_step` only: the paged path waits (ROADMAP.md, queue 1).
+``impl`` picks the MoE route.  :func:`serve_step` runs the MoE on its
+plain route (``"torch"``); :func:`serve_step_paged` on the step's
+``impl``.
 """
 from __future__ import annotations
 
@@ -182,9 +190,12 @@ def _decode_qkv(p: Params, cfg: LMConfig, x: torch.Tensor,
 
 
 def _decode_out(p: Params, cfg: LMConfig, x: torch.Tensor,
-                o: torch.Tensor) -> torch.Tensor:
+                o: torch.Tensor, impl: str) -> torch.Tensor:
+    """The layer's attention output o [B, H, D] projected and added to x
+    [B, 1, d], then the feed-forward (an MoE on route ``impl``; its aux
+    loss discarded)."""
     x = x + o.reshape(x.shape[0], 1, -1) @ p["attn"]["wo"]
-    return x + _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), "torch")[0]
+    return x + _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), impl)[0]
 
 
 def _dense_decode_attention(cfg: LMConfig, q, k_cache, v_cache, lengths,
@@ -226,7 +237,7 @@ def serve_step(params: Params, cfg: LMConfig, cache: Dict[str, torch.Tensor],
         v_all[li, b_idx, :, pos] = v
         o = _dense_decode_attention(cfg, q, k_all[li], v_all[li], lengths,
                                     window)
-        x = _decode_out(lp, cfg, x, o)
+        x = _decode_out(lp, cfg, x, o, "torch")
     return _head(params, cfg, x[:, 0]), {"k": k_all, "v": v_all,
                                          "lengths": lengths + 1}
 
@@ -237,12 +248,11 @@ def serve_step_paged(params: Params, cfg: LMConfig,
     """One decode step over the paged caches (one per layer): tokens [B, 1]
     -> (logits [B, vocab], new caches).  Each layer appends the token's K/V
     to its chains (``kvcache.append``) and attends over them
-    (``kvcache.attend``, the paged kernel with ``impl="cuda"``).  With
-    ``inplace`` the caches' pools are written in place."""
-    if cfg.moe:
-        raise NotImplementedError(
-            "serve_step_paged: MoE layers decode through the dense "
-            "serve_step; the paged path waits (ROADMAP.md, queue 1)")
+    (``kvcache.attend``, the paged kernel with ``impl="cuda"``); an MoE
+    layer's dispatch and combine take the same ``impl``.  With ``inplace``
+    the caches' pools are written in place.  On the kernel route the step
+    reads nothing back from the device, so it can be captured in a CUDA
+    graph."""
     x = embed(params, cfg, tokens)
     out = []
     for lp, window, cache in zip(params["layers"], cfg.layer_windows,
@@ -252,6 +262,6 @@ def serve_step_paged(params: Params, cfg: LMConfig,
         o = kvcache.attend(cache, q, scale=cfg.head_dim ** -0.5,
                            window=window, softcap=cfg.attn_softcap,
                            impl=impl)
-        x = _decode_out(lp, cfg, x, o)
+        x = _decode_out(lp, cfg, x, o, impl)
         out.append(cache)
     return _head(params, cfg, x[:, 0]), out

@@ -81,14 +81,17 @@ class TrainSupervisor:
 
     ``state`` is a tree of tensors; ``step_fn(state, batch) -> (state,
     metrics)``.  Restored state lands on ``device`` (the card unless the
-    caller names another).
+    caller names another).  Checkpoints are written and read in ``layout``
+    (``repro_torch.checkpoint``; the tree as it is when None).
     """
 
     def __init__(self, ckpt_dir: str, *, ckpt_every: int = 10,
                  injector: Optional[FailureInjector] = None,
                  straggler: Optional[StragglerPolicy] = None,
-                 max_restarts: int = 8, device=None):
-        self.ckpt = AsyncCheckpointer(ckpt_dir)
+                 max_restarts: int = 8, device=None,
+                 layout: Optional[Callable] = None):
+        self.ckpt = AsyncCheckpointer(ckpt_dir, layout=layout)
+        self.layout = layout
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.injector = injector
@@ -103,7 +106,8 @@ class TrainSupervisor:
         restarts = 0
         # resume if a checkpoint exists (restart-from-failure entry point)
         if latest_step(self.ckpt_dir) is not None:
-            state = restore(self.ckpt_dir, state, device=self.device)
+            state = restore(self.ckpt_dir, state, device=self.device,
+                            layout=self.layout)
             step = latest_step(self.ckpt_dir)
         while step < n_steps:
             try:
@@ -131,7 +135,8 @@ class TrainSupervisor:
                 self.ckpt.wait()
                 last = latest_step(self.ckpt_dir)
                 if last is not None:
-                    state = restore(self.ckpt_dir, state, device=self.device)
+                    state = restore(self.ckpt_dir, state,
+                                    device=self.device, layout=self.layout)
                     step = last
                 # else: restart from step 0 with current state
         self.ckpt.wait()

@@ -219,16 +219,29 @@ def test_run_sweeps_on_the_card_match_their_plain_versions(gen, F):
     sweeps = ((C.csr_push_feat,) if F > 1 else (C.csr_push, C.csr_pull))
     for fn in sweeps:
         for act in (None, active):
+            what = f"{fn.__name__} F={F} active={act is not None}"
             before = dict(backend.LAUNCHES)
             got = fn(run, x, act, impl="cuda")
             for name in ("segment_sum", "block_gather"):
-                assert backend.LAUNCHES[name] == before[name] + 1, name
+                assert backend.LAUNCHES[name] == before[name] + 1, \
+                    f"{what}: {name} launches"
+            # the float64 sum: impl="torch" on float64 values, as
+            # chip_smoke.py's phase 3 holds the sweeps (a float32
+            # index_add_ on the card adds in any order, and over the hub's
+            # 10^5 edges its error reaches the tolerance)
+            ref = fn(run, x.double(), act, impl="torch")
             host_act = None if act is None else act.cpu()
             torch.testing.assert_close(
-                got.cpu(), fn(host, x.cpu(), host_act, impl="cuda"), **tol)
-            torch.testing.assert_close(got, fn(run, x, act, impl="torch"),
-                                       **tol)
-            assert torch.equal(got, fn(run, x, act, impl="cuda"))
+                got.double(), ref, **tol,
+                msg=lambda m: f"{what}: kernel route on the card against "
+                              f"the float64 sum: {m}")
+            torch.testing.assert_close(
+                fn(host, x.cpu(), host_act, impl="cuda").double(),
+                ref.cpu(), **tol,
+                msg=lambda m: f"{what}: plain route on the host against the "
+                              f"float64 sum: {m}")
+            assert torch.equal(got, fn(run, x, act, impl="cuda")), \
+                f"{what}: a repeat of the kernel route differs"
     torch.cuda.synchronize()
 
 
@@ -545,6 +558,7 @@ def _flash_case(gen, dtype, B, H, KVH, S, D, causal, window, cap,
     (1, 4, 2, 200, 128, True, 48, 50.0),       # ragged S, window
     (1, 2, 1, 130, 96, False, 40, 0.0),        # non-causal with a window
     (1, 2, 2, 70, 256, True, 0, 30.0),         # widest head
+    (1, 32, 4, 300, 128, True, 0, 0.0),        # qwen3-moe: G = 8, no cap
 ])
 def test_flash_attention_kernel_matches_plain(gen, dtype, B, H, KVH, S, D,
                                               causal, window, cap):
@@ -689,6 +703,7 @@ def _paged_inputs(gen, B, KVH, G, D, page, NP, P, dtype):
     (4, 4, 2, 128, 128, 5, 200, 50.0),         # the Gemma-2 group shape
     (2, 2, 2, 256, 32, 3, 0, 0.0),
     (2, 2, 2, 18, 8, 4, 0, 50.0),              # rows not 16-byte aligned
+    (8, 4, 8, 128, 128, 5, 0, 0.0),            # the qwen3-moe group shape
 ])
 def test_paged_attention_kernel_matches_plain(gen, dtype, B, KVH, G, D, page,
                                               NP, window, cap):
@@ -1352,3 +1367,87 @@ def test_flash_attention_refuses_autograd_on_the_card(gen):
     with torch.no_grad():
         flash_attention(q, k, v, scale=128 ** -0.5)
     assert backend.LAUNCHES["flash_attention_wgmma"] == before + 1
+
+
+# ---- MoE decoding on the paged path ----------------------------------------
+
+def _moe_serve_problem(gen, B=8):
+    """qwen3-moe's smoke config in bf16, its capacity cut to 1.25 so decode
+    drops lanes (at B = 8, 16 lanes a step for 8 experts of 3 slots),
+    weights and prompts of 20-70 tokens made on the card."""
+    import dataclasses
+    from repro_torch.configs.qwen3_moe_30b_a3b import smoke_config
+    from repro_torch.models.transformer import model as M
+    cfg = dataclasses.replace(smoke_config(), dtype=torch.bfloat16,
+                              capacity_factor=1.25)
+    params = M.init_params(cfg, 11, device="cuda")
+    lens = torch.randint(20, 70, (B,), generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (B, int(lens.max())),
+                            generator=gen, device="cuda")
+    return cfg, params, prompts, lens
+
+
+def test_moe_decode_step_on_the_card_makes_no_host_sync(gen):
+    """One eager MoE decode step on the kernel route under sync debug mode
+    "error": no read of the device from the host; per layer one paged, two
+    block_gather and one segment_sum launch; each layer's MoE block on the
+    step's own input bit for bit ``impl="torch"``'s."""
+    from repro_torch import backend
+    from repro_torch.launch.serve import fill_paged, pages_per_seq
+    from repro_torch.models.transformer import layers as L
+    from repro_torch.models.transformer import model as M
+    cfg, params, prompts, lens = _moe_serve_problem(gen)
+    B, S = prompts.shape
+    logits, dense = M.prefill(params, cfg, prompts)
+    caches = fill_paged(cfg, dense, lens, pages_per_seq(S, 4, 16), 16)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    M.serve_step_paged(params, cfg, caches, tok)      # a pure step first
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = M.serve_step_paged(params, cfg, caches, tok, inplace=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out).all())
+    assert {k: backend.LAUNCHES[k] for k in
+            ("paged_attention", "block_gather", "segment_sum")} == {
+        "paged_attention": cfg.n_layers, "block_gather": 2 * cfg.n_layers,
+        "segment_sum": cfg.n_layers}
+    # the MoE block alone on each layer's input: both routes bit for bit
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device="cuda",
+                    dtype=cfg.dtype)
+    for lp in params["layers"]:
+        yk, _ = L.apply_moe(lp["moe"], cfg, x, "cuda")
+        yt, _ = L.apply_moe(lp["moe"], cfg, x, "torch")
+        assert torch.equal(yk, yt)
+    _, eidx, _ = L.route(params["layers"][0]["moe"], cfg, x.reshape(B, -1)
+                         .float())
+    plan = L.token_plan(eidx, L.capacity(cfg, B), cfg.n_experts)
+    assert L.capacity(cfg, B) == 3 and plan.T == B
+
+
+def test_moe_serve_graph_matches_the_eager_loop(gen):
+    """``serve`` of the bf16 MoE config on the card: the decode steps
+    replayed from one CUDA graph give the eager loop's greedy tokens, with
+    the same launches counted on both routes (prefill: a flash, two
+    block_gather and a segment_sum a layer; each decode step: a paged, two
+    block_gather and a segment_sum a layer)."""
+    from repro_torch import backend
+    from repro_torch.launch.serve import serve
+    cfg, params, prompts, lens = _moe_serve_problem(gen)
+    steps, L_ = 12, cfg.n_layers
+    want = {"flash_attention_wgmma": L_, "paged_attention": L_ * steps,
+            "block_gather": 2 * L_ * (steps + 1),
+            "segment_sum": L_ * (steps + 1)}
+    res = []
+    for graph in (True, False):
+        backend.reset_launch_counts()
+        res.append(serve(cfg, params, prompts, lens, steps, page=16,
+                         device="cuda", graph=graph))
+        assert {k: backend.LAUNCHES[k] for k in want} == want, graph
+    assert [r.graph for r in res] == [True, False]
+    assert torch.equal(res[0].tokens, res[1].tokens)
+    for c_graph, c_eager in zip(res[0].caches, res[1].caches):
+        for name in ("block_table", "lengths", "free_top"):
+            assert torch.equal(getattr(c_graph, name), getattr(c_eager, name))
