@@ -238,7 +238,33 @@ Phases, one report line each:
    Then both kernels at the
    MoE's shapes (the dispatch, the combine's gather and its sum by token
    at F = 2048, the combine's backward into the buckets), each against its
-   plain version and timed beside it, its library call and its bound.
+   plain version and timed beside it, its library call and its bound;
+11. the mesh modules, once phase 10's state is freed (``[mesh.*]``
+   lines).  (a) The dry run on the host: ``launch.dryrun`` under the fake
+   process group of 512 ranks (set up and destroyed in this process) for
+   ``DRYRUN_CELLS`` on both production meshes, one line a cell: argument
+   bytes a device, GFLOP a step (FlopCounterMode on the meta device),
+   whether the argument bytes fit one H100's 80 GB (computed), each
+   record's FLOPs and bytes above 0 and its collective bytes null.
+   (b) Gradient compression on the card at the LM-train cell's widest
+   gradient leaf, one layer's expert stack [128, 2048, 768] in float32
+   (201,326,592 values; N(0, 1) from ``--seed``: phase 10 keeps no
+   gradient): ``topk_compress`` at k_frac 0.01 with error feedback for 20
+   rounds, what was sent plus the last residual equal to 20 g within the
+   float32 bound of ``COMPRESS_ULPS``; the card's top-k bit for bit the
+   host's on a 2^20-value slice with distinct magnitudes; ``int8_compress``
+   over 32 draws, the mean's error within the Hoeffding bound of the
+   draws and its RMS within the one-draw deviation over sqrt(32); each of
+   the four calls timed beside its bytes bound.  (c) The mesh path on the
+   card: a one-rank NCCL group, ``make_debug_mesh((1, 1))``, the plan of
+   ``plan_elastic_restart(1, 256, model_parallel=1)`` and its mesh, and
+   ``reshard_state`` of phase 10's last checkpoint (restored on the host
+   from the JAX package's period-stacked tree) onto it, placed by
+   ``shardings_for_cell`` of the qwen3-moe ``train_4k`` cell over the
+   2-layer tree: every leaf a DTensor with the cell's placements, its
+   ``full_tensor()`` bit for bit the restored leaf.  On one rank every
+   placement is trivial: this drives the code path on the card, not a
+   layout.
 
 The last two lines are the ``kernels`` JSON object and the device line.  It
 exits non-zero, printing no result, without a CUDA device or without the
@@ -252,8 +278,10 @@ import functools
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -463,6 +491,30 @@ LM_TRAIN_LAYERS, LM_TRAIN_SEQ, LM_TRAIN_CACHE = 2, 4096, 4
 LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_RTOL = 1e-5, 2 ** -6
 LM_TRAIN_MAIN = {"block_gather": "lm fwd dispatch F=2048 bf16",
                  "segment_sum": "lm fwd combine F=2048"}
+
+# phase 11: the mesh modules.  The dry run of every live cell on both
+# meshes takes longer than the 60 s this phase may give it on the host
+# (PERF.md gives the full sweep's time), so it runs the cheap cell of each
+# small family and the two MoE train cells
+DRYRUN_CELLS = (("gin-tu", "molecule"), ("sasrec", "serve_p99"),
+                ("qwen3-moe-30b-a3b", "train_4k"),
+                ("kimi-k2-1t-a32b", "train_4k"))
+# the LM-train cell's widest gradient leaf: one layer's expert stack
+COMPRESS_SHAPE, COMPRESS_K_FRAC, COMPRESS_ROUNDS = (128, 2048, 768), 0.01, 20
+COMPRESS_CHECK_VALUES, INT8_DRAWS = 1 << 20, 32
+# top-k with error feedback: sent + residual = R g exactly in real numbers.
+# In float32 an element meets at most two roundings a round (g + residual,
+# and the add into the sent sum), each at most 2^-24 of a value no larger
+# than R |g|, and R g itself one more: within (2 R + 1) R 2^-24 |g|
+COMPRESS_ULPS = (2 * COMPRESS_ROUNDS + 1) * COMPRESS_ROUNDS
+# int8: a draw's error on one value lies in an interval one scale wide, so
+# the mean of n draws exceeds t = scale sqrt(ln(2 N / delta) / (2 n)) with
+# probability at most delta / N (Hoeffding), over all N values at most
+# delta; and its RMS is at most scale / (2 sqrt(n)) (a stochastic
+# rounding's variance is f (1 - f) <= 1/4 in scale units), held with a 2 %
+# margin for the estimate over 2 x 10^8 values
+INT8_DELTA, INT8_RMS_MARGIN = 1e-6, 1.02
+ELASTIC_GLOBAL_BATCH = 256                 # the train_4k cell's sequences
 
 
 def lm_train_launches(n_layers: int) -> dict:
@@ -2318,7 +2370,8 @@ def small_kernel_rows(torch, timer, dev, arch, g, table, F, seed):
 
 
 def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
-                   kernels=GRAPH_KERNELS, snapshot_device=None, layout=None):
+                   kernels=GRAPH_KERNELS, snapshot_device=None, layout=None,
+                   ckpt_dir=None):
     """``TRAIN_STEPS`` steps of launch/train.py's step over ``batches(step)``
     under ``TrainSupervisor`` (a checkpoint every ``TRAIN_CKPT_EVERY`` in
     ``layout``, one failure injected at ``TRAIN_FAIL_AT``), every launch
@@ -2326,7 +2379,9 @@ def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
     Records each call's step, wall time and loss, the state a restart
     resumes from (held against a copy of the step-10 state kept on
     ``snapshot_device``, the card by default), any exception out of the
-    step itself and the launches of ``kernels``."""
+    step itself and the launches of ``kernels``.  The checkpoints go to a
+    temporary directory, or to ``ckpt_dir``, which the caller removes."""
+    import contextlib
     import tempfile
     from repro_torch import backend
     from repro_torch import tree as T
@@ -2364,7 +2419,8 @@ def supervised_run(torch, timer, batches, params, loss_fn, opt_cfg, dev,
                              for x in T.leaves(state)]
         return state, metrics
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+    with (contextlib.nullcontext(ckpt_dir) if ckpt_dir else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")) as ckpt_dir:
         sup = TrainSupervisor(ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
                               injector=FailureInjector([TRAIN_FAIL_AT]),
                               straggler=StragglerPolicy(), device=dev,
@@ -2834,11 +2890,13 @@ def lm_kernel_rows(torch, timer, dev, params, cfg, seed):
                            backward="lm bwd combine F=2048")
 
 
-def lm_train_phase(torch, timer, dev, seed, report, profile=False) -> None:
+def lm_train_phase(torch, timer, dev, seed, report, ckpt_dir,
+                   profile=False) -> None:
     """Phase 10: qwen3-moe-30b-a3b at full width, 2 of its 48 layers, one
     4,096-token sequence a step through launch/train.py's step: the kernel
-    route against ``impl="torch"``, 20 supervised steps, and both graph
-    kernels at the MoE's shapes (``lm_train_kernels``)."""
+    route against ``impl="torch"``, 20 supervised steps (their checkpoints
+    in ``ckpt_dir``, which phase 11 reads), and both graph kernels at the
+    MoE's shapes (``lm_train_kernels``)."""
     from repro_torch import tree as T
     from repro_torch.configs.qwen3_moe_30b_a3b import full_config
     from repro_torch.data.synthetic import token_stream
@@ -2885,7 +2943,7 @@ def lm_train_phase(torch, timer, dev, seed, report, profile=False) -> None:
     state, step_fn, rec = supervised_run(
         torch, timer, lambda s: cache[s % len(cache)], first.pop(), loss_fn,
         AdamWConfig(lr=1e-3), dev, tuple(want), snapshot_device="cpu",
-        layout=lm_checkpoint_layout(cfg.period))
+        layout=lm_checkpoint_layout(cfg.period), ckpt_dir=ckpt_dir)
     gc.collect()
     torch.cuda.empty_cache()
     # the run's own checkpoints give the write times: one more write of the
@@ -2908,6 +2966,233 @@ def lm_train_phase(torch, timer, dev, seed, report, profile=False) -> None:
     torch.cuda.empty_cache()
     report["lm_train_kernels"] = lm_kernel_rows(torch, timer, dev, params,
                                                 cfg, seed)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mesh modules (dry run, compression, the elastic reshard)
+# ---------------------------------------------------------------------------
+
+def dryrun_cells(report) -> None:
+    """(a) ``launch.dryrun`` on the host for ``DRYRUN_CELLS``, both meshes,
+    under the fake process group it sets up and destroys."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    argv = ["--mesh", "both", "--force", "--out", str(out_dir)]
+    rows, t0 = [], time.perf_counter()
+    for arch, shape in DRYRUN_CELLS:
+        try:
+            recs = dryrun.main(["--arch", arch, "--shape", shape] + argv)
+        except SystemExit:           # its failures are printed above
+            raise SmokeFailure(f"dryrun {arch} {shape} failed") from None
+        for rec in recs:
+            check(rec["flops_per_step"] and rec["flops_per_step"] > 0,
+                  f"dryrun {arch} {shape}: FLOPs {rec['flops_per_step']}")
+            check(rec["argument_bytes_per_device"] > 0
+                  and rec["output_bytes_per_device"] > 0,
+                  f"dryrun {arch} {shape}: no bytes")
+            check(rec["collective_bytes"] is None,
+                  "dryrun: collective bytes are not counted, must be null")
+            row = dict(cell=f"{arch} {shape}", mesh=rec["mesh"],
+                       n_devices=rec["n_devices"],
+                       argument_bytes_per_device=rec[
+                           "argument_bytes_per_device"],
+                       output_bytes_per_device=rec["output_bytes_per_device"],
+                       gflop_per_step=rec["flops_per_step"] / 1e9,
+                       fits_h100_80gb=rec["argument_bytes_fit_h100_80gb"],
+                       step_on_meta_s=rec["timing"]["step_on_meta_s"])
+            rows.append(row)
+            say("mesh.dryrun", **{k: (f"{v:.6g}" if isinstance(v, float)
+                                      else v) for k, v in row.items()})
+    check(not dist.is_initialized(), "dryrun left its process group")
+    report["mesh"]["dryrun"] = dict(cells=rows,
+                                    seconds=time.perf_counter() - t0)
+
+
+def compress_checks(torch, timer, dev, seed, report) -> None:
+    """(b) the compressors at the LM-train cell's widest gradient leaf."""
+    from repro_torch.optim import (ErrorFeedback, int8_compress,
+                                   int8_decompress, topk_compress,
+                                   topk_decompress)
+    gen = torch.Generator(device=dev).manual_seed(seed + 67)
+    g = torch.randn(COMPRESS_SHAPE, generator=gen, device=dev)
+    n = g.numel()
+    out = report["mesh"]["compress"] = dict(
+        shape=list(COMPRESS_SHAPE), values=n, k_frac=COMPRESS_K_FRAC,
+        rounds=COMPRESS_ROUNDS, source="N(0, 1) from --seed (phase 10 "
+        "keeps no gradient)")
+
+    # R rounds of top-k with error feedback: sent + residual = R g
+    ef, sent = None, torch.zeros(n, device=dev)
+    for _ in range(COMPRESS_ROUNDS):
+        vals, idx, ef = topk_compress(g, COMPRESS_K_FRAC, ef)
+        sent.index_add_(0, idx.long(), vals)
+    k = vals.numel()
+    err = ((sent + ef.residual) - COMPRESS_ROUNDS * g.reshape(-1)).abs()
+    bound = COMPRESS_ULPS * 2.0 ** -24 * g.reshape(-1).abs()
+    out.update(k=k, ef_max_err=float(err.max()),
+               ef_worst_over_bound=float((err / bound.clamp(
+                   min=1e-30)).max()))
+    check(bool((err <= bound).all()),
+          f"top-k with error feedback: sent + residual off 20 g by "
+          f"{out['ef_max_err']:.3g} (the float32 bound is "
+          f"{COMPRESS_ULPS} ulps of |g|)")
+    del sent, err, bound
+
+    # the card's top-k against the host's on distinct magnitudes
+    sgen = torch.Generator(device=dev).manual_seed(seed + 71)
+    mag = (torch.randperm(COMPRESS_CHECK_VALUES, generator=sgen,
+                          device=dev) + 1).float()
+    sign = torch.randint(0, 2, (COMPRESS_CHECK_VALUES,), generator=sgen,
+                         device=dev).float() * 2 - 1
+    # |m 2^-10 +- 2^-12| over distinct integers m: distinct and exact
+    part = mag * sign * 2.0 ** -10
+    res = (torch.randint(0, 2, (COMPRESS_CHECK_VALUES,), generator=sgen,
+                         device=dev).float() * 2 - 1) * 2.0 ** -12
+    got = topk_compress(part, COMPRESS_K_FRAC, ErrorFeedback(res))
+    ref = topk_compress(part.cpu(), COMPRESS_K_FRAC,
+                        ErrorFeedback(res.cpu()))
+    check(torch.unique((part + res).abs()).numel() == COMPRESS_CHECK_VALUES,
+          "top-k check slice: magnitudes not distinct")
+    check(torch.equal(got[1].cpu(), ref[1])
+          and torch.equal(got[0].cpu(), ref[0])
+          and torch.equal(got[2].residual.cpu(), ref[2].residual),
+          "top-k on the card differs from the host's")
+
+    # int8 over INT8_DRAWS draws: the mean's error and its RMS
+    igen = torch.Generator(device=dev).manual_seed(seed + 73)
+    acc = torch.zeros_like(g)
+    for _ in range(INT8_DRAWS):
+        q, scale = int8_compress(g, igen)
+        acc += int8_decompress(q, scale)
+    mean_err = acc / INT8_DRAWS - g
+    scale = float(scale)
+    hoeffding = scale * math.sqrt(math.log(2 * n / INT8_DELTA)
+                                  / (2 * INT8_DRAWS))
+    rms_bound = scale / (2 * math.sqrt(INT8_DRAWS))
+    out.update(int8_draws=INT8_DRAWS, int8_scale=scale,
+               int8_mean_max_err=float(mean_err.abs().max()),
+               int8_mean_err_bound=hoeffding,
+               int8_mean_rms=float(mean_err.square().mean().sqrt()),
+               int8_rms_bound=rms_bound)
+    check(out["int8_mean_max_err"] <= hoeffding,
+          f"int8: the mean of {INT8_DRAWS} draws is off by "
+          f"{out['int8_mean_max_err']:.4g} > {hoeffding:.4g}")
+    check(out["int8_mean_rms"] <= INT8_RMS_MARGIN * rms_bound,
+          f"int8: the mean's RMS error {out['int8_mean_rms']:.4g} > "
+          f"{rms_bound:.4g}")
+    del acc, mean_err
+
+    # the four calls timed beside their bytes bounds: top-k reads g and the
+    # residual and writes the residual and k (value, index) pairs;
+    # decompress writes n values from k pairs; int8 reads g and writes n
+    # codes (its noise made in place); int8_decompress the reverse
+    ef0 = ErrorFeedback(ef.residual)
+    vals, idx, _ = topk_compress(g, COMPRESS_K_FRAC, ef0)
+    q, s = int8_compress(g, igen)
+    calls = {
+        "topk_compress": (lambda: topk_compress(g, COMPRESS_K_FRAC, ef0),
+                          3 * 4 * n + 8 * k),
+        "topk_decompress": (lambda: topk_decompress(vals, idx,
+                                                    COMPRESS_SHAPE),
+                            4 * n + 8 * k),
+        "int8_compress": (lambda: int8_compress(g, igen), 4 * n + n),
+        "int8_decompress": (lambda: int8_decompress(q, s), n + 4 * n),
+    }
+    out["calls"] = {}
+    for name, (fn, nbytes) in calls.items():
+        ms = timer.ms(fn)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out["calls"][name] = dict(ms=ms, bytes=nbytes, bound_ms=bound,
+                                  over_bound=ms / bound)
+        say("mesh.compress", call=name, ms=f"{ms:.4g}",
+            bound_ms=f"{bound:.4g}", bytes=nbytes)
+    say("mesh.compress_checks", **{k: (f"{v:.6g}" if isinstance(v, float)
+                                       else v) for k, v in out.items()
+                                   if k != "calls"})
+
+
+def elastic_reshard(torch, timer, dev, report, ckpt_dir) -> None:
+    """(c) phase 10's last checkpoint, restored on the host and placed by
+    ``reshard_state`` on the mesh of a one-device elastic plan over a
+    one-rank NCCL group.  On one rank every placement is trivial: this
+    drives the code path on the card (DTensor over NCCL, the cell's
+    placements), not a layout."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.configs import registry
+    from repro_torch.configs.qwen3_moe_30b_a3b import full_config
+    from repro_torch.distributed.sharding import shardings_for_cell
+    from repro_torch.interop import lm_checkpoint_layout
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import model as M
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import (make_mesh_from_plan,
+                                     plan_elastic_restart, reshard_state)
+
+    cfg = dataclasses.replace(full_config(), n_layers=LM_TRAIN_LAYERS)
+    params = M.init_params(cfg, device="meta")
+    template = (params, init_opt_state(params, AdamWConfig()))
+    step = latest_step(ckpt_dir)
+    state, restore_s = timer.wall(lambda: restore(
+        ckpt_dir, template, device="cpu",
+        layout=lm_checkpoint_layout(cfg.period)))
+    cell = registry.build_cell("qwen3-moe-30b-a3b", "train_4k")
+    cell = cell._replace(cfg=cfg, arg_specs=template + cell.arg_specs[2:])
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        debug = make_debug_mesh((1, 1), device_type="cuda")
+        plan = plan_elastic_restart(1, ELASTIC_GLOBAL_BATCH,
+                                    model_parallel=1)
+        mesh = make_mesh_from_plan(plan, device_type="cuda")
+        shardings = shardings_for_cell(mesh, cell)[:2]
+        placed, place_s = timer.wall(lambda: reshard_state(state,
+                                                           shardings))
+        leaves = T.leaves(placed)
+        same, n_sharded = True, 0
+        for x, ref, sh in zip(leaves, T.leaves(state), T.leaves(shardings)):
+            check(isinstance(x, DTensor) and x.device_mesh == mesh
+                  and tuple(x.placements) == sh.placements,
+                  "reshard_state: a leaf off the mesh or its placements")
+            n_sharded += any(p.is_shard() for p in x.placements)
+            same &= torch.equal(x.full_tensor().cpu(), ref)
+        nbytes = sum(x.numel() * x.element_size() for x in T.leaves(state))
+        out = report["mesh"]["elastic"] = dict(
+            debug_mesh=list(debug.shape), plan_mesh=list(plan.mesh_shape),
+            per_host_batch=plan.per_host_batch, checkpoint_step=step,
+            leaves=len(leaves), leaves_with_shard_placements=n_sharded,
+            bytes=nbytes, restore_seconds=restore_s,
+            reshard_seconds=place_s, bit_for_bit=bool(same))
+        say("mesh.elastic", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                               for k, v in out.items()})
+        check(same, "reshard_state changed a value of the restored state")
+        del placed, leaves
+    finally:
+        dist.destroy_process_group()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_phase(torch, timer, dev, seed, report, ckpt_dir) -> None:
+    """Phase 11: the dry run on the host, compression on the card, and the
+    elastic reshard of phase 10's checkpoint on a one-rank NCCL mesh."""
+    report["mesh"] = {}
+    dryrun_cells(report)
+    compress_checks(torch, timer, dev, seed, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic_reshard(torch, timer, dev, report, ckpt_dir)
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
@@ -4070,9 +4355,19 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     report["model_train_seconds"] = time.perf_counter() - t0
     gc.collect()                       # phase 9's state goes before the LM's
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    lm_train_phase(torch, timer, dev, seed, report, profile)
-    report["lm_train_seconds"] = time.perf_counter() - t0
+    # phase 10's checkpoints stay on the disk for phase 11's restore
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        lm_train_phase(torch, timer, dev, seed, report, ckpt_dir, profile)
+        report["lm_train_seconds"] = time.perf_counter() - t0
+        gc.collect()                   # phase 10's state goes before 11's
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh_phase(torch, timer, dev, seed, report, ckpt_dir)
+        report["mesh_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def model_train_entries(report: dict, name: str) -> dict:
@@ -4314,6 +4609,7 @@ def main(argv=None) -> int:
         lm_train_seconds=f"{report['lm_train_seconds']:.1f}",
         lm_train_max_memory_allocated=report["lm_train"][
             "max_memory_allocated"],
+        mesh_seconds=f"{report['mesh_seconds']:.1f}",
         file=f"chiprun_out/{name}")
     print(json.dumps(kernels_line(report)))
     print(json.dumps({"ok": True, "device": {

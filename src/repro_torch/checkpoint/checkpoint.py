@@ -22,6 +22,12 @@ cuts it back into the template's leaves.
 Async: ``save_async`` copies every leaf to host memory on the caller's
 thread (the step barrier) and writes the files on a background thread, so
 training overlaps the write.
+
+A state placed on a mesh (DTensor leaves, ``runtime/elastic.py``) is
+written as its logical arrays: every rank of the process group calls
+``save`` (each DTensor is gathered whole, a collective) and rank 0 writes.
+``restore`` reads plain tensors; ``runtime.elastic.reshard_state`` places
+them on the new mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.backend import resolve_device
@@ -60,6 +67,23 @@ def _numpy(host: torch.Tensor) -> np.ndarray:
     if host.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy().view(_BF16_NPY)
     return host.numpy()
+
+
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective over its mesh); any other
+    leaf as it is."""
+    if dist.is_available() and dist.is_initialized():
+        from torch.distributed.tensor import DTensor
+        if isinstance(leaf, DTensor):
+            return leaf.full_tensor()
+    return leaf
+
+
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a process
+    with none."""
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def _to_host(leaf) -> np.ndarray:
@@ -140,7 +164,7 @@ def _written(tree: Any, layout: Optional[Callable]):
 def _host_copy(tree: Any, layout: Optional[Callable]):
     """(paths, host arrays, treedef): the step barrier's copy."""
     paths, groups, treedef = _written(tree, layout)
-    leaves = T.leaves(tree)
+    leaves = [_whole(x) for x in T.leaves(tree)]
     host = [_stack_to_host([leaves[i] for i in g.indices])
             if isinstance(g, Stacked) else _to_host(leaves[g])
             for g in groups]
@@ -151,8 +175,8 @@ def save(ckpt_dir: str | os.PathLike, step: int, tree: Any,
          layout: Optional[Callable] = None) -> Path:
     """Synchronous checkpoint write; returns the step directory."""
     paths, host, treedef = _host_copy(tree, layout)
-    return _write(Path(ckpt_dir) / f"step_{step:09d}", step, paths, host,
-                  treedef)
+    out = Path(ckpt_dir) / f"step_{step:09d}"
+    return _write(out, step, paths, host, treedef) if _writes() else out
 
 
 class AsyncCheckpointer:
@@ -182,6 +206,8 @@ class AsyncCheckpointer:
     def save_async(self, step: int, tree: Any):
         self.wait()                                     # one in flight
         paths, host, treedef = _host_copy(tree, self.layout)   # barrier
+        if not _writes():
+            return
 
         def write():
             try:

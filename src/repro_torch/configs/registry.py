@@ -5,13 +5,21 @@
 arguments as ``device="meta"`` tensors (parameters, optimizer state, the
 batch): shapes and dtypes with no bytes behind them, made by the real
 initializers, where the JAX package takes ``jax.eval_shape``.  Nothing is
-allocated, so a 1 T-parameter cell builds on the host.  The JAX registry's
-beyond-paper variants (``opt="pod"`` / ``"multipod"``: activation-sharding
-constraints and the expert-parallel dispatch for its meshes) wait for the
-shard axis across cards (ROADMAP.md, queue 1 item 6).
+allocated, so a 1 T-parameter cell builds on the host.
+
+``opt="pod"`` / ``"multipod"`` builds the JAX registry's beyond-paper
+variant for that mesh.  An LM's config gains the SPMD fields JAX sets
+(``act_shard_axes``, ``data_axis_size``, ``ep_shard_map``); its step
+refuses them with NotImplementedError (``layers.check_single_card``:
+activation constraints and the expert-parallel dispatch run across cards,
+ROADMAP.md queue 1 item 8.4), never running the one-card path in their
+place.  Equiformer-v2's config gains ``truncate_rotation`` and
+``edge_bf16``, which the port runs.  The cells' shardings are
+:mod:`repro_torch.distributed.sharding`'s.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import importlib
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
@@ -62,6 +70,7 @@ class CellBuild(NamedTuple):
     step_fn: Callable            # positional args matching arg_specs
     arg_specs: Tuple             # trees of meta tensors
     quantized_opt: bool
+    opt: str = ""                # "" baseline | "pod" | "multipod" (SPMD opt)
 
 
 def _mod(arch: str):
@@ -118,9 +127,16 @@ def _ids(*shape) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.int32, device=META)
 
 
-def _lm_cell(m, shape: str, opt_cfg: AdamWConfig):
+def _lm_cell(m, shape: str, opt_cfg: AdamWConfig, opt: str):
     from repro_torch.models.transformer import model as M
     cfg = m.full_config()
+    if opt:
+        cfg = dataclasses.replace(
+            cfg,
+            act_shard_axes=(("pod", "data") if opt == "multipod"
+                            else ("data",)),
+            data_axis_size=(32 if opt == "multipod" else 16),
+            ep_shard_map=cfg.moe)
     seq, batch, kind = lm_common.LM_SHAPES[shape]
     params = M.init_params(cfg, device=META)
     if kind == "train":
@@ -144,12 +160,14 @@ def _lm_cell(m, shape: str, opt_cfg: AdamWConfig):
     return cfg, kind, step, specs
 
 
-def _gnn_cell(m, shape: str, opt_cfg: AdamWConfig):
+def _gnn_cell(m, shape: str, opt_cfg: AdamWConfig, opt: str):
     mod = importlib.import_module(GNN_MODEL_MODULES[m.MODULE])
     batch, (d_feat, n_cls, glvl) = gnn_common.graph_specs(
         shape, with_pos=m.NEEDS_POS)
     cfg = m.full_config(d_in=d_feat, n_classes=(1 if glvl else n_cls),
                         graph_level=glvl)
+    if opt and hasattr(cfg, "truncate_rotation"):
+        cfg = dataclasses.replace(cfg, truncate_rotation=True, edge_bf16=True)
     params = mod.init_params(cfg, torch.Generator(), device=META)
     step = _train_step(lambda p, b: mod.loss_fn(p, cfg, GraphBatch(**b)),
                        opt_cfg)
@@ -180,21 +198,21 @@ def _recsys_cell(m, shape: str, opt_cfg: AdamWConfig):
 
 @functools.lru_cache(maxsize=None)
 def build_cell(arch: str, shape: str, opt: str = "") -> CellBuild:
-    """The cell's step function and its arguments as meta tensors; an
-    ``opt`` variant raises NotImplementedError."""
-    if opt:
-        raise NotImplementedError(
-            f"the {opt!r} variant shards activations and the MoE dispatch "
-            f"across cards; see ROADMAP.md, queue 1 item 6")
+    """The cell's step function and its arguments as meta tensors; ``opt``
+    "" is the paper-faithful baseline, "pod" / "multipod" the SPMD-optimized
+    variant for that mesh."""
+    if opt not in ("", "pod", "multipod"):
+        raise ValueError(f"opt must be '', 'pod' or 'multipod', got {opt!r}")
     m = _mod(arch)
     if shape in m.SKIP_SHAPES:
         raise ValueError(f"{arch} x {shape} skipped: {m.SKIP_SHAPES[shape]}")
     qopt = getattr(m, "QUANTIZED_OPT", False)
     opt_cfg = AdamWConfig(quantized_state=qopt)
     if m.FAMILY == "lm":
-        cfg, kind, step, specs = _lm_cell(m, shape, opt_cfg)
+        cfg, kind, step, specs = _lm_cell(m, shape, opt_cfg, opt)
     elif m.FAMILY == "gnn":
-        cfg, kind, step, specs = _gnn_cell(m, shape, opt_cfg)
+        cfg, kind, step, specs = _gnn_cell(m, shape, opt_cfg, opt)
     else:
         cfg, kind, step, specs = _recsys_cell(m, shape, opt_cfg)
-    return CellBuild(arch, shape, kind, m.FAMILY, cfg, step, specs, qopt)
+    return CellBuild(arch, shape, kind, m.FAMILY, cfg, step, specs, qopt,
+                     opt)

@@ -29,11 +29,15 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, *,
                 rows_per_step: int = 8) -> torch.Tensor:
     """out[i*G:(i+1)*G] = table[ids[i]*G:(ids[i]+1)*G] with G = rows_per_step.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel;
+    a meta tensor gives the output's shape and nothing else (the dry run).
     """
     _check(table, ids, rows_per_step)
     if table.device.type == "cpu":
         return block_gather_ref(table, ids, rows_per_step)
+    if table.device.type == "meta":
+        return table.new_empty((ids.shape[0] * rows_per_step,
+                                table.shape[1]))
     if table.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {table.device}")
     F = table.shape[1]

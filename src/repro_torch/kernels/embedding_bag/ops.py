@@ -8,7 +8,8 @@ into bag offsets with ``searchsorted``.  A CPU tensor takes the plain
 version in :mod:`.ref`; a CUDA tensor launches a kernel, chosen from the
 shape by :func:`kernel_route`: fixed-length bags of 1-4 slots (the SASRec
 lookup's one-slot bags) go to the short-bag kernel, every other shape to
-the warp-per-bag kernel.  Float32 tables only.
+the warp-per-bag kernel.  A meta tensor gives the output's shape alone
+(the dry run).  Float32 tables only.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def _check(table: torch.Tensor, ids: torch.Tensor, ids_dim: int) -> None:
         raise ValueError("embedding_bag: table and ids on different devices")
     if not (table.is_contiguous() and ids.is_contiguous()):
         raise ValueError("embedding_bag wants contiguous tensors")
-    if table.device.type not in ("cpu", "cuda"):
+    if table.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
 
 
@@ -95,6 +96,8 @@ def embedding_bag(table: torch.Tensor, bag_ids: torch.Tensor,
                         f"weights, got {type(weights).__name__}")
     if table.device.type == "cpu":
         return embedding_bag_ref(table, bag_ids, weights)
+    if table.device.type == "meta":
+        return table.new_empty((bag_ids.shape[0], table.shape[1]))
     B, L = bag_ids.shape
     if not isinstance(weights, torch.Tensor):
         weight = 1.0 if weights is None else float(weights)
@@ -127,6 +130,8 @@ def embedding_bag_sorted(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError("embedding_bag_sorted wants contiguous tensors")
     if table.device.type == "cpu":
         return embedding_bag_sorted_ref(table, ids, seg, weights, num_bags)
+    if table.device.type == "meta":
+        return table.new_empty((num_bags, table.shape[1]))
     bounds = torch.arange(num_bags + 1, dtype=torch.int32, device=seg.device)
     row_ptr = torch.searchsorted(seg, bounds)
     return _launch(table, ids, weights, 0.0, row_ptr, 0, num_bags)

@@ -77,7 +77,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention: the flash kernels have no backward, so no "
             "gradient would reach q, k or v; train with impl='torch' (the "
             "plain version), or call under torch.no_grad()")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
+        # on meta (the dry run) the plain version's ops carry no data and
+        # give the output's shape; a FLOP count sees the kernel's products
+        # as the reference's full S x S einsums, the JAX package's count
         return attention_ref(q, k, v, scale=scale, causal=causal,
                              window=window, softcap=softcap)
     if q.device.type != "cuda":

@@ -85,6 +85,8 @@ def paged_attention_split(q: torch.Tensor, k_pages: torch.Tensor,
     if not 1 <= pages_per_split <= npmax:
         raise ValueError(f"paged_attention: pages_per_split must be in "
                          f"[1, {npmax}], got {pages_per_split}")
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_attention_split_ref(q, k_pages, v_pages, block_table,
                                          lengths, scale=scale, window=window,
@@ -121,6 +123,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     at the split size :func:`split_pages` picks for the card.
     """
     _check(q, k_pages, v_pages, block_table, lengths)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_table, lengths,
                                    scale=scale, window=window,

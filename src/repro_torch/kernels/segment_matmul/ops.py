@@ -8,7 +8,8 @@ equal work.  The engine builds the sorted stream once per CBList snapshot
 one-off drop-in for an unsorted stream: :func:`sorted_layout`, the data
 permuted by ``gather_rows`` (JAX's ``apply_perm``), then
 :func:`segment_sum_csr`.  A CPU tensor takes the plain versions in
-:mod:`.ref`; a CUDA tensor launches the kernels.
+:mod:`.ref`; a CUDA tensor launches the kernels; a meta tensor gives the
+output's shape alone (the dry run).
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ def sorted_layout(seg: torch.Tensor, num_rows: int):
     return order.to(torch.int32), row_ptr
 
 
-def merge_path_partition(row_ptr: torch.Tensor,
-                         items_per_cta: int) -> torch.Tensor:
+def merge_path_partition(row_ptr: torch.Tensor, items_per_cta: int,
+                         num_items: int | None = None) -> torch.Tensor:
     """Where each CTA's share of the merged (row ends ∪ items) sequence
     starts: int32 ``[n_ctas + 1, 2]`` of (row, item), the last row
     ``(num_rows, num_items)``.
@@ -57,15 +58,23 @@ def merge_path_partition(row_ptr: torch.Tensor,
     Diagonal ``d`` of the merge splits at ``x`` rows and ``d - x`` items,
     where ``x`` counts the rows whose end comes before it:
     ``row_ptr[r + 1] + r + 1 <= d`` (a row's end follows its last item).
+    A meta ``row_ptr`` holds no count: the caller names ``num_items`` and
+    gets the partition's shape alone.
     """
     if items_per_cta < 1:
         raise ValueError(f"items_per_cta must be >= 1, got {items_per_cta}")
     num_rows = row_ptr.numel() - 1
-    num_items = int(row_ptr[-1])
+    dev = row_ptr.device
+    if dev.type != "meta":
+        num_items = int(row_ptr[-1])
+    elif num_items is None:
+        raise ValueError("merge_path_partition: a meta row_ptr needs "
+                         "num_items")
     _check_stream_size(num_items)
     total = num_rows + num_items
     n_ctas = -(-total // items_per_cta)
-    dev = row_ptr.device
+    if dev.type == "meta":
+        return torch.empty((n_ctas + 1, 2), dtype=torch.int32, device=dev)
     diag = (torch.arange(n_ctas + 1, dtype=torch.int64, device=dev)
             * items_per_cta).clamp_(max=total)
     ends = row_ptr[1:].long() + torch.arange(1, num_rows + 1, device=dev)
@@ -110,6 +119,9 @@ def segment_sum_csr(data_sorted: torch.Tensor, row_ptr: torch.Tensor,
     _check_csr(data_sorted, row_ptr, parts)
     if data_sorted.device.type == "cpu":
         return segment_sum_csr_ref(data_sorted, row_ptr)
+    if data_sorted.device.type == "meta":
+        return data_sorted.new_empty((row_ptr.numel() - 1,
+                                      data_sorted.shape[1]))
     if data_sorted.device.type != "cuda":
         raise ValueError(f"segment_sum_csr: unsupported device "
                          f"{data_sorted.device}")

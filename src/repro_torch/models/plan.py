@@ -78,8 +78,8 @@ class EdgePlan:
         feature width ``F``."""
         key = (side, csr_items_per_cta(F))
         if key not in self._parts:
-            self._parts[key] = merge_path_partition(self.row_ptr(side),
-                                                    key[1])
+            self._parts[key] = merge_path_partition(
+                self.row_ptr(side), key[1], num_items=self.num_valid)
         return self._parts[key]
 
     def in_degree(self) -> torch.Tensor:
@@ -103,11 +103,18 @@ def edge_plan(dst: torch.Tensor, valid: torch.Tensor, n: int,
     """The plan of the lanes ``valid`` marks whose destination lies in
     [0, n) (a sum drops the others, as JAX's ``segment_sum`` does); with
     ``src``, also by source, whose kept lanes must lie in [0, n) too
-    (checked, one host sync)."""
+    (checked, one host sync).
+
+    On meta tensors (the dry run) every lane is kept: the padded capacity,
+    the shape the JAX package compiles, since a meta mask holds no count.
+    """
     if dst.dtype != I32 or (src is not None and src.dtype != I32):
         raise TypeError("edge_plan wants int32 edge endpoints")
     keep = valid & (dst >= 0) & (dst < n)
-    lanes = torch.nonzero(keep).squeeze(1)
+    if dst.device.type == "meta":
+        lanes = torch.arange(dst.numel(), device=dst.device)
+    else:
+        lanes = torch.nonzero(keep).squeeze(1)
     d = dst[lanes]
     seg = torch.where(keep, dst, torch.full_like(dst, n))
     dst_order, dst_row_ptr, perm = _order(d, lanes, n)
@@ -117,7 +124,8 @@ def edge_plan(dst: torch.Tensor, valid: torch.Tensor, n: int,
                     dst_order=dst_order, dst_row_ptr=dst_row_ptr)
     if src is not None:
         s = src[lanes]
-        if s.numel() and bool(((s < 0) | (s >= n)).any()):
+        if s.numel() and s.device.type != "meta" \
+                and bool(((s < 0) | (s >= n)).any()):
             raise ValueError(f"edge_plan: a valid edge's source lies "
                              f"outside [0, {n})")
         plan.src_by_dst = s[perm].contiguous()

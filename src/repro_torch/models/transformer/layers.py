@@ -14,8 +14,13 @@ routing decides, and its combine a sum by token: on the kernel route both
 run on ``block_gather`` and ``segment_sum`` over a :class:`TokenPlan` built
 once a layer call, as the GNNs' edges run over ``models/plan.py``.
 
-Not in this slice: ``apply_moe_ep`` and the ``act_shard_axes`` sharding
-constraints (ROADMAP.md, queue 1 item 6).
+The config carries the JAX package's SPMD fields (``act_shard_axes``,
+``model_axis_size``, ``data_axis_size``, ``ep_shard_map``), which the
+registry's ``opt`` cells set.  Their activation constraints and
+``apply_moe_ep`` need the shard axis across cards (ROADMAP.md, queue 1
+item 8.4), so every entry point refuses a config that sets them
+(:func:`check_single_card`) rather than run the one-card path in their
+place.
 """
 from __future__ import annotations
 
@@ -59,6 +64,13 @@ class LMConfig:
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     kv_page_size: int = 128
+    # the JAX package's beyond-paper SPMD fields: the mesh's batch axes
+    # (("data",) or ("pod", "data")) that pin activation shardings, the
+    # axis sizes, and the shard_map MoE dispatch
+    act_shard_axes: Any = None
+    model_axis_size: int = 16
+    data_axis_size: int = 16          # product of act_shard_axes sizes
+    ep_shard_map: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -199,6 +211,17 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # MoE: top-k routing into capacity buckets
 # ---------------------------------------------------------------------------
+
+def check_single_card(cfg: LMConfig) -> None:
+    """Refuse a config whose SPMD fields ask for activation constraints or
+    the expert-parallel dispatch: the port runs neither yet."""
+    if cfg.act_shard_axes is not None or cfg.ep_shard_map:
+        raise NotImplementedError(
+            f"{cfg.name}: act_shard_axes={cfg.act_shard_axes!r} / "
+            f"ep_shard_map={cfg.ep_shard_map} shard activations and the MoE "
+            f"dispatch across cards (apply_moe_ep), which the port does not "
+            f"run yet; see ROADMAP.md, queue 1 item 8.4")
+
 
 def capacity(cfg: LMConfig, T: int) -> int:
     """Slots an expert per call of T tokens (GShard: overflow drops, the
@@ -378,6 +401,7 @@ def apply_moe(p: Params, cfg: LMConfig, x: torch.Tensor,
     ``impl="torch"``: plain indexing and ``index_add``; ``"cuda"``: the
     dispatch and combine on the graph kernels over one
     :class:`TokenPlan`."""
+    check_single_card(cfg)
     B, S, d = x.shape
     E, T = cfg.n_experts, B * S
     C = capacity(cfg, T)
@@ -385,7 +409,9 @@ def apply_moe(p: Params, cfg: LMConfig, x: torch.Tensor,
     gate, eidx, aux = route(p, cfg, xt.float())
     plan = token_plan(eidx, C, E)
     if resolve_impl(impl) == "torch":
-        keep = plan.keep
+        # on meta tensors (the dry run) a mask holds no count: every lane
+        # is taken, the padded capacity the JAX package compiles
+        keep = slice(None) if x.device.type == "meta" else plan.keep
         st = plan.order[keep] // cfg.top_k
         slots = plan.slot[keep].long()
         # a token's bucket gradients sum in float32 and round once, as the
@@ -420,6 +446,7 @@ def apply_layer(p: Params, cfg: LMConfig, x: torch.Tensor,
                 attn_impl: Optional[str] = None):
     """One pre-norm decoder layer over [B, S, d]: (x', k, v, aux).
     Attention takes ``attn_impl`` (``impl`` when None), the MoE ``impl``."""
+    check_single_card(cfg)
     h, k, v = attention_with_kv(p["attn"], cfg,
                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
                                 positions, window, attn_impl or impl)

@@ -41,6 +41,7 @@ from repro_torch.backend import resolve_device
 from repro_torch.models.transformer import kvcache
 from repro_torch.models.transformer.layers import (LMConfig, Params, _ffn,
                                                    apply_layer,
+                                                   check_single_card,
                                                    init_attention, init_mlp,
                                                    init_moe, init_rmsnorm,
                                                    qkv_proj, rmsnorm, rope)
@@ -225,6 +226,7 @@ def serve_step(params: Params, cfg: LMConfig, cache: Dict[str, torch.Tensor],
     """One decode step over the dense cache (plain torch, the reference):
     tokens [B, 1] -> (logits [B, vocab], new cache).  The cache passed in is
     not modified."""
+    check_single_card(cfg)
     lengths = cache["lengths"]
     k_all, v_all = cache["k"].clone(), cache["v"].clone()
     b_idx = torch.arange(tokens.shape[0], device=tokens.device)
@@ -253,6 +255,7 @@ def serve_step_paged(params: Params, cfg: LMConfig,
     the caches' pools are written in place.  On the kernel route the step
     reads nothing back from the device, so it can be captured in a CUDA
     graph."""
+    check_single_card(cfg)
     x = embed(params, cfg, tokens)
     out = []
     for lp, window, cache in zip(params["layers"], cfg.layer_windows,

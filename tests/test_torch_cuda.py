@@ -9,6 +9,7 @@ imports no JAX, so it runs where only torch is installed:
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
 
 pytestmark = pytest.mark.cuda
 

@@ -6,6 +6,7 @@ with ``truncate_rotation`` off and on, through the plain route and the
 kernel route (the kernels' plain versions on the CPU), both packages in
 float32; ``edge_bf16`` at a bf16 tolerance; the port's rotation
 invariance; and the configs' copies."""
+import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
 import dataclasses
 import functools
 

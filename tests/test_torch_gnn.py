@@ -5,6 +5,7 @@ leaf) at their smoke configs and at the sizes of tests/test_models_gnn.py,
 through the plain route and the kernel route (the kernels' plain versions
 on the CPU), with the JAX parameters carried over by
 ``interop.gnn_params_from_jax``."""
+import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
 import functools
 
 import jax

@@ -2,6 +2,7 @@
 the same parameter trees and gradients: AdamW with float32 and with 8-bit
 moments (the int8 codes bit for bit), the global-norm clip and the
 warmup-cosine schedule."""
+import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,7 +1,10 @@
 """The port's cell registry against ``repro.configs.registry``: the same 40
 cells with the same kinds and 3 skips, each LM arch's parameter count from
 ``device="meta"`` tensors equal to JAX's ``eval_shape`` count with no byte
-allocated, every live cell built, and the SPMD variants refused."""
+allocated, every live cell built, and the SPMD variants: an LM's with
+JAX's SPMD fields and a step that refuses them (it needs cards), Equiformer-
+v2's with JAX's flags and a step that runs on the CPU."""
+import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest
@@ -11,6 +14,7 @@ from repro.configs import registry as jregistry
 from repro_torch import tree as T
 from repro_torch.configs import registry
 from repro_torch.models.transformer import model as M
+from repro_torch.optim import AdamWConfig, init_opt_state
 
 LM_ARCHS = ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "gemma2-27b",
             "qwen1.5-4b", "gemma3-27b"]
@@ -63,6 +67,87 @@ def test_every_live_cell_builds():
                                         ("equiformer-v2", "molecule")])
 @pytest.mark.parametrize("opt", ["pod", "multipod"])
 def test_spmd_variants_name_the_roadmap(arch, shape, opt):
-    """The JAX registry's beyond-paper variants shard across cards."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.build_cell(arch, shape, opt)
+    """The JAX registry's beyond-paper variants build.  An LM's step shards
+    activations and the MoE dispatch across cards: it refuses, naming the
+    roadmap item it waits for, and runs nothing of the one-card path.
+    Equiformer-v2's variant (truncated rotation, bf16 edges) runs here."""
+    cb = registry.build_cell(arch, shape, opt)
+    assert cb.opt == opt
+    if cb.family == "lm":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, queue 1 item 8.4"):
+            cb.step_fn(*cb.arg_specs)
+    else:
+        assert cb.cfg.truncate_rotation and cb.cfg.edge_bf16
+
+
+_SPMD_FIELDS = ("act_shard_axes", "model_axis_size", "data_axis_size",
+                "ep_shard_map")
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-moe-30b-a3b", "train_4k"),
+                                        ("qwen1.5-4b", "decode_32k"),
+                                        ("kimi-k2-1t-a32b", "prefill_32k")])
+@pytest.mark.parametrize("opt", ["", "pod", "multipod"])
+def test_lm_opt_cells_carry_jax_spmd_fields(arch, shape, opt):
+    """An LM cell's SPMD fields are JAX's for the same ``opt``: the mesh's
+    batch axes, their size and the expert-parallel dispatch for an MoE."""
+    cfg = registry.build_cell(arch, shape, opt).cfg
+    jcfg = jregistry.build_cell(arch, shape, opt).cfg
+    for f in _SPMD_FIELDS:
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert (cfg.act_shard_axes is None) == (opt == "")
+
+
+def test_lm_step_refuses_spmd_fields_on_any_path():
+    """A config with the SPMD fields is refused by every LM entry point
+    before any layer runs (item 8.4), the decode paths included."""
+    import dataclasses
+
+    from repro_torch.configs import qwen3_moe_30b_a3b as qm
+    cfg = dataclasses.replace(qm.smoke_config(), act_shard_axes=("data",),
+                              ep_shard_map=True)
+    params = M.init_params(cfg, device="meta")
+    tokens = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    cache = M.init_cache(cfg, 1, 8, device="meta")
+    for call in (lambda: M.loss_fn(params, cfg, tokens, tokens),
+                 lambda: M.prefill(params, cfg, tokens),
+                 lambda: M.serve_step(params, cfg, cache, tokens[:, :1])):
+        with pytest.raises(NotImplementedError, match="item 8.4"):
+            call()
+
+
+@pytest.mark.parametrize("opt", ["pod", "multipod"])
+def test_equiformer_opt_cell_runs_a_step_on_the_cpu(opt):
+    """Equiformer-v2's ``opt`` cell: JAX's config flags, and the cell's own
+    step (its full config, 12 layers at l_max 6) on real CPU tensors over
+    a small batch of the cell's fields: finite loss, norm and parameters,
+    the embedding moved."""
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    cb = registry.build_cell("equiformer-v2", "molecule", opt)
+    jcfg = jregistry.build_cell("equiformer-v2", "molecule", opt).cfg
+    assert (cb.cfg.truncate_rotation, cb.cfg.edge_bf16) == (
+        jcfg.truncate_rotation, jcfg.edge_bf16) == (True, True)
+    gen = torch.Generator().manual_seed(0)
+    params = EQ.init_params(cb.cfg, gen, device="cpu")
+    n, e, graphs = 24, 48, 4
+    src = torch.randint(0, n, (e,), generator=gen, dtype=torch.int32)
+    dst = (src + 1 + torch.randint(0, n - 1, (e,), generator=gen,
+                                   dtype=torch.int32)) % n
+    batch = {k: None for k in cb.arg_specs[2]}
+    batch.update(
+        x=torch.randn((n, cb.cfg.d_in), generator=gen),
+        pos=torch.randn((n, 3), generator=gen),
+        edge_src=src, edge_dst=dst.to(torch.int32),
+        edge_valid=torch.ones(e, dtype=torch.bool),
+        node_valid=torch.ones(n, dtype=torch.bool),
+        graph_id=torch.arange(n, dtype=torch.int32) // (n // graphs),
+        labels=torch.randn((graphs,), generator=gen))
+    assert set(batch) == set(cb.arg_specs[2])
+    loss, gnorm, new_params, _ = cb.step_fn(
+        params, init_opt_state(params, AdamWConfig()), batch)
+    assert torch.isfinite(loss) and torch.isfinite(gnorm) and gnorm > 0
+    new = T.leaves(new_params)
+    assert all(torch.isfinite(b).all() for b in new)
+    assert not torch.equal(params["embed"][0]["w"],
+                           new_params["embed"][0]["w"])

@@ -5,6 +5,7 @@ blocks, edge-alignment angles and real spherical harmonics within atol
 own orthogonality, l = 1 and +z alignment checks (the port's side of
 tests/test_models_gnn.py's ``test_wigner_homomorphism_and_edge_alignment``).
 """
+import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ by one package and restored by the other bit for bit, the supervisor's
 report for the same injected failures, and ``launch/train.py``'s step on
 the gin-tu smoke problem (JAX's params and batch) against the JAX driver's
 ``step_fn`` over 10 steps."""
+import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
 import functools
 import json
 

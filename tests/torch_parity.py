@@ -3,11 +3,27 @@
 One graph, made with numpy from a seed, goes through the JAX package and
 through ``repro_torch`` on the CPU; layouts and integer results compare bit
 for bit, real-valued sums within a relative tolerance (summation order).
+
+Importing it pins torch to one thread in a pytest-xdist worker: with torch's
+default of a thread per core in each of the workers, the workers' threads
+outnumber the cores many times over and a test runs tens of times slower.
+Every ``tests/test_torch_*.py`` imports this module first, so the pin holds
+before the file's first torch op, whichever files a worker runs.
 """
+import os
+
 import numpy as np
 import torch
 
 from repro_torch import interop
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+    if torch.get_num_interop_threads() != 1:
+        try:
+            torch.set_num_interop_threads(1)
+        except RuntimeError:        # inter-op work has started: left as is
+            pass
 
 # the tests/test_engine_pallas.py graph shape: RMAT 200v/1500e on 2048x8
 NV, NE, NB, BW = 200, 1500, 2048, 8
@@ -50,8 +66,8 @@ def assert_exact(got, ref) -> None:
 
 
 def lm_config(jax_cfg):
-    """The port's LMConfig with the values of a JAX ``LMConfig`` (its SPMD
-    fields left out)."""
+    """The port's LMConfig with the values of a JAX ``LMConfig``, its SPMD
+    fields included."""
     import dataclasses
 
     from repro_torch.models.transformer.layers import LMConfig
