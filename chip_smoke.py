@@ -99,6 +99,28 @@ Phases, one report line each:
    PageRank (both kernels launched on every shard's delta and run, within
    rtol 1e-4 of the unsharded ranks) and the 2^20 reads bit for bit.  The
    phase prints its peak memory;
+5e. the shard axis across ranks, phase 5d's state freed: the same graph
+   behind ``GraphService.from_coo(..., n_shards=S)`` for S = 2 and 8 on a
+   process group, whose ``shard_mesh(S)`` places each rank's block of
+   shards: (a) a one-rank NCCL group in this process (mesh axis 1: the
+   production backend's calls), destroyed before phase 11 makes its own;
+   (b) SHARD_MESH_RANKS ranks spawned on the one card over gloo with CUDA
+   tensors (NCCL refuses two ranks on one device), one shard a rank at
+   S = 2 and four at S = 8.  Each rank makes the graph again from
+   ``--seed`` and, with its launch counters at 0, runs the three rounds of
+   1 M updates with their point reads, the 2^20 reads, in-degrees, a cold
+   and a warm PageRank through the kernels, BFS and CC.  Checks, against
+   phase 5d's unsharded results kept on the host: flush reports, reads,
+   in-degrees, BFS levels and CC labels bit for bit, PageRank within rtol
+   1e-5 of the same iterations in float64, both ranks' outputs equal, and
+   ``segment_sum``, ``block_gather`` and ``chain_walk_locate`` launched on
+   every rank.  One ``[shard.mesh]`` line a rank and count: backend,
+   world, S, mesh axis, ``REDUCE_MODE``, build s, flush s per 1 M, read ms,
+   PageRank ms an iteration, the group's set-up s, the sum sweep's
+   cross-rank combine ms and an all_reduce's ms with their bytes, peak
+   memory -- the code path on one card, not a multi-card speed.  Every
+   group has a 60 s timeout and the spawned leg a join limit; a rank that
+   fails or outlives it fails the phase;
 6. LM serving, once the graph state is freed: Gemma-2 27B at full width
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
@@ -317,6 +339,13 @@ SHARD_COUNTS, SHARD_READS = (2, 8), 1 << 20
 SHARD_SPILL_S, SHARD_SPILL_UPDATES, SHARD_SPILL_DELETE_FRAC = 8, 65_536, 0.2
 SHARD_TIER_S, SHARD_TIER_FRACTION = 2, 0.9
 SHARD_KERNELS = GRAPH_KERNELS + ("chain_walk_locate",)
+# phase 5e: the shard axis across ranks.  Leg (a) a one-rank NCCL group in
+# this process, leg (b) SHARD_MESH_RANKS ranks spawned on the one card over
+# gloo (NCCL refuses two ranks on one device); each group's timeout, the
+# spawned leg's time limit, the collective timing's calls
+SHARD_MESH_COUNTS, SHARD_MESH_RANKS = (2, 8), 2
+SHARD_MESH_GROUP_TIMEOUT_S, SHARD_MESH_JOIN_S = 60, 300
+COLLECTIVE_REPS = 20
 # serve phase: the trace of benchmarks/bench_serve.py and
 # examples/dynamic_graph_pagerank.py at LiveJournal size
 SERVE_REQUESTS, SERVE_WARM, SERVE_QPS = 20_000, 1_000, 2000.0
@@ -3196,8 +3225,8 @@ def mesh_phase(torch, timer, dev, seed, report, ckpt_dir) -> None:
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
-    """Phases 1-5d: the GraphService at LiveJournal size, its serve, tier
-    and shard phases."""
+    """Phases 1-5e: the GraphService at LiveJournal size, its serve, tier
+    and shard phases, the last on a process group."""
     from repro_torch import backend
     from repro_torch.core.engine import sweep_plan
     from repro_torch.data.synthetic import rmat_edges
@@ -3315,6 +3344,15 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     report["shard"] = shard_phase(torch, timer, dev, (src, dst, w), nv,
                                   untiered, shard_ref, report, seed, profile)
     report["shard_seconds"] = time.perf_counter() - t0
+
+    # phase 5e, phase 5d's state freed: the shard axis across ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["shard_mesh"] = shard_mesh_phase(
+        torch, timer, dev, (src, dst, w), nv, untiered, shard_ref, report,
+        seed)
+    report["shard_mesh_seconds"] = time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -3895,6 +3933,338 @@ def shard_phase(torch, timer, dev, coo, nv, untiered, shard_ref, report,
         torch.cuda.empty_cache()
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     say("shard.memory", max_memory_allocated=out["max_memory_allocated"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the shard axis across ranks
+# ---------------------------------------------------------------------------
+
+def coo_checksum(torch, src, dst, w):
+    """Three sums that tell one regenerated graph cell's COO from
+    another."""
+    return [int(src.long().sum()), int(dst.long().sum()),
+            float(w.double().sum())]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def init_group(torch, backend_name: str, rank: int, world: int,
+               port: int) -> float:
+    """A process group over ``world`` ranks on this host, with a timeout
+    of SHARD_MESH_GROUP_TIMEOUT_S: a rank that never comes fails the
+    collective waiting for it.  One all_reduce on the card sets up the
+    backend's connections (NCCL makes its communicator at the first
+    collective), so no later timing holds them.  Returns its seconds."""
+    import datetime
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        backend_name, init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_MESH_GROUP_TIMEOUT_S))
+    dist.all_reduce(torch.ones(1, device="cuda"))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def collective_times(torch, dev, mesh, nv_cap: int) -> dict:
+    """Host milliseconds a call, over COLLECTIVE_REPS synchronised calls,
+    of one sum sweep's cross-rank combine of a float32 [nv_cap] partial:
+    the mesh's own combine under REDUCE_MODE (nothing on a mesh axis of 1;
+    None on a rank outside the mesh) and one all_reduce over the whole
+    group."""
+    import torch.distributed as dist
+
+    import repro_torch.distributed.graph as tdist
+    x = torch.rand(nv_cap, device=dev)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COLLECTIVE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / COLLECTIVE_REPS
+
+    return dict(combine_ms=per_call(lambda: tdist._cross_shard_combine(
+                    x.clone(), "sum", mesh)) if tdist._member(mesh) else None,
+                all_reduce_ms=per_call(lambda: dist.all_reduce(x.clone())),
+                collective_bytes=nv_cap * 4)
+
+
+def shard_mesh_run(torch, timer, dev, S: int, inputs: dict) -> dict:
+    """One shard count on the process group this process is in: the graph
+    cell's graph (made again from the seed) behind
+    ``GraphService.from_coo(..., n_shards=S)``, which lays the shards over
+    ``shard_mesh(S)``, with the launch counters at 0: the three rounds with
+    their point reads, the 2^20 reads, in-degrees, a cold PageRank through
+    the kernels (then a warm one: the first call also pays the backend's
+    first use of each collective at this size), BFS and CC through the
+    service.  Everything the checks read comes back on the host."""
+    import torch.distributed as dist
+
+    import repro_torch.distributed.graph as tdist
+    from repro_torch import backend
+    from repro_torch.core.engine import in_degrees
+    from repro_torch.core.updates import read_edges
+    from repro_torch.data.synthetic import rmat_edges, update_stream
+    from repro_torch.graph.algorithms import pagerank
+    from repro_torch.stream.service import GraphService
+    nv, seed = inputs["nv"], inputs["seed"]
+    src, dst = rmat_edges(nv, inputs["ne"], seed=seed, device=dev)
+    wgen = torch.Generator(device=dev).manual_seed(seed + 3)
+    w = 0.1 + 0.9 * torch.rand(inputs["ne"], generator=wgen, device=dev)
+    check(coo_checksum(torch, src, dst, w) == inputs["checksum"],
+          "shard mesh: the regenerated graph differs from the graph cell's")
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    svc, build_s = timer.wall(lambda: GraphService.from_coo(
+        src, dst, w, num_vertices=nv, log_capacity=2 ** 21, n_shards=S,
+        device=dev))
+    scbl = svc.snapshot.cbl
+    mesh = scbl.mesh
+    check(mesh is not None and scbl.n_shards == S
+          and len(scbl.views) == S // mesh.size(),
+          f"shard mesh S={S}: the service's shards are not on the mesh")
+    stream = update_stream(nv, (src, dst), UPDATES_PER_ROUND, ROUNDS,
+                           delete_frac=DELETE_FRAC, seed=seed + 1,
+                           device=dev)
+    rounds = []
+    for s, d, uw, op in stream:
+        svc.apply(s, d, uw, op)
+        rep, flush_s = timer.wall(svc.flush)
+        qs_i, qd_i, _, qs_d, qd_d = read_pairs(s, d, uw, op)
+        reads = svc.query_edges(qs_i, qd_i) + svc.query_edges(qs_d, qd_d)
+        rounds.append(dict(report=tuple(rep[:4]), flush_s=flush_s,
+                           flush_s_per_1M=flush_s * 1e6 / s.numel(),
+                           grow_retries=rep.grow_retries,
+                           maintenance=rep.maintenance.kind,
+                           reads=[x.cpu() for x in reads]))
+    scbl = svc.snapshot.cbl
+    qs, qd = inputs["qs"].to(dev), inputs["qd"].to(dev)
+    found, wq = read_edges(scbl, qs, qd)
+    read_ms = timer.ms(lambda: read_edges(scbl, qs, qd))
+    indeg = in_degrees(scbl)
+    (ranks, iters), pr_s = timer.wall(
+        lambda: pagerank(scbl, impl="cuda", return_stats=True))
+    bfs = svc.analytics("bfs", source=0)
+    cc = svc.analytics("cc")
+    launches = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS + WALK_KERNELS}
+    (again, iters2), warm_s = timer.wall(
+        lambda: pagerank(scbl, impl="cuda", return_stats=True))
+    check(iters2 == iters and torch.equal(again, ranks),
+          f"shard mesh S={S}: a second PageRank differs from the first")
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+               rank=dist.get_rank(), n_shards=S, mesh_axis=mesh.size(),
+               shards_per_rank=len(scbl.views),
+               reduce_mode=tdist.REDUCE_MODE, build_s=build_s,
+               read_ms=read_ms, pagerank_iters=iters,
+               pagerank_ms_per_it=pr_s * 1e3 / iters,
+               warm_pagerank_ms_per_it=warm_s * 1e3 / iters,
+               launches=launches,
+               max_memory_allocated=peak,
+               **collective_times(torch, dev, mesh,
+                                  scbl.capacity_vertices))
+    out["rounds"] = rounds
+    out["outputs"] = dict(found=found.cpu(), w=wq.cpu(),
+                          in_degrees=indeg.cpu(), ranks=ranks.cpu(),
+                          bfs=bfs.cpu(), cc=cc.cpu())
+    return out
+
+
+def shard_mesh_child(rank: int, world: int, port: int, backend_name: str,
+                     work_dir: str) -> None:
+    """One spawned rank of phase 5e's leg (b): it loads the kernels phase 1
+    built, joins the group, runs every SHARD_MESH_COUNTS count and leaves
+    its results in ``work_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import backend
+    torch.cuda.set_device(0)
+    backend.load_kernels()
+    init_s = init_group(torch, backend_name, rank, world, port)
+    try:
+        inputs = torch.load(f"{work_dir}/inputs.pt")
+        for S in SHARD_MESH_COUNTS:
+            out = shard_mesh_run(torch, Timer(torch), torch.device("cuda"),
+                                 S, inputs)
+            out["group_init_s"] = init_s
+            torch.save(out, f"{work_dir}/S{S}_rank{rank}.pt")
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, backend_name: str, work_dir: str) -> float:
+    """Leg (b): SHARD_MESH_RANKS ranks spawned on the one card, joined
+    within SHARD_MESH_JOIN_S; a rank that fails or outlives the limit
+    fails the phase (every rank is stopped).  Returns the wall seconds."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        shard_mesh_child, args=(SHARD_MESH_RANKS, free_port(), backend_name,
+                                work_dir),
+        nprocs=SHARD_MESH_RANKS, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < SHARD_MESH_JOIN_S,
+                  f"shard mesh: the spawned ranks did not finish within "
+                  f"{SHARD_MESH_JOIN_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SmokeFailure(f"shard mesh: a spawned rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return time.perf_counter() - t0
+
+
+def check_shard_mesh(torch, out: dict, ref: dict, r64, tag: str) -> float:
+    """One rank's run against phase 5d's unsharded results: flush reports
+    and point reads of every round, the 2^20 reads, in-degrees, BFS levels
+    and CC labels bit for bit, PageRank within SEG_RTOL of the same
+    iterations in float64, and the shard path's kernels launched.  Returns
+    PageRank's largest relative error."""
+    for r, (row, (ref_rep, ref_reads)) in enumerate(zip(out["rounds"],
+                                                        ref["rounds"])):
+        check(row["report"] == ref_rep,
+              f"{tag} round {r}: flush report {row['report']} differs "
+              f"from the unsharded service's {ref_rep}")
+        check(all(torch.equal(a, b) for a, b in zip(row["reads"],
+                                                    ref_reads)),
+              f"{tag} round {r}: point reads differ from the unsharded "
+              "service's")
+    got = out["outputs"]
+    for k in ("found", "w", "in_degrees", "bfs", "cc"):
+        check(torch.equal(got[k], ref[k]),
+              f"{tag}: {k} differs from the unsharded graph's")
+    want = r64(out["pagerank_iters"])
+    rel = float(((got["ranks"].double() - want).abs()
+                 / want.abs().clamp(min=1e-30)).max())
+    check(torch.allclose(got["ranks"].double(), want, rtol=SEG_RTOL,
+                         atol=0.0),
+          f"{tag}: PageRank off the float64 ranks by {rel:.3e}")
+    for name in SHARD_KERNELS:
+        check(out["launches"][name] > 0,
+              f"{tag}: {name} never launched on this rank's shard path")
+    return rel
+
+
+def shard_mesh_line(out: dict, rel: float, leg: str) -> dict:
+    row = {k: out[k] for k in (
+        "backend", "world", "rank", "n_shards", "mesh_axis",
+        "shards_per_rank", "reduce_mode", "build_s", "read_ms",
+        "pagerank_iters", "pagerank_ms_per_it", "warm_pagerank_ms_per_it",
+        "group_init_s", "combine_ms",
+        "all_reduce_ms", "collective_bytes", "launches",
+        "max_memory_allocated")}
+    row.update(leg=leg, pagerank_max_rel_f64=rel,
+               flush_s_per_1M=[r["flush_s_per_1M"] for r in out["rounds"]],
+               grow_retries=[r["grow_retries"] for r in out["rounds"]],
+               maintenance=[r["maintenance"] for r in out["rounds"]])
+    say("shard.mesh", **{k: ("/".join(f"{x:.4g}" for x in v)
+                             if k == "flush_s_per_1M"
+                             else f"{v:.4g}" if isinstance(v, float) else v)
+                         for k, v in row.items()},
+        note="the code path on one card, not a multi-card speed")
+    return row
+
+
+def shard_mesh_phase(torch, timer, dev, coo, nv, untiered, shard_ref,
+                     report, seed) -> dict:
+    """Phase 5e: the graph cell's graph behind ``GraphService(...,
+    n_shards=S)`` on a process group, leg (a) a one-rank NCCL group in this
+    process, leg (b) SHARD_MESH_RANKS ranks spawned on the one card over
+    gloo, each held to phase 5d's unsharded results (kept on the host), the
+    ranks of leg (b) to each other."""
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import in_degrees
+    from repro_torch.core.updates import read_edges
+    check(not dist.is_initialized(), "shard mesh: a process group is up "
+          "before the phase")
+    cbl = shard_ref["cbl"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 51)
+    qs, qd = read_batch(torch, cbl, SHARD_READS, gen)
+    found, w = read_edges(cbl, qs, qd)
+    ref = dict(found=found.cpu(), w=w.cpu(), in_degrees=in_degrees(cbl).cpu(),
+               bfs=shard_ref["bfs"].cpu(), cc=shard_ref["cc"].cpu(),
+               rounds=[(tuple(rep[:4]), [x.cpu() for x in reads])
+                       for rep, *reads in untiered])
+    src, dst, wt = coo
+    inputs = dict(nv=nv, ne=src.numel(), seed=seed, qs=qs.cpu(),
+                  qd=qd.cpu(), checksum=coo_checksum(torch, src, dst, wt))
+    r64_cache = {}
+
+    def r64(iters):
+        if iters not in r64_cache:
+            r64_cache[iters] = pagerank64(torch, cbl, iters).cpu()
+        return r64_cache[iters]
+
+    rows, launches = [], {}
+    t0 = time.perf_counter()
+    init_s = init_group(torch, "nccl", 0, 1, free_port())
+    try:
+        for S in SHARD_MESH_COUNTS:
+            out = shard_mesh_run(torch, timer, dev, S, inputs)
+            out["group_init_s"] = init_s
+            tag = f"shard mesh nccl S={S}"
+            check(out["backend"] == "nccl" and out["mesh_axis"] == 1,
+                  f"{tag}: not a one-rank NCCL mesh")
+            rel = check_shard_mesh(torch, out, ref, r64, tag)
+            rows.append(shard_mesh_line(out, rel, "nccl"))
+            launches[f"nccl S={S} rank 0"] = out["launches"]
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    nccl_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        torch.save(inputs, f"{d}/inputs.pt")
+        spawn_s = spawn_ranks(torch, "gloo", d)
+        for S in SHARD_MESH_COUNTS:
+            outs = [torch.load(f"{d}/S{S}_rank{r}.pt")
+                    for r in range(SHARD_MESH_RANKS)]
+            for r, out in enumerate(outs):
+                tag = f"shard mesh gloo S={S} rank {r}"
+                check(out["backend"] == "gloo"
+                      and out["world"] == SHARD_MESH_RANKS
+                      and out["mesh_axis"] == min(S, SHARD_MESH_RANKS),
+                      f"{tag}: not a {SHARD_MESH_RANKS}-rank gloo mesh")
+                rel = check_shard_mesh(torch, out, ref, r64, tag)
+                rows.append(shard_mesh_line(out, rel, "gloo"))
+                launches[f"gloo S={S} rank {r}"] = out["launches"]
+                if r:
+                    same = outs[0]
+                    check([x["report"] for x in out["rounds"]]
+                          == [x["report"] for x in same["rounds"]]
+                          and all(torch.equal(out["outputs"][k],
+                                              same["outputs"][k])
+                                  for k in out["outputs"]),
+                          f"{tag}: outputs differ from rank 0's")
+            del outs
+    out = dict(rows=rows, launches=launches, nccl_seconds=nccl_s,
+               gloo_seconds=spawn_s)
+    say("shard.mesh_phase", nccl_s=f"{nccl_s:.4g}", gloo_s=f"{spawn_s:.4g}",
+        counts=list(SHARD_MESH_COUNTS), ranks=SHARD_MESH_RANKS)
     return out
 
 
@@ -4538,10 +4908,14 @@ def kernels_line(report: dict) -> dict:
             locate = {"chain_walk": "chain_walk_locate",
                       "chain_walk_rank": "chain_walk_rank"}
             for row in out[-2:]:
+                name = locate.get(row["name"], row["name"])
                 row["shard_launches"] = {
-                    str(r["n_shards"]): r["launches"][
-                        locate.get(row["name"], row["name"])]
+                    str(r["n_shards"]): r["launches"][name]
                     for r in report["shard"]["runs"]}
+                # phase 5e: each rank's launches on its own shards
+                row["shard_launches"].update({
+                    f"mesh {key}": counts[name] for key, counts in
+                    report["shard_mesh"]["launches"].items()})
         if table is walk_meta:       # the bound's two terms, as measured
             for row, name in zip(out[-2:], walk_meta):
                 main = next(r for r in report[rows_key] if r["name"] == name)
@@ -4594,6 +4968,7 @@ def main(argv=None) -> int:
         tier_seconds=f"{report['tier_seconds']:.1f}",
         shard_seconds=f"{report['shard_seconds']:.1f}",
         shard_max_memory_allocated=report["shard"]["max_memory_allocated"],
+        shard_mesh_seconds=f"{report['shard_mesh_seconds']:.1f}",
         lm_seconds=f"{report['lm_seconds']:.1f}",
         moe_serve_seconds=f"{report['moe_serve_seconds']:.1f}",
         moe_serve_max_memory_allocated=report["moe_serve"][

@@ -29,8 +29,9 @@ Every sweep entry point also takes a
 (through ``plan``, the delta's plan), the sealed run through the CSR sweeps
 of :mod:`repro_torch.core.csr`, and the two partials merge through the
 semiring.  A :class:`~repro_torch.distributed.graph.ShardedCBList` runs the
-same sweep on every shard (``plan`` then holds one plan a shard) and
-reduces the partials along the shard axis.
+same sweep on every shard this rank holds (``plan`` then holds one plan a
+local shard), reduces the partials along the shard axis and, on a process
+group, across the ranks with the semiring's collective.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import backend
 from repro_torch.backend import resolve_impl
@@ -71,22 +73,24 @@ def _segment_reduce(reduce: str, fill: float):
 @dataclasses.dataclass(frozen=True)
 class Semiring:
     """One combine semiring: the masked-lane identity, the flat segment
-    reduction over lanes (the oracle) and the dense reduction along an
-    axis (per-block pull)."""
+    reduction over lanes (the oracle), the dense reduction along an axis
+    (per-block pull) and the ``torch.distributed`` reduction that combines
+    partial outputs across ranks (the JAX package's ``collective``)."""
     name: str
     fill: float
     segment_reduce: Callable      # (data, seg, n) -> [n, ...]
     lane_reduce: Callable         # (x, dim) -> reduced
+    reduce_op: object             # dist.ReduceOp.SUM / MIN / MAX
 
 
 SEMIRINGS = {
     "sum": Semiring("sum", 0.0, _segment_reduce("sum", 0.0),
-                    lambda x, dim: x.sum(dim)),
+                    lambda x, dim: x.sum(dim), dist.ReduceOp.SUM),
     "min": Semiring("min", float("inf"), _segment_reduce("amin", float("inf")),
-                    lambda x, dim: x.amin(dim)),
+                    lambda x, dim: x.amin(dim), dist.ReduceOp.MIN),
     "max": Semiring("max", float("-inf"),
                     _segment_reduce("amax", float("-inf")),
-                    lambda x, dim: x.amax(dim)),
+                    lambda x, dim: x.amax(dim), dist.ReduceOp.MAX),
 }
 
 

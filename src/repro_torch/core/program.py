@@ -8,6 +8,9 @@ conversion, the ``unsupported_min`` retraction phase, the warm-start
 validity rule).  :func:`run_program` is the single executor; the fixpoint
 and retraction loops that the JAX package runs as ``lax.while_loop`` are
 host loops here, with one device sync per iteration for the predicate.
+On a graph whose shards lie over a process group the predicate is agreed
+across the ranks (one MAX an iteration), so every rank runs the same
+iterations and makes the same collectives.
 On the kernel route (``impl="cuda"``) a program with a sum sweep lays the
 graph out once per run in a :class:`~repro_torch.core.engine.SweepPlan`
 that every iteration's sweeps reuse.
@@ -206,6 +209,12 @@ def _plan_for(cbl, prog: VertexProgram, impl: str):
     return tuple(sweep_plan(v, **kw) for v in cbl.views)
 
 
+def _agreed(ctx: ProgramContext, cont: bool) -> bool:
+    """``cont`` held on any rank when the graph lies on a mesh."""
+    from repro_torch.distributed.graph import agree, mesh_of
+    return agree(mesh_of(ctx.cbl), cont)
+
+
 def _step(ctx: ProgramContext, prog: VertexProgram, state, frontier,
           impl: str):
     """One program iteration: the sweep pipeline + progress/frontier."""
@@ -224,8 +233,8 @@ def _step(ctx: ProgramContext, prog: VertexProgram, state, frontier,
     elif nf is not None:
         cont = bool(nf.any())
     else:
-        cont = True                          # run to max_iters (e.g. LP)
-    return new, nf, cont
+        return new, nf, True                 # run to max_iters (e.g. LP)
+    return new, nf, _agreed(ctx, cont)
 
 
 def _fixpoint(ctx: ProgramContext, prog: VertexProgram, state, frontier,
@@ -250,7 +259,7 @@ def _retract_unsupported(ctx: ProgramContext, prog: VertexProgram, state,
         cand = _run_sweep(ctx, sw, state, None, impl)
         new = torch.where(anchor_mask, anchor_val,
                           torch.where(state < cand, INF, state))
-        cont = bool((new != state).any())
+        cont = _agreed(ctx, bool((new != state).any()))
         state = new
         it += 1
     return state

@@ -36,10 +36,13 @@ never write into the tensors of the graph they were given, so a snapshot
 that holds the old graph keeps serving it.
 
 Sharding: the delta may be a :class:`~repro_torch.distributed.graph.
-ShardedCBList`; then ``runs`` is a tuple of one run a shard, each holding
-exactly the sealed vertices its shard owns (``v_shard``), every run of the
-same capacity, and the run sweeps reduce across the shards as the delta's
-do (:func:`repro_torch.distributed.graph.sharded_runs_sweep`).
+ShardedCBList`; then ``runs`` is a tuple of one run a shard the rank holds,
+each holding exactly the sealed vertices its shard owns (``v_shard``),
+every run of the same capacity, and the run sweeps reduce across the
+shards, and across the delta's mesh on a process group, as the delta's do
+(:func:`repro_torch.distributed.graph.sharded_runs_sweep`).  The run
+tier's degrees, edge counts and reads are reduced over the mesh too, so
+every rank sees the whole graph.
 """
 from __future__ import annotations
 
@@ -132,9 +135,14 @@ class TieredGraph:
         sharded)."""
         return self.run_list[0].capacity
 
+    def _across(self, t: torch.Tensor) -> torch.Tensor:
+        """A sum of the local runs' partials over the delta's mesh."""
+        from repro_torch.distributed.graph import SUM, _all_reduce, mesh_of
+        return _all_reduce(mesh_of(self), t, SUM)
+
     @functools.cached_property
     def run_degrees(self) -> torch.Tensor:
-        return sum(csr_degrees(g) for g in self.run_list)
+        return self._across(sum(csr_degrees(g) for g in self.run_list))
 
     @functools.cached_property
     def v_deg(self) -> torch.Tensor:
@@ -145,10 +153,10 @@ class TieredGraph:
     def v_level(self) -> torch.Tensor:
         return self.delta.v_level
 
-    @property
+    @functools.cached_property
     def run_edges(self) -> torch.Tensor:
         """Live edges of the sealed tier."""
-        return sum(g.num_edges for g in self.run_list)
+        return self._across(sum(g.num_edges for g in self.run_list))
 
     @property
     def num_edges(self) -> torch.Tensor:
@@ -162,12 +170,12 @@ class TieredGraph:
 
 
 def _empty_runs_like(delta):
-    """An empty sealed tier for ``delta``: one empty run, or one a shard."""
+    """An empty sealed tier for ``delta``: one empty run, or one a local
+    shard."""
     nvc = delta.capacity_vertices
     if isinstance(delta, CBList):
         return csr_empty(nvc, 0, delta.device)
-    return tuple(csr_empty(nvc, 0, delta.device)
-                 for _ in range(delta.n_shards))
+    return tuple(csr_empty(nvc, 0, delta.device) for _ in delta.views)
 
 
 def tier_from_cbl(delta) -> TieredGraph:
@@ -194,11 +202,12 @@ def _merge(a: torch.Tensor, b: torch.Tensor, combine: str) -> torch.Tensor:
 
 def _runs_sweep(tg: TieredGraph, x, active, sweep, combine: str):
     """The run-tier sweep: the one run's, or every shard's run reduced
-    across the shards."""
+    across the shards (and the mesh)."""
     if not tg.is_sharded:
         return sweep(tg.runs, x, active)
     from repro_torch.distributed.graph import sharded_runs_sweep
-    return sharded_runs_sweep(tg.runs, x, active, sweep, combine)
+    return sharded_runs_sweep(tg.runs, tg.delta.mesh, x, active, sweep,
+                              combine)
 
 
 def tiered_process_edge_push(tg: TieredGraph, x: torch.Tensor,
@@ -244,8 +253,8 @@ def tiered_process_edge_push_feat(tg: TieredGraph, x: torch.Tensor,
 
 
 def tiered_in_degrees(tg: TieredGraph) -> torch.Tensor:
-    return in_degrees(tg.delta) + sum(csr_in_degrees(g)
-                                      for g in tg.run_list)
+    return in_degrees(tg.delta) + tg._across(
+        sum(csr_in_degrees(g) for g in tg.run_list))
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +270,9 @@ def tiered_read_edges(tg: TieredGraph, qsrc: torch.Tensor,
     if tg.run_capacity == 0:
         return f1, w1
     if tg.is_sharded:                   # at most one shard's run holds it
+        from repro_torch.distributed.graph import owner_merge
         fs, ws = zip(*(csr_query(g, qsrc, qdst, active) for g in tg.runs))
-        fs = torch.stack(fs)
-        f2, w2 = fs.any(0), torch.where(fs, torch.stack(ws), 0.0).sum(0)
+        f2, w2 = owner_merge(fs, ws, tg.delta.mesh)
     else:
         f2, w2 = csr_query(tg.runs, qsrc, qdst, active)
     return f1 | f2, torch.where(f1, w1, w2)
@@ -284,12 +293,11 @@ def tiered_rank_neighbors(tg: TieredGraph, verts: torch.Tensor,
     if tg.run_capacity == 0:
         return d_out, d_ok
     if tg.is_sharded:                   # at most one shard's run holds v
+        from repro_torch.distributed.graph import owner_merge
         outs, oks = zip(*(csr_rank_neighbors(g, verts, ranks)
                           for g in tg.runs))
-        oks = torch.stack(oks)
-        r_ok = oks.any(0)
-        r_out = torch.where(r_ok, torch.where(oks, torch.stack(outs), 0)
-                            .sum(0).to(I32), NULL)
+        r_ok, r_out = owner_merge(oks, outs, tg.delta.mesh)
+        r_out = torch.where(r_ok, r_out, NULL)
     else:
         r_out, r_ok = csr_rank_neighbors(tg.runs, verts, ranks)
     nvc = tg.capacity_vertices
@@ -365,8 +373,8 @@ def _repartition_inner(tg: TieredGraph,
     """Split each (delta, run) pair's edges by the new sealed set and
     rebuild both tiers; a sharded store sizes every shard's tiers alike
     (the largest shard's run and hot demand) so the stacks keep one
-    shape."""
-    from repro_torch.distributed.graph import ShardedCBList, _restack
+    shape (on a mesh, the largest over the mesh)."""
+    from repro_torch.distributed.graph import MAX, _all_reduce, _restack
     nvc = tg.capacity_vertices
     bw = tg.block_width
     deltas = tg.delta.views if tg.is_sharded else (tg.delta,)
@@ -382,6 +390,10 @@ def _repartition_inner(tg: TieredGraph,
         demand = blocks_needed(s[hot], nvc, bw)
         nb = max(nb, _pow2_at_least(int(demand * DELTA_SLACK) + 1))
         parts.append((s, d, w, cold, hot))
+    if tg.is_sharded and tg.delta.mesh is not None:
+        run_cap, nb = (int(x) for x in _all_reduce(
+            tg.delta.mesh, torch.tensor([run_cap, nb], device=tg.device),
+            MAX).tolist())
     n_live = int(tg.n_vertices)
     new_deltas, runs = [], []
     for s, d, w, cold, hot in parts:
@@ -391,8 +403,7 @@ def _repartition_inner(tg: TieredGraph,
             s, d, w, num_vertices=n_live, num_blocks=nb, block_width=bw,
             vertex_capacity=nvc, valid=hot))
     if tg.is_sharded:
-        delta = ShardedCBList(shards=_restack(new_deltas),
-                              v_shard=tg.delta.v_shard)
+        delta = dataclasses.replace(tg.delta, shards=_restack(new_deltas))
         runs = tuple(runs)
     else:
         delta = new_deltas[0]._replace(n_vertices=tg.delta.n_vertices)

@@ -82,20 +82,49 @@ def csr_from_arrays(csr, device=None) -> CSRGraph:
                     **{k: from_numpy(v, device) for k, v in f.items()})
 
 
-def sharded_from_arrays(scbl, device=None) -> ShardedCBList:
+def _shard_rows(tree, rows: slice):
+    """``tree`` (nested dicts of ``[S, ...]`` arrays) cut to ``rows``."""
+    if isinstance(tree, dict):
+        return {k: _shard_rows(v, rows) for k, v in tree.items()}
+    return np.asarray(tree)[rows]
+
+
+def sharded_from_arrays(scbl, device=None, mesh=None) -> ShardedCBList:
     """A port ShardedCBList from a JAX ``ShardedCBList`` (or a dict of its
     ``shards`` and ``v_shard``): the stacked ``[S, ...]`` arrays as they
-    are."""
+    are, or on a ``mesh`` this rank's block of them (every rank passes the
+    whole stack; a rank outside the mesh takes an empty shard)."""
     f = _fields(scbl, ("shards", "v_shard"))
-    return ShardedCBList(shards=cbl_from_arrays(f["shards"], device),
-                         v_shard=from_numpy(f["v_shard"], device))
+    if mesh is None:
+        return ShardedCBList(shards=cbl_from_arrays(f["shards"], device),
+                             v_shard=from_numpy(f["v_shard"], device))
+    from repro_torch.distributed.graph import (_local_ids, _phantom,
+                                               _restack)
+    stack = _fields(f["shards"], CBList._fields)
+    stack["store"] = _fields(stack["store"], BlockStore._fields)
+    S = int(np.asarray(stack["v_deg"]).shape[0])
+    ids = _local_ids(mesh, S)
+    if ids:
+        shards = cbl_from_arrays(_shard_rows(stack,
+                                             slice(ids.start, ids.stop)),
+                                 device)
+    else:
+        first = cbl_from_arrays(_shard_rows(stack, slice(0, 1)), device)
+        shards = _restack([_phantom(
+            int(first.n_vertices[0]), first.store.keys.shape[1],
+            first.store.keys.shape[2], first.v_deg.shape[1],
+            first.v_deg.device)])
+    return ShardedCBList(shards=shards,
+                         v_shard=from_numpy(f["v_shard"], device),
+                         mesh=mesh, n_shards=S)
 
 
 def sharded_to_numpy(scbl: ShardedCBList) -> Dict[str, Any]:
     """A port ShardedCBList as ``{"shards": <cbl_to_numpy of the stack>,
-    "v_shard": ndarray}``."""
-    return {"shards": cbl_to_numpy(scbl.shards),
-            "v_shard": to_numpy(scbl.v_shard)}
+    "v_shard": ndarray}``: on a mesh every rank gathers the whole stack."""
+    from repro_torch.distributed.graph import _cbl_map, gather_shards
+    whole = _cbl_map(lambda a: gather_shards(scbl, a), scbl.shards)
+    return {"shards": cbl_to_numpy(whole), "v_shard": to_numpy(scbl.v_shard)}
 
 
 def _is_sharded_arrays(delta) -> bool:
@@ -103,27 +132,35 @@ def _is_sharded_arrays(delta) -> bool:
         else hasattr(delta, "shards")
 
 
-def _runs_from_arrays(runs, n_shards: int, device=None):
-    """One run, or a tuple of one a shard from arrays stacked ``[S, ...]``."""
-    if not n_shards:
+def _runs_from_arrays(runs, delta=None, device=None):
+    """One run, or (over a sharded ``delta``) a tuple of one a shard the
+    rank holds from arrays stacked ``[S, ...]``: a rank outside the mesh
+    takes an empty run of the stack's capacity."""
+    if delta is None:
         return csr_from_arrays(runs, device)
     f = _fields(runs, _CSR_FIELDS)
     nv = int(np.asarray(f.pop("nv")).reshape(-1)[0])
+    ids = delta.shard_ids
+    if not ids:
+        from repro_torch.core.csr import csr_empty
+        return (csr_empty(nv, np.asarray(f["indices"]).shape[1],
+                          delta.device),)
     return tuple(CSRGraph(nv=nv, **{k: from_numpy(np.asarray(v)[i], device)
                                     for k, v in f.items()})
-                 for i in range(n_shards))
+                 for i in ids)
 
 
-def tiered_from_arrays(tg, device=None) -> TieredGraph:
+def tiered_from_arrays(tg, device=None, mesh=None) -> TieredGraph:
     """A port TieredGraph from a JAX ``TieredGraph`` (or a dict of its
-    fields), over an unsharded or a sharded delta."""
+    fields), over an unsharded or a sharded delta (on a ``mesh``, this
+    rank's shards and runs)."""
     f = _fields(tg, _TIER_FIELDS)
     if _is_sharded_arrays(f["delta"]):
-        delta = sharded_from_arrays(f["delta"], device)
-        runs = _runs_from_arrays(f["runs"], delta.n_shards, device)
+        delta = sharded_from_arrays(f["delta"], device, mesh)
+        runs = _runs_from_arrays(f["runs"], delta, device)
     else:
         delta = cbl_from_arrays(f["delta"], device)
-        runs = _runs_from_arrays(f["runs"], 0, device)
+        runs = _runs_from_arrays(f["runs"], None, device)
     return TieredGraph(delta=delta, runs=runs,
                        sealed=from_numpy(f["sealed"], device),
                        v_epoch=from_numpy(f["v_epoch"], device),
@@ -135,10 +172,15 @@ def tiered_to_numpy(tg: TieredGraph) -> Dict[str, Any]:
     """A port TieredGraph as ``{field: ndarray}``: the delta as
     :func:`cbl_to_numpy` or :func:`sharded_to_numpy` gives it, the runs'
     arrays (stacked ``[S, ...]`` over a sharded delta, as the JAX package
-    keeps them)."""
-    runs = {k: np.stack([to_numpy(getattr(g, k)) for g in tg.run_list])
-            if tg.is_sharded else to_numpy(getattr(tg.runs, k))
+    keeps them; on a mesh every rank gathers every shard's)."""
+    if tg.is_sharded:
+        from repro_torch.distributed.graph import gather_shards
+        runs = {k: to_numpy(gather_shards(tg.delta, torch.stack(
+            [getattr(g, k) for g in tg.run_list])))
             for k in _CSR_FIELDS if k != "nv"}
+    else:
+        runs = {k: to_numpy(getattr(tg.runs, k))
+                for k in _CSR_FIELDS if k != "nv"}
     runs["nv"] = tg.run_list[0].nv
     return {"delta": (sharded_to_numpy(tg.delta) if tg.is_sharded
                       else cbl_to_numpy(tg.delta)),

@@ -241,14 +241,16 @@ def _decide_tiered(tg, pending_inserts: int, policy: MaintenancePolicy,
 def _sharded_statistics(scbl) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-shard (free blocks, chain overlap, contiguity) in one host read:
     ``decide`` sits on the flush path, so the sharded rules must not pay a
-    device round trip a shard."""
+    device round trip a shard.  On a process group every rank gathers every
+    shard's (one collective), so every rank decides alike."""
+    from repro_torch.distributed.graph import gather_shards
     views = scbl.views
-    stats = torch.stack([
+    stats = gather_shards(scbl, torch.stack([
         scbl.shards.store.free_top.to(torch.float64),
         torch.stack([chain_overlap_fraction(v) for v in views]).double(),
         torch.stack([bs.gtchain_contiguity(v.store) for v in views])
-        .double()])
-    free, overlap, contig = np.asarray(stats.tolist())
+        .double()], 1))
+    free, overlap, contig = np.asarray(stats.T.tolist())
     return free.astype(np.int64), overlap, contig
 
 
@@ -266,7 +268,9 @@ def _decide_sharded(scbl, pending_inserts: int, policy: MaintenancePolicy,
     """
     S = scbl.n_shards
     if headroom_only:
-        free = np.asarray(scbl.shards.store.free_top.tolist(), np.int64)
+        from repro_torch.distributed.graph import gather_shards
+        free = np.asarray(gather_shards(scbl, scbl.shards.store.free_top)
+                          .tolist(), np.int64)
         overlap, contig = np.zeros(S), np.ones(S)
     else:
         free, overlap, contig = _sharded_statistics(scbl)

@@ -3,7 +3,8 @@
 One object owns update admission, snapshot versioning, maintenance
 scheduling and incremental analytics over one CBList, over a
 :class:`~repro_torch.distributed.graph.ShardedCBList` (``n_shards=S``: S
-GTChain-balanced shards stacked on the one device), or over a
+GTChain-balanced shards, stacked on the one device or, when a process
+group is up, laid over its ranks by ``shard_mesh(S)``), or over a
 :class:`~repro_torch.core.tiered.TieredGraph` of either
 (``seal_after_epochs=K``):
 
@@ -25,6 +26,15 @@ per-epoch caching and warm starts gated by each program's
 user-defined workloads to the same loop.  Under :mod:`repro_torch.obs` a
 flush is broken into phase spans (admission, coalesce, upsert, grow
 retries, maintenance) with matching counters.
+
+On a process group every rank runs one service over the same calls: the
+log, the snapshot's epoch and watermark and every flush report are
+replicated, each rank's storage holds its own shards, and the flush's
+decisions read reduced values (the update stats, the reads of the delete
+keys, the maintenance statistics), so the ranks make the same
+collectives in the same order.  :meth:`GraphService.flush_ready` reads the
+rank's own device and may differ between ranks; callers on a group publish
+a shadow flush at points they agree on.
 """
 from __future__ import annotations
 
@@ -144,9 +154,8 @@ def _num_blocks(cbl) -> int:
 
 class GraphService:
     """Facade over log + snapshot + maintenance + incremental analytics for
-    one CBList, shard stack or TieredGraph on one device.  Host-side
-    orchestrator: every decision that needs concrete statistics runs
-    between device steps."""
+    one CBList, shard stack or TieredGraph.  Host-side orchestrator: every
+    decision that needs concrete statistics runs between device steps."""
 
     def __init__(self, cbl: CBList, *, log_capacity: int = 4096,
                  high_watermark: float = 0.75,
@@ -155,11 +164,15 @@ class GraphService:
                  auto_flush: bool = True, n_shards: int = 1,
                  seal_after_epochs: Optional[int] = None, signals=None):
         """``n_shards > 1`` splits the storage into GTChain-balanced shards
-        (:func:`repro_torch.distributed.graph.shard_cbl`), stacked on the
-        one device: flushes route updates to the shard that owns their
-        source, maintenance runs per shard, and analytics sweeps run on
-        every shard and reduce along the shard axis.  A ``ShardedCBList``
-        is taken as it is; one sharded another number of ways is refused.
+        (:func:`repro_torch.distributed.graph.shard_cbl`), placed by
+        :func:`~repro_torch.distributed.graph.shard_mesh`: stacked on the
+        one device without a process group, or each rank of the group
+        holding its block of them (``cbl`` is then the same on every rank,
+        as the JAX package's comes from ``jax.devices()``).  Flushes route
+        updates to the shard that owns their source, maintenance runs per
+        shard, and analytics sweeps run on every shard and reduce along the
+        shard axis and across the ranks.  A ``ShardedCBList`` is taken as
+        it is; one sharded another number of ways is refused.
 
         ``seal_after_epochs=K`` turns on tiered storage: the CBList (or the
         shard stack) becomes the hot delta of a
@@ -177,8 +190,10 @@ class GraphService:
         from repro_torch.core.tiered import tier_from_cbl
         if isinstance(cbl, CBList):
             if n_shards > 1:
-                from repro_torch.distributed.graph import shard_cbl
-                cbl, _ = shard_cbl(cbl, n_shards)
+                from repro_torch.distributed.graph import (shard_cbl,
+                                                           shard_mesh)
+                cbl, _ = shard_cbl(cbl, n_shards, mesh=shard_mesh(
+                    n_shards, cbl.device.type))
         elif not isinstance(cbl, TieredGraph) \
                 and n_shards > 1 and cbl.n_shards != n_shards:
             raise ValueError(
