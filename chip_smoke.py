@@ -265,9 +265,11 @@ Phases, one report line each:
    lines).  (a) The dry run on the host: ``launch.dryrun`` under the fake
    process group of 512 ranks (set up and destroyed in this process) for
    ``DRYRUN_CELLS`` on both production meshes, one line a cell: argument
-   bytes a device, GFLOP a step (FlopCounterMode on the meta device),
-   whether the argument bytes fit one H100's 80 GB (computed), each
-   record's FLOPs and bytes above 0 and its collective bytes null.
+   bytes a device, GFLOP a step (on the meta device; the qwen3-moe
+   ``train_4k`` ``opt`` cell's step runs on DTensors under the mesh, rank
+   0's share), whether the argument bytes fit one H100's 80 GB (computed),
+   each record's FLOPs and bytes above 0, the ``opt`` cell's collective
+   bytes by kind each above 0 and every other cell's null.
    (b) Gradient compression on the card at the LM-train cell's widest
    gradient leaf, one layer's expert stack [128, 2048, 768] in float32
    (201,326,592 values; N(0, 1) from ``--seed``: phase 10 keeps no
@@ -286,7 +288,41 @@ Phases, one report line each:
    2-layer tree: every leaf a DTensor with the cell's placements, its
    ``full_tensor()`` bit for bit the restored leaf.  On one rank every
    placement is trivial: this drives the code path on the card, not a
-   layout.
+   layout;
+12. the expert-parallel MoE and the LM's ``opt`` steps on a DTensor mesh,
+   once phase 11's state is freed (``[mesh.ep]`` lines): qwen3-moe-30b-a3b's
+   ``opt`` config (``act_shard_axes``, ``ep_shard_map``) at full width and
+   phase 10's 2 layers, bf16, weights from ``--seed``.  (a) One NCCL rank
+   in this process, ``make_debug_mesh((1, 1))``, the state placed by the
+   ``train_4k`` cell's shardings: on each layer's one-card MoE input
+   ``apply_moe_ep`` bit for bit the one-card ``apply_moe``; the loss
+   within rtol 1e-5 of the one-card loss less its 0.01 aux; every
+   gradient leaf within LM_TRAIN_GRAD_RTOL of the one-card gradients;
+   then, with the launch counters at 0, 3 steps of the registry's step
+   (value and grads, clip, AdamW) on one 4,096-token sequence each:
+   exactly 4L ``block_gather`` + 2L ``segment_sum`` a step, step ms
+   beside phase 10's.  (b) EP_RANKS gloo ranks spawned on the one card
+   (a (data 1, model 2) mesh, 64 experts a rank; a 60 s group timeout,
+   an EP_JOIN_S join limit), the parent's one-card path first: with the
+   counters at 0, the prefill of 8 prompts of 2,048 tokens (flash in
+   ``local_map``, the MoE expert-parallel on the kernels) and 8
+   dense-cache decode steps teacher-forced with the one-card greedy
+   tokens, the cache's positions over ``"model"``; both ranks' logits
+   equal, within EP_LOGIT_REL_L2_SANE of the one-card path's (a wrong
+   path's check), the head on the one-card final hidden state within its
+   rounding bound; exactly L flash, 2L ``block_gather`` and L
+   ``segment_sum`` launches a rank.  Then, on the one-card layer inputs,
+   each layer held to the one-card functions piece by piece: attention
+   for the prefill and for each decode step (the projections within a
+   float32 dot's two orders, the attention of the one card's q / k / v bit
+   for bit at prefill and within a float32 bound at decode, the cache
+   write bit for bit, the output projection within its bf16 partials'
+   roundings, the layer's output within that plus its o's difference
+   carried through |wo|); the MoE's routes and expert rows bit for bit,
+   its output within the bound EP_PARTIAL_ULPS derives, which a bf16
+   cross-rank partial must fail.  One line a
+   leg and rank: backend, mesh, step ms or prefill s, decode ms a step,
+   the combine's cross-rank ms and bytes, launches, peak memory.
 
 The last two lines are the ``kernels`` JSON object and the device line.  It
 exits non-zero, printing no result, without a CUDA device or without the
@@ -525,9 +561,10 @@ LM_TRAIN_MAIN = {"block_gather": "lm fwd dispatch F=2048 bf16",
 # meshes takes longer than the 60 s this phase may give it on the host
 # (PERF.md gives the full sweep's time), so it runs the cheap cell of each
 # small family and the two MoE train cells
-DRYRUN_CELLS = (("gin-tu", "molecule"), ("sasrec", "serve_p99"),
-                ("qwen3-moe-30b-a3b", "train_4k"),
-                ("kimi-k2-1t-a32b", "train_4k"))
+DRYRUN_CELLS = (("gin-tu", "molecule", False), ("sasrec", "serve_p99", False),
+                ("qwen3-moe-30b-a3b", "train_4k", False),
+                ("kimi-k2-1t-a32b", "train_4k", False),
+                ("qwen3-moe-30b-a3b", "train_4k", True))
 # the LM-train cell's widest gradient leaf: one layer's expert stack
 COMPRESS_SHAPE, COMPRESS_K_FRAC, COMPRESS_ROUNDS = (128, 2048, 768), 0.01, 20
 COMPRESS_CHECK_VALUES, INT8_DRAWS = 1 << 20, 32
@@ -544,6 +581,43 @@ COMPRESS_ULPS = (2 * COMPRESS_ROUNDS + 1) * COMPRESS_ROUNDS
 # margin for the estimate over 2 x 10^8 values
 INT8_DELTA, INT8_RMS_MARGIN = 1e-6, 1.02
 ELASTIC_GLOBAL_BATCH = 256                 # the train_4k cell's sequences
+
+# phase 12: the expert-parallel MoE on a DTensor mesh.  Leg (a) trains
+# phase 10's cut model for 3 steps on one NCCL rank; leg (b) serves it on
+# two gloo ranks sharing the card (NCCL refuses two ranks on one device),
+# the model axis 2 (64 experts a rank), the data axis 1: across ranks on
+# this card its FSDP gathers of the expert stacks would move ~2.4 GB of
+# bf16 weights a forward through the host, and tier-1 holds it on 4 ranks
+EP_TRAIN_STEPS, EP_RANKS, EP_JOIN_S = 3, 2, 240
+EP_PREFILL, EP_DECODE_STEPS = (8, 2048), 8
+MESH_EP_KERNELS = ("block_gather", "segment_sum", "flash_attention_wgmma")
+# leg (b)'s MoE outputs against the one-card apply_moe on the same layer
+# inputs.  Both route alike (D = 1: C_loc = C) and sum each token's lanes
+# in float64; the one card rounds that sum S to float32 once (error <= u
+# |S|, u = 2^-24), each rank rounds its experts' part S_r once and the
+# cross-rank add of the two float32 partials rounds once more (<= 2 u
+# (|S_1| + |S_2|)), so the float32 values differ by at most 3 u A, A the
+# sum over the token's lanes of |gate * row|; rounding both to bf16 adds
+# the two roundings (bf16_pair).  That holds for equal expert rows: a
+# rank's rows come from its own batched GEMMs (64 experts against the one
+# card's 128) and are held bit for bit to the one card's rows for the
+# same experts (on an NVIDIA H100 80GB HBM3 with torch 2.11 + cu128, 0 of
+# 335,806,464 values differ), so a library that rounds them otherwise
+# fails the check instead of widening the bound.  A partial rounded to
+# bf16 before the cross-rank sum must fail this bound (checked on the one
+# card's rows), or the bound would not guard the float32 partial
+EP_PARTIAL_ULPS = 3
+# |bf16(x) - x| <= 2^-8 |x| <= BF16_HALF_ULP |bf16(x)| (round to nearest)
+BF16_HALF_ULP = 2.0 ** -8 * (1 + 2.0 ** -7)
+# leg (b)'s logits.  The head on the one-card final hidden state: the
+# vocabulary-parallel head is a GEMM on column blocks of lm_head, each
+# logit a float32 dot over d in another order (at most d u S, S the dot's
+# sum of |x * w|, Higham's bound) rounded to bf16 (2^-8 of the larger).
+# End to end, bf16 tensor parallelism rounds the row-parallel partials
+# before their sum and capacity-bound routing (C = 1 at a decode step of
+# 8 tokens) moves whole lanes on a rounding, so the end-to-end logits are
+# held only against a wrong path, which is off by about 100 % (phase 6b)
+EP_LOGIT_REL_L2_SANE = 0.5
 
 
 def lm_train_launches(n_layers: int) -> dict:
@@ -3009,20 +3083,28 @@ def dryrun_cells(report) -> None:
     out_dir = ROOT / "chiprun_out" / "dryrun_torch"
     argv = ["--mesh", "both", "--force", "--out", str(out_dir)]
     rows, t0 = [], time.perf_counter()
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, opt in DRYRUN_CELLS:
         try:
-            recs = dryrun.main(["--arch", arch, "--shape", shape] + argv)
+            recs = dryrun.main(["--arch", arch, "--shape", shape] + argv
+                               + (["--opt"] if opt else []))
         except SystemExit:           # its failures are printed above
             raise SmokeFailure(f"dryrun {arch} {shape} failed") from None
         for rec in recs:
-            check(rec["flops_per_step"] and rec["flops_per_step"] > 0,
-                  f"dryrun {arch} {shape}: FLOPs {rec['flops_per_step']}")
+            check(rec["flops_per_step"] and rec["flops_per_step"] > 0
+                  and rec["flops_error"] is None,
+                  f"dryrun {arch} {shape}: FLOPs {rec['flops_per_step']}, "
+                  f"{rec['flops_error']}")
             check(rec["argument_bytes_per_device"] > 0
                   and rec["output_bytes_per_device"] > 0,
                   f"dryrun {arch} {shape}: no bytes")
-            check(rec["collective_bytes"] is None,
-                  "dryrun: collective bytes are not counted, must be null")
-            row = dict(cell=f"{arch} {shape}", mesh=rec["mesh"],
+            # an opt cell's step runs on DTensors: its collectives counted
+            # by kind, each above 0; a plain step's are null, never 0
+            coll = rec["collective_bytes"]
+            check((bool(coll) and all(n > 0 for n in coll.values())) if opt
+                  else coll is None,
+                  f"dryrun {arch} {shape}: collective bytes {coll}")
+            row = dict(cell=f"{arch} {shape}" + (" opt" if opt else ""),
+                       mesh=rec["mesh"], collective_bytes=coll,
                        n_devices=rec["n_devices"],
                        argument_bytes_per_device=rec[
                            "argument_bytes_per_device"],
@@ -3222,6 +3304,806 @@ def mesh_phase(torch, timer, dev, seed, report, ckpt_dir) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     elastic_reshard(torch, timer, dev, report, ckpt_dir)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the expert-parallel MoE and the LM's steps on a DTensor mesh
+# ---------------------------------------------------------------------------
+
+def ep_config(model: int):
+    """qwen3-moe-30b-a3b at full width, phase 10's 2 layers, with the
+    ``opt`` cell's SPMD fields for a (data 1, model ``model``) mesh."""
+    from repro_torch.configs.qwen3_moe_30b_a3b import full_config
+    return dataclasses.replace(
+        full_config(), n_layers=LM_TRAIN_LAYERS, act_shard_axes=("data",),
+        data_axis_size=1, model_axis_size=model, ep_shard_map=True)
+
+
+def ep_one_card(cfg):
+    """The config without its SPMD fields: the one-card path."""
+    return dataclasses.replace(cfg, act_shard_axes=None, ep_shard_map=False)
+
+
+def ep_place(mesh, cfg, params, opt_state, batch):
+    """The state placed as DTensors by the qwen3-moe ``train_4k`` cell's
+    shardings (``runtime.elastic.reshard_state``)."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import shardings_for_cell
+    from repro_torch.runtime import reshard_state
+    cell = registry.build_cell("qwen3-moe-30b-a3b", "train_4k")
+    args = (params, opt_state, batch)
+    cell = cell._replace(cfg=cfg, arg_specs=args)
+    return reshard_state(args, shardings_for_cell(mesh, cell))
+
+
+def ep_place_params(mesh, params):
+    """The parameters alone placed by the LM rules (FSDP over "data")."""
+    from repro_torch import tree as T
+    from repro_torch.distributed.sharding import NamedSharding, lm_param_spec
+    from repro_torch.runtime import reshard_state
+    paths, leaves = T.flatten_with_paths(params)
+    return reshard_state(params, T.unflatten(params, [
+        NamedSharding(mesh, lm_param_spec(p, x.dim(), ("data",)))
+        for p, x in zip(paths, leaves)]))
+
+
+def moe_layer_inputs(torch, params, cfg, tokens, attn_impl):
+    """Each layer's MoE input on the one-card path (the normed residual
+    after attention) and the one-card ``apply_moe`` on it on the kernel
+    route: ([(z, y)], the final hidden state at the last position, each
+    layer's attention input, the normed residual)."""
+    from repro_torch.models.transformer import layers as L
+    from repro_torch.models.transformer import model as M
+    out, attn_in, pos = [], [], M._positions(tokens)
+    x = M.embed(params, cfg, tokens)
+    for lp, window in zip(params["layers"], cfg.layer_windows):
+        a = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        attn_in.append(a)
+        h, _, _ = L.attention_with_kv(lp["attn"], cfg, a, pos, window,
+                                      attn_impl)
+        x = x + h
+        z = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        y, _ = L.apply_moe(lp["moe"], cfg, z, "cuda")
+        out.append((z, y))
+        x = x + y
+    return out, x[:, -1], attn_in
+
+
+def combine_times(torch, mesh, rows: int, d: int) -> dict:
+    """The combine's cross-rank step alone: a float32 [rows, d] partial,
+    ``Partial()`` on ``"model"``, redistributed to a replica, host ms a
+    call over COLLECTIVE_REPS synchronised calls, and its bytes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    part = DTensor.from_local(torch.rand((rows, d), device="cuda"), mesh,
+                              [Replicate(), Partial()], run_check=False)
+    whole = [Replicate(), Replicate()]
+    part.redistribute(mesh, whole).to_local()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(COLLECTIVE_REPS):
+        part.redistribute(mesh, whole).to_local()
+    torch.cuda.synchronize()
+    return dict(combine_ms=(time.perf_counter() - t0) * 1e3
+                / COLLECTIVE_REPS, combine_bytes=rows * d * 4)
+
+
+def ep_train_leg(torch, timer, dev, seed, report) -> dict:
+    """Leg (a): one NCCL rank in this process, ``make_debug_mesh((1, 1))``;
+    the ``train_4k`` ``opt`` step (value and grads, clip, AdamW) on one
+    4,096-token sequence for EP_TRAIN_STEPS steps, held to the one-card
+    path."""
+    import torch.distributed as dist
+
+    from repro_torch import backend
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch.mesh import make_debug_mesh, use_mesh
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models.transformer import layers as L
+    from repro_torch.models.transformer import model as M
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import reshard_state
+    from repro_torch.distributed.sharding import NamedSharding
+
+    cfg = ep_config(1)
+    base = ep_one_card(cfg)
+    params = M.init_params(base, seed + 79, device=dev)
+    stream = token_stream(base.vocab, 1, LM_TRAIN_SEQ, seed=seed + 83,
+                          device=dev)
+    batches = [next(stream) for _ in range(EP_TRAIN_STEPS)]
+
+    # the one-card references: the loss less its 0.01 aux, its gradients
+    # (on the host), each layer's MoE input and output
+    def no_aux(p, b):
+        return (M.loss_fn(p, base, b[0], b[1])
+                - 0.01 * M.forward(p, base, b[0], attn_impl="torch")[1])
+    ref_loss, ref_grads = value_and_grad(no_aux)(params, batches[0])
+    ref_loss = float(ref_loss)
+    ref_grads = T.tree_map(lambda g: g.cpu(), ref_grads)
+    with torch.no_grad():
+        layer_io, _, _ = moe_layer_inputs(torch, params, base,
+                                          batches[0][0], "torch")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    init_s = init_group(torch, "nccl", 0, 1, free_port())
+    try:
+        mesh = make_debug_mesh((1, 1), device_type="cuda")
+        opt_cfg = AdamWConfig(lr=1e-3)
+        state, place_s = timer.wall(lambda: ep_place(
+            mesh, cfg, params, init_opt_state(params, opt_cfg),
+            {"tokens": batches[0][0], "labels": batches[0][1]}))
+        del params
+        dparams, dopt, _ = state
+        dbatches = [tuple(reshard_state(x, NamedSharding(mesh, P("data",
+                                                                 None)))
+                          for x in b) for b in batches]
+        with use_mesh(mesh):
+            moe_same = []
+            for li, (z, y) in enumerate(layer_io):
+                dz = reshard_state(z, NamedSharding(mesh, P("data", None,
+                                                            None)))
+                got, _ = L.apply_moe_ep(dparams["layers"][li]["moe"], cfg,
+                                        dz, "cuda")
+                moe_same.append(bool(torch.equal(got.full_tensor(), y)))
+            del layer_io, dz, got
+            loss, grads = value_and_grad(
+                lambda p, b: M.loss_fn(p, cfg, b[0], b[1]))(dparams,
+                                                            dbatches[0])
+            loss = float(loss.full_tensor())
+            grads = T.tree_map(lambda g: g.full_tensor().cpu(), grads)
+        grads_ok, grad_rows = grad_agreement(torch, grads, ref_grads,
+                                             rtol=LM_TRAIN_GRAD_RTOL,
+                                             atol=0.0)
+        del grads, ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        step = registry._train_step(
+            lambda p, b: M.loss_fn(p, cfg, b[0], b[1]), opt_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launch_counts()
+        secs, losses = [], []
+        with use_mesh(mesh):
+            for b in dbatches:
+                (lval, gnorm, dparams, dopt), s = timer.wall(
+                    lambda: step(dparams, dopt, b))
+                secs.append(s)
+                losses.append(float(lval.full_tensor()))
+        launches = {k: backend.LAUNCHES[k] for k in MESH_EP_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        coll = combine_times(torch, mesh, LM_TRAIN_SEQ, cfg.d_model)
+        del dparams, dopt, state
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k: EP_TRAIN_STEPS * n
+            for k, n in lm_train_launches(cfg.n_layers).items()}
+    out = dict(leg="a", backend="nccl", rank=0, world=1, mesh=[1, 1],
+               layers=cfg.n_layers, seq=LM_TRAIN_SEQ, steps=EP_TRAIN_STEPS,
+               group_init_s=init_s, place_s=place_s,
+               step_ms=[x * 1e3 for x in secs],
+               phase10_step_ms_median=report.get("lm_train", {}).get(
+                   "step_ms_median"),
+               loss=loss, one_card_loss_less_aux=ref_loss,
+               loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+               losses=losses, moe_bit_for_bit=moe_same,
+               grads_ok=grads_ok,
+               worst_grad=max(r["max_abs_diff"] / max(r["max_abs"], 1e-30)
+                              for r in grad_rows),
+               launches=launches, want_launches=want,
+               max_memory_allocated=peak, **coll)
+    say("mesh.ep", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                      for k, v in out.items()})
+    check(all(moe_same), f"mesh.ep (a): a layer's MoE output differs from "
+          f"the one-card apply_moe's: {moe_same}")
+    check(out["loss_rel"] <= LM_TRAIN_LOSS_RTOL,
+          f"mesh.ep (a): loss {loss} vs the one-card {ref_loss} less its "
+          f"aux: {out['loss_rel']:.3g} relative")
+    check(grads_ok, f"mesh.ep (a): a gradient leaf off the one-card "
+          f"gradients by more than {LM_TRAIN_GRAD_RTOL} of its largest")
+    check(all(math.isfinite(x) for x in losses),
+          f"mesh.ep (a): losses {losses}")
+    check(all(launches[k] == n for k, n in want.items()),
+          f"mesh.ep (a): launches {launches}, want {want}")
+    return out
+
+
+def gloo_cuda_all_gather() -> None:
+    """Route the functional all-gather through c10d's
+    ``all_gather_into_tensor``.  On gloo with CUDA tensors, torch 2.11's
+    functional all-gather (``_c10d_functional.all_gather_into_tensor`` and
+    its wait) ends the process with SIGSEGV, in float32 as in bf16, while
+    c10d's call and the functional all-reduce and reduce-scatter work
+    (probed on an NVIDIA H100 80GB HBM3, torch 2.11.0 + cu128): DTensor
+    gathers through the functional call.  Only phase 12's spawned gloo
+    ranks call this; NCCL takes the functional call as it is."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    def all_gather_tensor(self, gather_dim, group, tag=""):
+        if isinstance(group, tuple):
+            group = group[0].get_group(group[1])
+        n = dist.get_world_size(group)
+        x = self.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        if gather_dim:
+            out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+        return out
+
+    funcol.all_gather_tensor = all_gather_tensor
+
+
+def ep_serve_child(rank: int, world: int, port: int, backend_name: str,
+                   work_dir: str) -> None:
+    """One spawned rank of leg (b): the parent's prompts, decode tokens and
+    one-card layer inputs from ``work_dir``; the weights made again from
+    the seed; prefill and the dense-cache decode under a (1, EP_RANKS)
+    mesh, then, on the one-card layer inputs, each layer's attention
+    (:func:`ep_prefill_attention`, :func:`ep_decode_attention`) and MoE
+    (:func:`ep_moe_layers`) against the one-card functions on this rank's
+    copy of the weights, its results back in ``work_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import backend
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_debug_mesh, use_mesh
+    from repro_torch.models.transformer import model as M
+    from repro_torch.runtime import reshard_state
+    torch.cuda.set_device(0)
+    backend.load_kernels()
+    gloo_cuda_all_gather()
+    init_s = init_group(torch, backend_name, rank, world, port)
+    try:
+        inputs = torch.load(f"{work_dir}/inputs.pt")
+        dev, timer = torch.device("cuda"), Timer(torch)
+        cfg = ep_config(world)
+        one = M.init_params(ep_one_card(cfg), inputs["seed"], device=dev)
+        check(ep_checksum(torch, one) == inputs["checksum"],
+              "mesh.ep (b): the regenerated weights differ from the "
+              "parent's")
+        mesh = make_debug_mesh((1, world), device_type="cuda")
+
+        def put(x, spec):
+            return reshard_state(x.to(dev), NamedSharding(mesh, spec))
+
+        dparams = ep_place_params(mesh, one)
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launch_counts()
+        with use_mesh(mesh), torch.no_grad():
+            (logits, cache), prefill_s = timer.wall(
+                lambda: M.prefill(dparams, cfg, put(inputs["tokens"],
+                                                    P("data", None))))
+            got = dict(prefill_logits=logits.full_tensor().cpu())
+            room = {}
+            for k in ("k", "v"):
+                whole = cache[k].full_tensor()
+                pad = whole.new_zeros(whole.shape[:3] + (EP_DECODE_STEPS,)
+                                      + whole.shape[4:])
+                room[k] = put(torch.cat([whole, pad], 3),
+                              P(None, "data", None, "model", None))
+            room["lengths"] = put(cache["lengths"].full_tensor(), P("data"))
+            del cache, whole
+            step_s, decode_logits = [], []
+            for tok in inputs["decode_tokens"]:
+                (logits, room), s = timer.wall(lambda: M.serve_step(
+                    dparams, cfg, room, put(tok, P("data", None))))
+                step_s.append(s)
+                decode_logits.append(logits.full_tensor().cpu())
+            launches = {k: backend.LAUNCHES[k] for k in MESH_EP_KERNELS}
+            peak = torch.cuda.max_memory_allocated()
+            del room
+            got["head"] = M._head(dparams, cfg, put(
+                inputs["x_last"], P("data", None))).full_tensor().cpu()
+            S = inputs["tokens"].shape[1]
+            got["attention"] = dict(
+                prefill=ep_prefill_attention(
+                    torch, one, dparams, cfg, mesh, put,
+                    inputs["attn_inputs"], M._positions(
+                        inputs["tokens"].to(dev))),
+                decode=ep_decode_attention(
+                    torch, one, dparams, cfg, mesh, put,
+                    inputs["decode_x"], inputs["k_final"].to(dev),
+                    inputs["v_final"].to(dev), S))
+            got["moe"] = ep_moe_layers(torch, one, dparams, cfg, mesh, put,
+                                       inputs["layer_inputs"])
+        T_all = inputs["tokens"].numel()
+        got.update(decode_logits=decode_logits, launches=launches,
+                   rank=rank, world=world, backend=dist.get_backend(),
+                   group_init_s=init_s, prefill_s=prefill_s,
+                   decode_ms=[x * 1e3 for x in step_s],
+                   max_memory_allocated=peak,
+                   **combine_times(torch, mesh, T_all, cfg.d_model))
+        torch.save(got, f"{work_dir}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_prefill_attention(torch, one, dparams, cfg, mesh, put, attn_in,
+                         positions, dev="cuda") -> dict:
+    """Each layer's prefill attention on the one-card attention input a,
+    this rank against the one-card functions on the same weights, each
+    piece on the same inputs: the q / k / v projections (this rank's
+    columns) within :func:`dot_bound`; the attention of the one card's
+    projections (``_attend_spmd``: RoPE, the KV heads of this rank's q
+    heads, flash) bit for bit the one card's for this rank's heads, and its
+    k, v; the output projection of the one card's o within
+    :func:`row_parallel_bound`; the layer's output (``attention_with_kv``
+    on a) within that bound plus its o's difference carried through
+    |wo|.  The worst ratio to each bound, and the bit-for-bit verdicts."""
+    from repro_torch.distributed.sharding import P
+    from repro_torch.models.transformer import layers as L
+    base = ep_one_card(cfg)
+    H, Dh, d = base.n_heads, base.head_dim, base.d_model
+    out = dict(proj_over=0.0, core_bit_for_bit=True, kv_bit_for_bit=True,
+               out_over=0.0, layer_over=0.0, o_ulps=0.0)
+    for li, window in enumerate(base.layer_windows):
+        po = one["layers"][li]["attn"]
+        g = L.fsdp_gathered(dparams["layers"][li], cfg)["attn"]
+        a = attn_in[li].to(dev)
+        B, S, _ = a.shape
+        proj = {n: a @ po["w" + n] for n in "qkv"}
+        q1, k1, v1 = L.attention_inputs(po, base, a, positions)
+        o1 = L.flash_attention(q1, k1, v1, scale=Dh ** -0.5, causal=True,
+                               window=window, softcap=base.attn_softcap,
+                               impl="cuda")
+        h1 = L.attention_with_kv(po, base, a, positions, window, "cuda")[0]
+        da = put(a, P("data", None, None))
+        dproj = {n: da @ g["w" + n] for n in "qkv"}
+        for n in "qkv":
+            idx = block_of(dproj[n])
+            got, ref = dproj[n].to_local(), proj[n][idx]
+            A = a.float().abs() @ po["w" + n][:, idx[-1]].float().abs()
+            out["proj_over"] = max(out["proj_over"], over_bound(
+                got, ref, dot_bound(A, got, ref, d)))
+        o2, k2, v2 = L._attend_spmd(
+            *(put(proj[n], P("data", None, "model")) for n in "qkv"), cfg,
+            window, "cuda", mesh, False)
+        out["core_bit_for_bit"] &= bool(torch.equal(o2.to_local(),
+                                                    o1[block_of(o2)]))
+        out["kv_bit_for_bit"] &= bool(torch.equal(k2.full_tensor(), k1)
+                                      and torch.equal(v2.full_tensor(), v1))
+        wo_abs = po["wo"].float().abs()
+        A_o = o1.transpose(1, 2).reshape(B, S, -1).float().abs() @ wo_abs
+        h3 = (put(o1, P("data", "model", None, None)).transpose(1, 2)
+              .reshape(B, S, -1) @ g["wo"]).full_tensor()
+        out["out_over"] = max(out["out_over"], over_bound(
+            h3, h1, row_parallel_bound(A_o, h3, h1, H * Dh)))
+        hr = L.attention_with_kv(g, cfg, da, positions, window,
+                                 "cuda")[0].full_tensor()
+        orr = L._attend_spmd(dproj["q"], dproj["k"], dproj["v"], cfg,
+                             window, "cuda", mesh, False)[0].full_tensor()
+        out["o_ulps"] = max(out["o_ulps"], bf16_ulps(torch, orr, o1))
+        carried = ((orr.float() - o1.float()).abs().transpose(1, 2)
+                   .reshape(B, S, -1) @ wo_abs)
+        out["layer_over"] = max(out["layer_over"], over_bound(
+            hr, h1, row_parallel_bound(A_o, hr, h1, H * Dh)
+            + (1 + 2.0 ** -7) * carried))
+        del proj, q1, k1, v1, o1, h1, dproj, o2, k2, v2, A_o, h3, hr, orr
+        del carried, A
+    return out
+
+
+def ep_decode_attention(torch, one, dparams, cfg, mesh, put, decode_x,
+                        k_final, v_final, S: int, dev="cuda") -> dict:
+    """Each decode step's attention, layer by layer, on the one-card layer
+    input x [B, 1, d] at lengths S + t, over the one-card cache after the
+    last step (positions at and past lengths are written or masked), this
+    rank against serve_step's one-card body on the same weights, each piece
+    on the same inputs: the projections within :func:`dot_bound`; the
+    attention of the one card's projections (``_decode_attention_spmd``:
+    the cache's positions over "model", the write at lengths, the
+    cross-rank LSE merge) within the float32 bound of
+    :func:`decode_core_bound`, the cache after its write bit for bit; the
+    output projection within :func:`row_parallel_bound`; the layer
+    (``_decode_layer_attention_spmd`` on x, then wo) within that bound plus
+    its o's difference carried through |wo|."""
+    from repro_torch.distributed.sharding import P
+    from repro_torch.models.transformer import layers as L
+    from repro_torch.models.transformer import model as M
+    base = ep_one_card(cfg)
+    H, Dh, d = base.n_heads, base.head_dim, base.d_model
+    cache_spec = P(None, "data", None, "model", None)
+    out = dict(proj_over=0.0, core_over=0.0, cache_bit_for_bit=True,
+               out_over=0.0, layer_over=0.0, o_ulps=0.0)
+    for t, xs in enumerate(decode_x):
+        for li, window in enumerate(base.layer_windows):
+            lp, x = one["layers"][li], xs[li].to(dev)
+            B = x.shape[0]
+            lengths = torch.full((B,), S + t, dtype=torch.int32,
+                                 device=dev)
+            q1, k1, v1 = M._decode_qkv(lp, base, x, lengths)
+            kc, vc = k_final[li].clone(), v_final[li].clone()
+            b, pos = torch.arange(B, device=dev), lengths.long()
+            kc[b, :, pos], vc[b, :, pos] = k1, v1
+            o1 = M._dense_decode_attention(base, q1, kc, vc, lengths, window)
+            wo_abs = lp["attn"]["wo"].float().abs()
+            h1 = o1.reshape(B, 1, -1) @ lp["attn"]["wo"]
+            z1 = L.rmsnorm(lp["ln1"], x, base.norm_eps)
+            proj = {n: z1 @ lp["attn"]["w" + n] for n in "qkv"}
+            g = L.fsdp_gathered(dparams["layers"][li], cfg)
+            dx, dlen = put(x, P("data", None, None)), put(lengths, P("data"))
+            zr = L.rmsnorm(g["ln1"], dx, base.norm_eps)
+            for n in "qkv":
+                dp = zr @ g["attn"]["w" + n]
+                idx = block_of(dp)
+                got, ref = dp.to_local(), proj[n][idx]
+                A = z1.float().abs() @ lp["attn"]["w" + n][
+                    :, idx[-1]].float().abs()
+                out["proj_over"] = max(out["proj_over"], over_bound(
+                    got, ref, dot_bound(A, got, ref, d)))
+            kall, vall = put(k_final, cache_spec), put(v_final, cache_spec)
+            o2 = M._decode_attention_spmd(
+                cfg, *(put(proj[n], P("data", None, "model")) for n in "qkv"),
+                kall, vall, li, dlen, window, mesh).full_tensor()
+            out["core_over"] = max(out["core_over"], over_bound(
+                o2, o1, decode_core_bound(torch, base, q1, kc, vc, lengths,
+                                          window) + bf16_pair(o2, o1)))
+            for whole, cl, dt in ((k_final, kc, kall), (v_final, vc, vall)):
+                after = whole.clone()
+                after[li] = cl
+                out["cache_bit_for_bit"] &= bool(torch.equal(
+                    dt.to_local(), after[block_of(dt)]))
+            A_o = o1.reshape(B, 1, -1).float().abs() @ wo_abs
+            h3 = (put(o1, P("data", None, None)).reshape(B, 1, -1)
+                  @ g["attn"]["wo"]).full_tensor()
+            out["out_over"] = max(out["out_over"], over_bound(
+                h3, h1, row_parallel_bound(A_o, h3, h1, H * Dh)))
+            kall, vall = put(k_final, cache_spec), put(v_final, cache_spec)
+            orr = M._decode_layer_attention_spmd(g, cfg, dx, kall, vall, li,
+                                                 dlen, window, mesh)
+            hr = (orr.reshape(B, 1, -1) @ g["attn"]["wo"]).full_tensor()
+            orr = orr.full_tensor()
+            out["o_ulps"] = max(out["o_ulps"], bf16_ulps(torch, orr, o1))
+            carried = (orr.float() - o1.float()).abs().reshape(B, 1, -1) \
+                @ wo_abs
+            out["layer_over"] = max(out["layer_over"], over_bound(
+                hr, h1, row_parallel_bound(A_o, hr, h1, H * Dh)
+                + (1 + 2.0 ** -7) * carried))
+    return out
+
+
+def decode_core_bound(torch, cfg, q, k_cache, v_cache, lengths, window):
+    """|o_a - o_b| in float32 for two evaluations of one decode step's
+    attention o = sum_j p_j v_j over the same bf16 q [B, H, D] and cache
+    [B, KVH, S, D] (the one card's softmax against a rank's block with the
+    LSE merge).  The scores' dot products over D in two orders differ by
+    at most 2 gamma_D sum_d |q_d k_jd| (times the scale), plus a rounding
+    of the max's subtraction (2 u |s|); exp adds 2 ulps (2^-22); the sums
+    of the weights and of the weighted values over S' = S keys, in any
+    split, gamma_S each, and the division u.  Each weight's relative error
+    eps moves o by eps V with V = sum_j p_j |v_j|, twice through the
+    normalisation: 2 (2 eps_s + 2^-21 + 2 gamma_S + u) V for both
+    evaluations together.  Rounding o to bf16 is added by the caller."""
+    B, H, D = q.shape
+    KVH, Sc = k_cache.shape[1], k_cache.shape[2]
+    scale = cfg.head_dim ** -0.5
+    qg = q.float().reshape(B, KVH, H // KVH, D)
+    kf = k_cache.float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, kf) * scale
+    mag = torch.einsum("bhgd,bhsd->bhgs", qg.abs(), kf.abs()) * scale
+    ki = torch.arange(Sc, device=q.device)[None, :]
+    lens = lengths.long()[:, None]
+    mask = ki < lens + 1
+    if window > 0:
+        mask &= ki > lens - window
+    mask = mask[:, None, None, :]
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    zero = torch.zeros((), device=q.device)
+    eps_s = (2 * gamma(D) * torch.where(mask, mag, zero).amax(-1)
+             + 2 * 2.0 ** -24 * torch.where(mask, s.abs(), zero).amax(-1))
+    V = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float().abs())
+    c = 2 * (2 * eps_s + 2.0 ** -21 + 2 * gamma(Sc) + 2.0 ** -24)
+    return (c[..., None] * V).reshape(B, H, D)
+
+
+def ep_moe_layers(torch, one, dparams, cfg, mesh, put, layer_inputs,
+                  dev="cuda") -> dict:
+    """Each layer's ``apply_moe_ep`` on the one-card MoE input z against
+    the one-card ``apply_moe`` on this rank's copy of the weights: the
+    routes (expert ids, kept lanes) bit for bit the one-card plan's; this
+    rank's expert rows (``probe["yb"]``) bit for bit the one card's rows
+    for the same experts; the output within the bound of EP_PARTIAL_ULPS
+    and the two bf16 roundings.  And a bf16 partial: this rank's part of
+    the one card's combine rounded to bf16, summed across the ranks in
+    bf16, against the same bound."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import P
+    from repro_torch.models.transformer import layers as L
+    base = ep_one_card(cfg)
+    E, d = base.n_experts, base.d_model
+    E_per = E // cfg.model_axis_size
+    m = mesh.get_local_rank("model")
+    out = dict(routes_bit_for_bit=True, rows_differ=0, row_values=0,
+               over=0.0, bf16_partial_over=math.inf, eidx=[])
+    for li, z in enumerate(layer_inputs):
+        z, p1 = z.to(dev), one["layers"][li]["moe"]
+        probe = {}
+        y = L.apply_moe_ep(dparams["layers"][li]["moe"], cfg,
+                           put(z, P("data", None, None)), "cuda",
+                           probe)[0].full_tensor().reshape(-1, d)
+        y1 = L.apply_moe(p1, base, z, "cuda")[0].reshape(-1, d)
+        zt = z.reshape(-1, d)
+        gate, eidx, _ = L.route(p1, base, zt.float())
+        plan = L.token_plan(eidx, L.capacity(base, zt.shape[0]), E)
+        out["routes_bit_for_bit"] &= bool(
+            torch.equal(probe["eidx"], eidx)
+            and torch.equal(probe["plan"].slot_of_lane, plan.slot_of_lane))
+        out["eidx"].append(eidx.cpu())
+        yb1 = L._experts(p1, L._Dispatch.apply(zt.contiguous(), plan)
+                         .view(E, plan.C, d)).reshape(E * plan.C, d)
+        rows = slice(m * E_per * plan.C, (m + 1) * E_per * plan.C)
+        out["rows_differ"] += int((probe["yb"] != yb1[rows]).sum())
+        out["row_values"] += probe["yb"].numel()
+        g = gate.reshape(-1).contiguous()
+        lanes = EP_PARTIAL_ULPS * 2.0 ** -24 * L._combine_plain(
+            yb1.float().abs(), g.abs(), plan)
+        out["over"] = max(out["over"], over_bound(
+            y, y1, lanes + bf16_pair(y, y1)))
+        part = L._combine_plain(yb1[rows], g, plan.experts(m * E_per, E_per)
+                                ).to(torch.bfloat16)
+        dist.all_reduce(part)
+        out["bf16_partial_over"] = min(out["bf16_partial_over"], over_bound(
+            part, y1, lanes + bf16_pair(part, y1)))
+        del y, y1, yb1, lanes, part, probe
+    return out
+
+
+def ep_checksum(torch, params) -> list:
+    """Sums of a few leaves that tell one regeneration of the weights from
+    another."""
+    lp = params["layers"][0]
+    return [float(params["embed"].double().sum()),
+            float(lp["moe"]["wi"].double().sum()),
+            float(lp["attn"]["wq"].double().sum())]
+
+
+def ep_serve_leg(torch, timer, dev, seed, report) -> list:
+    """Leg (b): EP_RANKS gloo ranks spawned on the one card, a (data 1,
+    model EP_RANKS) mesh, 64 experts a rank: the ``opt`` prefill of
+    EP_PREFILL prompts and EP_DECODE_STEPS dense-cache decode steps,
+    teacher-forced with the one-card greedy tokens; then each layer's
+    attention and MoE on the one-card layer inputs.  Held to the one-card
+    path computed here first, the ranks to each other."""
+    from repro_torch.models.transformer import layers as L
+    from repro_torch.models.transformer import model as M
+    base = ep_one_card(ep_config(EP_RANKS))
+    params = M.init_params(base, seed + 89, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 97)
+    B, S = EP_PREFILL
+    tokens = torch.randint(0, base.vocab, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    with torch.no_grad():
+        logits, cache = M.prefill(params, base, tokens)
+        ref_prefill = logits.float().cpu()
+        room = M.init_cache(base, B, S + EP_DECODE_STEPS, device=dev)
+        room["k"][:, :, :, :S] = cache["k"]
+        room["v"][:, :, :, :S] = cache["v"]
+        room["lengths"] = cache["lengths"]
+        del cache
+        dec_tokens, ref_decode, decode_x = [], [], []
+        for _ in range(EP_DECODE_STEPS):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            dec_tokens.append(tok.cpu())
+            logits, xs = decode_layer_inputs(torch, params, base, room, tok)
+            decode_x.append([x.cpu() for x in xs])
+            step_logits, room = M.serve_step(params, base, room, tok)
+            check(torch.equal(step_logits, logits), "mesh.ep (b): the "
+                  "one-card decode's layer inputs come from another step "
+                  "than serve_step's")
+            ref_decode.append(logits.float().cpu())
+        layer_io, x_last, attn_in = moe_layer_inputs(torch, params, base,
+                                                     tokens, "cuda")
+        head_ref = M._head(params, base, x_last).cpu()
+        xn = L.rmsnorm(params["ln_f"], x_last, base.norm_eps).float()
+        head_abs = (base.d_model * 2.0 ** -24
+                    * (xn.abs() @ params["lm_head"].float().abs())).cpu()
+        del xn
+        inputs = dict(seed=seed + 89, checksum=ep_checksum(torch, params),
+                      tokens=tokens.cpu(), decode_tokens=dec_tokens,
+                      layer_inputs=[z.cpu() for z, _ in layer_io],
+                      attn_inputs=[a.cpu() for a in attn_in],
+                      decode_x=decode_x, k_final=room["k"].cpu(),
+                      v_final=room["v"].cpu(), x_last=x_last.cpu())
+    del params, layer_io, attn_in, logits, room
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as d:
+        torch.save(inputs, f"{d}/inputs.pt")
+        spawn_s = spawn_ranks(torch, "gloo", d, child=ep_serve_child,
+                              nprocs=EP_RANKS, join_s=EP_JOIN_S,
+                              what="mesh.ep (b)")
+        outs = [torch.load(f"{d}/rank{r}.pt") for r in range(EP_RANKS)]
+    for r, got in enumerate(outs):
+        tag = f"mesh.ep (b) rank {r}"
+        if r:
+            check(torch.equal(got["prefill_logits"],
+                              outs[0]["prefill_logits"])
+                  and all(torch.equal(a, b) for a, b in zip(
+                      got["decode_logits"], outs[0]["decode_logits"])),
+                  f"{tag}: logits differ from rank 0's")
+        rel = [rel_l2(torch, got["prefill_logits"], ref_prefill)] + [
+            rel_l2(torch, a, b) for a, b in zip(got["decode_logits"],
+                                                ref_decode)]
+        a, b = got["head"], head_ref
+        head_over = float(((a - b).abs() / (
+            head_abs + 2.0 ** -8 * torch.maximum(a.abs(), b.abs()))
+            .clamp(min=1e-30)).max())
+        moe, att = got["moe"], got["attention"]
+        want = {"block_gather": 2 * base.n_layers,
+                "segment_sum": base.n_layers,
+                "flash_attention_wgmma": base.n_layers}
+        row = dict(leg="b", backend=got["backend"], rank=r,
+                   world=got["world"], mesh=[1, EP_RANKS],
+                   experts_per_rank=base.n_experts // EP_RANKS,
+                   prompts=B, prompt_tokens=S, decode_steps=EP_DECODE_STEPS,
+                   group_init_s=got["group_init_s"],
+                   prefill_s=got["prefill_s"],
+                   decode_ms_median=sorted(got["decode_ms"])[
+                       len(got["decode_ms"]) // 2],
+                   decode_ms=got["decode_ms"],
+                   logits_rel_l2_max=max(rel), prefill_logits_rel_l2=rel[0],
+                   decode_logits_rel_l2=rel[1:], head_worst_over_bound=head_over,
+                   routes_bit_for_bit=moe["routes_bit_for_bit"],
+                   moe_worst_over_bound=moe["over"],
+                   moe_bf16_partial_over_bound=moe["bf16_partial_over"],
+                   expert_rows_differ=moe["rows_differ"],
+                   expert_row_values=moe["row_values"],
+                   prefill_attention=att["prefill"],
+                   decode_attention=att["decode"],
+                   combine_ms=got["combine_ms"],
+                   combine_bytes=got["combine_bytes"],
+                   launches=got["launches"], want_launches=want,
+                   max_memory_allocated=got["max_memory_allocated"],
+                   spawn_s=spawn_s)
+        say("mesh.ep", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                          for k, v in row.items() if k != "decode_ms"},
+            note="the code path on one card, not a multi-card speed")
+        pa, da = att["prefill"], att["decode"]
+        check(moe["routes_bit_for_bit"] and all(
+            torch.equal(x, y) for x, y in zip(moe["eidx"],
+                                              outs[0]["moe"]["eidx"])),
+              f"{tag}: routes differ from the one-card plan's")
+        check(moe["rows_differ"] == 0, f"{tag}: {moe['rows_differ']} "
+              f"values of this rank's expert rows differ from the one "
+              f"card's")
+        check(moe["over"] <= 1.0, f"{tag}: an MoE output off the one-card "
+              f"one by {moe['over']:.3g} x its bound")
+        check(moe["bf16_partial_over"] > 1.0, f"{tag}: a bf16 partial "
+              f"summed across ranks stays within the MoE bound "
+              f"({moe['bf16_partial_over']:.3g} x): it guards nothing")
+        for what, v in (("prefill projections", pa["proj_over"]),
+                        ("prefill output projection", pa["out_over"]),
+                        ("prefill attention", pa["layer_over"]),
+                        ("decode projections", da["proj_over"]),
+                        ("decode attention on the one card's q, k, v",
+                         da["core_over"]),
+                        ("decode output projection", da["out_over"]),
+                        ("decode attention", da["layer_over"])):
+            check(v <= 1.0, f"{tag}: {what} off the one card's by {v:.3g} "
+                  f"x its bound")
+        check(pa["core_bit_for_bit"] and pa["kv_bit_for_bit"],
+              f"{tag}: prefill attention on the one card's q, k, v differs "
+              f"from the one card's (o {pa['core_bit_for_bit']}, k and v "
+              f"{pa['kv_bit_for_bit']})")
+        check(da["cache_bit_for_bit"], f"{tag}: the decode's cache write "
+              f"differs from the one card's")
+        check(head_over <= 1.0, f"{tag}: the head on the one-card final "
+              f"state off by {head_over:.3g} x its bound")
+        check(max(rel) <= EP_LOGIT_REL_L2_SANE, f"{tag}: logits off the "
+              f"one-card path's by {max(rel):.4g} relative L2")
+        check(all(got["launches"][k] == n for k, n in want.items()),
+              f"{tag}: launches {got['launches']}, want {want}")
+        rows.append(row)
+    return rows
+
+
+def decode_layer_inputs(torch, params, cfg, cache, tokens):
+    """``model.serve_step``'s one-card body over the dense cache, with each
+    layer's input kept: (logits, [x [B, 1, d] a layer]).  The cache is not
+    modified."""
+    from repro_torch.models.transformer import model as M
+    lengths = cache["lengths"]
+    k_all, v_all = cache["k"].clone(), cache["v"].clone()
+    b_idx = torch.arange(tokens.shape[0], device=tokens.device)
+    pos = lengths.long()
+    x, xs = M.embed(params, cfg, tokens), []
+    for li, (lp, window) in enumerate(zip(params["layers"],
+                                          cfg.layer_windows)):
+        xs.append(x)
+        q, k, v = M._decode_qkv(lp, cfg, x, lengths)
+        k_all[li, b_idx, :, pos] = k
+        v_all[li, b_idx, :, pos] = v
+        o = M._dense_decode_attention(cfg, q, k_all[li], v_all[li], lengths,
+                                      window)
+        x = M._decode_out(lp, cfg, x, o, "torch")
+    return M._head(params, cfg, x[:, 0]), xs
+
+
+def rel_l2(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+
+
+def gamma(n: int) -> float:
+    """Higham's gamma_n for float32: a sum of n terms in any order lies
+    within gamma_n times the sum of their magnitudes of the exact sum."""
+    nu = n * 2.0 ** -24
+    return nu / (1 - nu)
+
+
+def bf16_pair(a, b):
+    """The most that rounding two float32 values to bf16 adds to |a - b|,
+    from the rounded values a, b."""
+    return BF16_HALF_ULP * (a.float().abs() + b.float().abs())
+
+
+def dot_bound(A, a, b, n: int):
+    """|a - b| for bf16 roundings of one float32 dot product of n exact
+    bf16 products summed in two orders (GEMMs of other shapes): 2 gamma_n
+    A, A the sum of the products' magnitudes, and the two roundings."""
+    return 2 * gamma(n) * A + bf16_pair(a, b)
+
+
+def row_parallel_bound(A, a, b, n: int):
+    """:func:`dot_bound` where a is a row-parallel product: each rank's
+    partial over its block of the n terms is rounded to bf16 before the
+    cross-rank sum (DTensor's Partial() of a bf16 product), which adds 2^-8
+    of each partial's magnitude, BF16_HALF_ULP A at most together."""
+    return dot_bound(A, a, b, n) + BF16_HALF_ULP * A
+
+
+def over_bound(a, b, bound) -> float:
+    """The largest |a - b| / bound (0 where a and b agree)."""
+    d = (a.float() - b.float()).abs()
+    return float((d / bound.clamp(min=1e-30)).max())
+
+
+def bf16_ulps(torch, a, b) -> float:
+    """The largest |a - b| in bf16 ulps of the larger magnitude."""
+    m = torch.maximum(a.float().abs(), b.float().abs())
+    _, e = torch.frexp(m)
+    return float(((a.float() - b.float()).abs()
+                  / torch.ldexp(torch.ones_like(m), e - 8)).max())
+
+
+def block_of(x):
+    """The index of this rank's block of the Shard / Replicate DTensor x in
+    the whole tensor."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return tuple(slice(o, o + n) for o, n in zip(off, shape))
+
+
+def ep_mesh_phase(torch, timer, dev, seed, report) -> None:
+    """Phase 12: the expert-parallel MoE and the LM's ``opt`` steps on a
+    ``("data", "model")`` DTensor mesh, leg (a) one NCCL rank in this
+    process (training), leg (b) EP_RANKS gloo ranks on the one card
+    (prefill and decode)."""
+    import torch.distributed as dist
+    check(not dist.is_initialized(), "mesh.ep: a process group is up "
+          "before the phase")
+    t0 = time.perf_counter()
+    train = ep_train_leg(torch, timer, dev, seed, report)
+    train_s = time.perf_counter() - t0
+    serve = ep_serve_leg(torch, timer, dev, seed, report)
+    report["mesh_ep"] = dict(train=train, serve=serve, train_seconds=train_s,
+                             seconds=time.perf_counter() - t0)
+    say("mesh.ep_phase", train_s=f"{train_s:.4g}",
+        seconds=f"{report['mesh_ep']['seconds']:.4g}")
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
@@ -4108,23 +4990,27 @@ def shard_mesh_child(rank: int, world: int, port: int, backend_name: str,
         dist.destroy_process_group()
 
 
-def spawn_ranks(torch, backend_name: str, work_dir: str) -> float:
-    """Leg (b): SHARD_MESH_RANKS ranks spawned on the one card, joined
-    within SHARD_MESH_JOIN_S; a rank that fails or outlives the limit
-    fails the phase (every rank is stopped).  Returns the wall seconds."""
+def spawn_ranks(torch, backend_name: str, work_dir: str,
+                child=None, nprocs: int = SHARD_MESH_RANKS,
+                join_s: float = SHARD_MESH_JOIN_S,
+                what: str = "shard mesh") -> float:
+    """``nprocs`` ranks of ``child`` (phase 5e's leg (b) by default)
+    spawned on the one card, joined within ``join_s``; a rank that fails
+    or outlives the limit fails the phase (every rank is stopped).
+    Returns the wall seconds."""
     import torch.multiprocessing as mp
     t0 = time.perf_counter()
     ctx = mp.start_processes(
-        shard_mesh_child, args=(SHARD_MESH_RANKS, free_port(), backend_name,
-                                work_dir),
-        nprocs=SHARD_MESH_RANKS, join=False, start_method="spawn")
+        child or shard_mesh_child,
+        args=(nprocs, free_port(), backend_name, work_dir),
+        nprocs=nprocs, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
-            check(time.perf_counter() - t0 < SHARD_MESH_JOIN_S,
-                  f"shard mesh: the spawned ranks did not finish within "
-                  f"{SHARD_MESH_JOIN_S} s")
+            check(time.perf_counter() - t0 < join_s,
+                  f"{what}: the spawned ranks did not finish within "
+                  f"{join_s} s")
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
-        raise SmokeFailure(f"shard mesh: a spawned rank failed: {e}")
+        raise SmokeFailure(f"{what}: a spawned rank failed: {e}")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -4738,6 +5624,11 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
         report["mesh_seconds"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()                       # phase 11's state goes before 12's
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ep_mesh_phase(torch, timer, dev, seed, report)
+    report["mesh_ep_seconds"] = time.perf_counter() - t0
 
 
 def model_train_entries(report: dict, name: str) -> dict:
@@ -4790,6 +5681,16 @@ def moe_serve_entry(report: dict, name: str) -> dict:
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"])
+
+
+def mesh_ep_launches(report: dict, name: str) -> dict:
+    """Kernel ``name``'s launches on phase 12's main paths: leg (a)'s
+    training steps, each leg-(b) rank's prefill and decode."""
+    ep = report["mesh_ep"]
+    out = {"nccl rank 0 train": ep["train"]["launches"][name]}
+    out.update({f"gloo rank {r['rank']} serve": r["launches"][name]
+                for r in ep["serve"]})
+    return out
 
 
 def kernels_line(report: dict) -> dict:
@@ -4889,6 +5790,11 @@ def kernels_line(report: dict) -> dict:
         if table is meta:            # phase 10's MoE dispatch and combine
             for row in out[-2:]:
                 row["lm_train"] = lm_train_entry(report, row["name"])
+        if table in (meta, lm_meta):     # phase 12, each leg's ranks
+            for row in out[-2:]:
+                if row["name"] in MESH_EP_KERNELS:
+                    row["mesh_ep_launches"] = mesh_ep_launches(
+                        report, row["name"])
         if table in (meta, lm_meta):     # phase 6b, MoE serving
             for row in out[-2:]:
                 row["moe_serve"] = moe_serve_entry(report, row["name"])
@@ -4985,6 +5891,7 @@ def main(argv=None) -> int:
         lm_train_max_memory_allocated=report["lm_train"][
             "max_memory_allocated"],
         mesh_seconds=f"{report['mesh_seconds']:.1f}",
+        mesh_ep_seconds=f"{report['mesh_ep_seconds']:.1f}",
         file=f"chiprun_out/{name}")
     print(json.dumps(kernels_line(report)))
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,15 @@ allocated, so a 1 T-parameter cell builds on the host.
 
 ``opt="pod"`` / ``"multipod"`` builds the JAX registry's beyond-paper
 variant for that mesh.  An LM's config gains the SPMD fields JAX sets
-(``act_shard_axes``, ``data_axis_size``, ``ep_shard_map``); its step
-refuses them with NotImplementedError (``layers.check_single_card``:
-activation constraints and the expert-parallel dispatch run across cards,
-ROADMAP.md queue 1 item 8.4), never running the one-card path in their
-place.  Equiformer-v2's config gains ``truncate_rotation`` and
-``edge_bf16``, which the port runs.  The cells' shardings are
-:mod:`repro_torch.distributed.sharding`'s.
+(``act_shard_axes``, ``data_axis_size``, ``ep_shard_map``); its step runs
+on DTensors under ``launch.mesh.use_mesh`` of the production mesh those
+fields name (its arguments placed by the cell's shardings, as
+``launch/step_cost.py`` does on the fake group): the activation
+constraints and the expert-parallel MoE of ``models/transformer/
+layers.py``.  Without that mesh the step raises ValueError, never running
+the one-card path in its place.  Equiformer-v2's config gains
+``truncate_rotation`` and ``edge_bf16``, which the port runs.  The cells'
+shardings are :mod:`repro_torch.distributed.sharding`'s.
 """
 from __future__ import annotations
 

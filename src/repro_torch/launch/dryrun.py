@@ -12,13 +12,16 @@ tensors (:mod:`repro_torch.launch.step_cost`).  Per cell it writes
 
   * ``n_devices`` and the mesh's shape,
   * argument and output bytes a device (rank 0's shards),
-  * FLOPs a step (the whole global batch),
+  * FLOPs a step (the whole global batch; rank 0's for an LM ``opt``
+    cell, whose step runs on DTensors under the mesh),
+  * collective bytes by kind (the LM ``opt`` cells),
   * ``argument_bytes_fit_h100_80gb``: argument bytes a device <= 80e9, a
     computed number, not a measurement,
 
 into ``<out>/<arch>__<shape>__<mesh>[__opt].json`` (cells with a JSON are
-skipped unless ``--force``).  Collective bytes and temporary memory are
-``null`` with the reason (``step_cost.NOT_COUNTED``).  The fake group is
+skipped unless ``--force``).  Temporary memory, and the collective bytes
+of a step on plain tensors, are ``null`` with the reason
+(``step_cost.NOT_COUNTED``).  The fake group is
 destroyed at the end.  A process holds one default process group, so this
 refuses to run beside another (NCCL, gloo).
 
@@ -80,7 +83,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: Path,
     key = (arch, shape, cb.opt)
     cache = flops_cache if flops_cache is not None else {}
     if key not in cache:
-        cache[key] = step_cost.step_flops(cb)
+        cache[key] = step_cost.step_flops(
+            cb, mesh if step_cost.spmd_cell(cb) else None)
     cost = step_cost.cell_cost(cb, mesh, cache[key])
     record = {
         "arch": arch, "shape": shape, "mesh": mesh_name, "opt": bool(opt),

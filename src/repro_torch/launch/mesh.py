@@ -11,15 +11,24 @@ or the fake process group on the host (``launch/dryrun.py``), where a
 512-rank world costs nothing and collectives do nothing.  The card is the
 default device type; the tests pass ``device_type="cpu"``.  Functions, not
 module constants: importing this module touches no process group.
+
+:func:`use_mesh` makes a mesh the ambient one, as ``repro.compat.set_mesh``
+does in the JAX package, and :func:`spmd_mesh` gives an LM config the
+ambient mesh its SPMD fields ask for.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("mesh",
+                                                         default=None)
 
 POD_SHAPE, POD_AXES = (16, 16), ("data", "model")
 MULTI_POD_SHAPE, MULTI_POD_AXES = (2, 16, 16), ("pod", "data", "model")
@@ -63,3 +72,56 @@ def batch_axes(mesh) -> tuple:
 def mesh_axis_sizes(mesh) -> dict:
     """{axis name: size} of a mesh."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the ambient mesh of the calls inside the block, as
+    ``repro.compat.set_mesh`` does: the LM's activation constraints and
+    expert-parallel MoE read it (:func:`spmd_mesh`)."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh` block, or None."""
+    return _AMBIENT.get()
+
+
+def spmd_mesh(cfg) -> Optional[object]:
+    """The ambient mesh an LM config's SPMD fields ask for, None for a
+    config without them (the one-card path).
+
+    ``act_shard_axes`` names the mesh's batch axes: the mesh must hold them
+    and ``"model"``, the product of their sizes must be ``data_axis_size``
+    and the size of ``"model"`` ``model_axis_size``.  ``ep_shard_map``
+    runs the MoE's dispatch inside those axes, so it needs them named.
+    Anything missing or of another size raises ValueError naming it."""
+    if cfg.act_shard_axes is None:
+        if cfg.ep_shard_map:
+            raise ValueError(
+                f"{cfg.name}: ep_shard_map dispatches the MoE inside the "
+                f"mesh's batch axes, and act_shard_axes names none")
+        return None
+    mesh = current_mesh()
+    ba = tuple(cfg.act_shard_axes)
+    if mesh is None:
+        raise ValueError(
+            f"{cfg.name}: act_shard_axes={ba} shards activations over a "
+            f"mesh, and none is ambient; call under launch.mesh.use_mesh")
+    sizes = mesh_axis_sizes(mesh)
+    missing = [a for a in ba + ("model",) if a not in sizes]
+    if missing:
+        raise ValueError(f"{cfg.name}: the ambient mesh {sizes} has no "
+                         f"axis {missing}")
+    data = math.prod(sizes[a] for a in ba)
+    if data != cfg.data_axis_size or sizes["model"] != cfg.model_axis_size:
+        raise ValueError(
+            f"{cfg.name}: the config asks for data_axis_size="
+            f"{cfg.data_axis_size} over {ba} and model_axis_size="
+            f"{cfg.model_axis_size}; the ambient mesh {sizes} has "
+            f"{data} and {sizes['model']}")
+    return mesh

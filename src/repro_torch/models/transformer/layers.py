@@ -16,16 +16,24 @@ once a layer call, as the GNNs' edges run over ``models/plan.py``.
 
 The config carries the JAX package's SPMD fields (``act_shard_axes``,
 ``model_axis_size``, ``data_axis_size``, ``ep_shard_map``), which the
-registry's ``opt`` cells set.  Their activation constraints and
-``apply_moe_ep`` need the shard axis across cards (ROADMAP.md, queue 1
-item 8.4), so every entry point refuses a config that sets them
-(:func:`check_single_card`) rather than run the one-card path in their
-place.
+registry's ``opt`` cells set.  A config that sets them runs on DTensors
+under the ambient mesh of ``launch.mesh.use_mesh``, which must name those
+axes at those sizes (``launch.mesh.spmd_mesh`` raises ValueError
+otherwise): DTensor plays GSPMD's part.  :func:`_wsc` is
+``with_sharding_constraint`` (a redistribute to the spec's placements) at
+the JAX package's points, head-parallel or context-parallel attention on
+the training path; every kernel call and every op that needs its rank's
+block (RoPE's positions, the KV heads of a rank's q heads) runs inside
+``local_map``.  :func:`apply_moe_ep` is the expert-parallel MoE: each data
+shard routes its own tokens into its own buckets, the experts' products
+run with the experts over ``"model"``, and each (data, model) rank's
+combine leaves a partial sum over ``"model"`` that a redistribute adds.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,8 +42,10 @@ from torch import nn
 from repro_torch.backend import resolve_impl
 from repro_torch.kernels.block_gather.ops import gather_rows
 from repro_torch.kernels.flash_attention import attention as flash_attention
+from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.segment_matmul.ops import (csr_items_per_cta,
                                                     segment_sum_csr)
+from repro_torch.launch.mesh import spmd_mesh
 
 Params = Dict[str, Any]
 
@@ -184,9 +194,14 @@ def attention_inputs(p: Params, cfg: LMConfig, x: torch.Tensor,
 
 def attention_with_kv(p: Params, cfg: LMConfig, x: torch.Tensor,
                       positions: torch.Tensor, window: int,
-                      impl: str = "cuda"):
+                      impl: str = "cuda", constrain: bool = False):
     """Causal self-attention over [B, S, d]: (out [B, S, d], k, v) with k
-    after RoPE — the prefill cache entries [B, KVH, S, D]."""
+    after RoPE — the prefill cache entries [B, KVH, S, D].  Under a mesh
+    (:func:`_attention_spmd`) ``constrain`` pins the activations as the
+    JAX package's ``apply_attention`` does; its prefill pins none."""
+    mesh = spmd_mesh(cfg)
+    if mesh is not None:
+        return _attention_spmd(p, cfg, x, window, impl, mesh, constrain)
     B, S, _ = x.shape
     q, k, v = attention_inputs(p, cfg, x, positions)
     o = flash_attention(q, k, v, scale=cfg.head_dim ** -0.5, causal=True,
@@ -198,12 +213,178 @@ def apply_attention(p: Params, cfg: LMConfig, x: torch.Tensor,
                     positions: torch.Tensor, window: int,
                     impl: str = "cuda") -> torch.Tensor:
     """Causal self-attention over [B, S, d] (train / prefill path)."""
-    return attention_with_kv(p, cfg, x, positions, window, impl)[0]
+    return attention_with_kv(p, cfg, x, positions, window, impl,
+                             constrain=True)[0]
+
+
+# ---------------------------------------------------------------------------
+# SPMD: DTensors under the ambient mesh, the activation constraints
+# ---------------------------------------------------------------------------
+
+def _placements(mesh, spec) -> tuple:
+    from repro_torch.distributed.sharding import placements
+    return placements(mesh, spec)
+
+
+def _partial_over(mesh, spec, axes) -> tuple:
+    """``spec``'s placements with ``Partial()`` on the mesh dims of
+    ``axes``: the gradient placements of a ``local_map`` input whose local
+    gradient holds only its rank's share (summed over those axes)."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if name in axes else pl for name, pl in
+                 zip(mesh.mesh_dim_names, _placements(mesh, spec)))
+
+
+def _wsc(x, spec):
+    """``with_sharding_constraint``: the DTensor ``x`` redistributed to
+    ``spec``'s placements on its mesh."""
+    return x.redistribute(x.device_mesh, _placements(x.device_mesh, spec))
+
+
+def fsdp_gathered(tree, cfg: LMConfig):
+    """The DTensor weights of ``tree`` with their FSDP dims gathered
+    (replicas over the batch axes, their ``"model"`` blocks kept), as FSDP
+    runs a layer: its products then split by the activations' rows, and
+    the gradients reduce-scatter back.  GSPMD gathers the same way."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch import tree as T
+    batch = set(cfg.act_shard_axes)
+
+    def one(w):
+        if not isinstance(w, DTensor):
+            return w
+        names = w.device_mesh.mesh_dim_names
+        return w.redistribute(w.device_mesh, [
+            Replicate() if n in batch else p
+            for n, p in zip(names, w.placements)])
+    return T.tree_map(one, tree)
+
+
+def _batch_axes(cfg: LMConfig, rows: int):
+    """The axes ``rows`` batch rows lie over: the config's batch axes, or
+    none when the rows do not split over them (one long-context row)."""
+    if rows % cfg.data_axis_size:
+        return None
+    return tuple(cfg.act_shard_axes)
+
+
+def _heads(y, n: int, dh: int, spec):
+    """y [B, S, n * dh] redistributed to ``spec`` (each rank's columns
+    whole heads, or every column) and split into heads: [B, n, S, dh]."""
+    B, S, _ = y.shape
+    return _wsc(y, spec).view(B, S, n, dh).transpose(1, 2)
+
+
+def _kv_heads_of(cfg: LMConfig, h0: int, n: int):
+    """The KV heads q heads ``h0 .. h0 + n - 1`` read: a slice when the
+    grouping maps them onto it (each of its heads serving ``n / width``
+    consecutive q heads), else one KV head id per q head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    ids = [(h0 + i) // G for i in range(n)]
+    lo, width = ids[0], ids[-1] + 1 - ids[0]
+    if n % width == 0 and ids == [lo + i // (n // width) for i in range(n)]:
+        return slice(lo, lo + width)
+    return ids
+
+
+def _attend_local(q, k, v, *, cfg: LMConfig, window: int, impl: str, mesh):
+    """One rank's causal attention.  q [B, Hl, Sq, D] is a block of the
+    heads, or of the positions (context-parallel), or all of q; k, v [B,
+    KVH, S, D] hold every head and position.  RoPE at the block's
+    positions, then the KV heads the block's q heads read.  A block of
+    positions runs the plain version (the flash kernels take whole
+    sequences).  Returns (o, k after RoPE, v)."""
+    m = mesh.get_local_rank("model")
+    B, Hl, Sq, D = q.shape
+    S = k.shape[2]
+    q_start = m * Sq if Sq < S else 0
+    h0 = m * Hl if Hl < cfg.n_heads else 0
+    pos = torch.arange(S, dtype=torch.int32, device=q.device)[None, None]
+    q = rope(q, pos[..., q_start:q_start + Sq], cfg.rope_theta)
+    kr = rope(k, pos, cfg.rope_theta)
+    heads = _kv_heads_of(cfg, h0, Hl)
+    kw = dict(scale=cfg.head_dim ** -0.5, window=window,
+              softcap=cfg.attn_softcap)
+    if Sq < S:
+        if resolve_impl(impl) != "torch":
+            raise ValueError(
+                f"{cfg.name}: context-parallel attention ({cfg.n_heads} "
+                f"heads over model_axis_size={cfg.model_axis_size}) runs "
+                f"the plain version; the flash kernels take whole "
+                f"sequences: pass impl='torch'")
+        o = attention_ref(q, kr[:, heads], v[:, heads], q_start=q_start,
+                          **kw)
+    else:
+        o = flash_attention(q, kr[:, heads], v[:, heads], causal=True,
+                            impl=impl, **kw)
+    return o, kr, v
+
+
+def _attention_spmd(p: Params, cfg: LMConfig, x, window: int, impl: str,
+                    mesh, constrain: bool):
+    """Attention over DTensors: (out [B, S, d], k, v) with k after RoPE.
+    q's heads lie over ``"model"`` when they split evenly, else every
+    rank holds them all; k and v are whole on every rank.  With
+    ``constrain`` (the training path, the JAX package's ``apply_attention``)
+    q and o are pinned head-parallel, or context-parallel (q's positions
+    over ``"model"``) when the heads do not split, and the output to the
+    batch axes.  The attention itself runs in ``local_map``: a rank's
+    gradient of k and v is its share, summed over ``"model"``."""
+    B, S, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    o, k, v = _attend_spmd(q, k, v, cfg, window, impl, mesh, constrain)
+    ba = _batch_axes(cfg, B)
+    wo = p["wo"]
+    if cfg.n_heads % cfg.model_axis_size:
+        # wo's rows are q's heads, which do not split over "model": the
+        # product takes o and wo whole, and o's gradient comes back whole
+        # per head (a context-parallel o is gathered along its positions)
+        o, wo = _wsc(o, (ba, None, None, None)), _wsc(wo, (None, None))
+    out = o.transpose(1, 2).reshape(B, S, -1) @ wo
+    if constrain:
+        out = _wsc(out, (ba, None, None))
+    return out, k, v
+
+
+def _attend_spmd(q, k, v, cfg: LMConfig, window: int, impl: str, mesh,
+                 constrain: bool):
+    """The projections q [B, S, H * D], k, v [B, S, KVH * D] (DTensors)
+    split into heads and attended: (o [B, H, S, D], k after RoPE, v [B,
+    KVH, S, D]), placed as :func:`_attention_spmd` says."""
+    from torch.distributed.tensor.experimental import local_map
+    B = q.shape[0]
+    ba = _batch_axes(cfg, B)
+    hp = cfg.n_heads % cfg.model_axis_size == 0
+    dh = cfg.head_dim
+    q = _heads(q, cfg.n_heads, dh, (ba, None, "model" if hp else None))
+    k = _heads(k, cfg.n_kv_heads, dh, (ba, None, None))
+    v = _heads(v, cfg.n_kv_heads, dh, (ba, None, None))
+    if constrain:
+        q = _wsc(q, (ba, "model", None, None) if hp
+                 else (ba, None, "model", None))
+    kv = _placements(mesh, (ba, None, None, None))
+    kv_grad = _partial_over(mesh, (ba, None, None, None), ("model",))
+    o, k, v = local_map(
+        functools.partial(_attend_local, cfg=cfg, window=window, impl=impl,
+                          mesh=mesh),
+        out_placements=(q.placements, kv, kv),
+        in_placements=(q.placements, kv, kv),
+        in_grad_placements=(q.placements, kv_grad, kv_grad),
+        device_mesh=mesh)(q, k, v)
+    return o, k, v
 
 
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU; the [.., d_ff] intermediates are updated in place (they are
-    this function's own), which halves their peak memory at prefill."""
+    this function's own), which halves their peak memory at prefill.  A
+    DTensor's placement may change from op to op (a sum left partial over
+    ``"model"``), which an in-place op cannot follow: DTensors take the
+    out-of-place ops."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
     h = F.silu(x @ p["wg"], inplace=True)
     return h.mul_(x @ p["wi"]) @ p["wo"]
 
@@ -211,17 +392,6 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # MoE: top-k routing into capacity buckets
 # ---------------------------------------------------------------------------
-
-def check_single_card(cfg: LMConfig) -> None:
-    """Refuse a config whose SPMD fields ask for activation constraints or
-    the expert-parallel dispatch: the port runs neither yet."""
-    if cfg.act_shard_axes is not None or cfg.ep_shard_map:
-        raise NotImplementedError(
-            f"{cfg.name}: act_shard_axes={cfg.act_shard_axes!r} / "
-            f"ep_shard_map={cfg.ep_shard_map} shard activations and the MoE "
-            f"dispatch across cards (apply_moe_ep), which the port does not "
-            f"run yet; see ROADMAP.md, queue 1 item 8.4")
-
 
 def capacity(cfg: LMConfig, T: int) -> int:
     """Slots an expert per call of T tokens (GShard: overflow drops, the
@@ -297,6 +467,24 @@ class TokenPlan:
         token on ``segment_sum``."""
         return segment_sum_csr(lanes, self.row_ptr,
                                self.partition(lanes.shape[1]))
+
+    def experts(self, e0: int, n: int) -> "TokenPlan":
+        """The plan as a rank holding experts ``e0 .. e0 + n - 1`` sees it:
+        their slots numbered from 0, every other lane dropped (it reads
+        the zero row ``n * C``).  The whole plan when that is all of
+        them."""
+        if e0 == 0 and n == self.E:
+            return self
+        lo, hi, C = e0 * self.C, (e0 + n) * self.C, self.C
+        sol = self.slot_of_lane
+        keep = self.keep & (self.slot >= lo) & (self.slot < hi)
+        return TokenPlan(
+            T=self.T, K=self.K, E=n, C=C, order=self.order, keep=keep,
+            slot=torch.where(keep, self.slot - lo, n * C),
+            slot_of_lane=torch.where((sol >= lo) & (sol < hi), sol - lo,
+                                     n * C),
+            tok_of_slot=self.tok_of_slot[lo:hi].contiguous(),
+            row_ptr=self.row_ptr)
 
 
 def token_plan(eidx: torch.Tensor, C: int, E: int) -> TokenPlan:
@@ -391,8 +579,143 @@ def _experts(p: Params, xb: torch.Tensor) -> torch.Tensor:
         @ p["wo"]
 
 
+def _dispatch_plain(xt: torch.Tensor, plan: TokenPlan) -> torch.Tensor:
+    """The plain version of :class:`_Dispatch`: the buckets [E * C, d]
+    gathered from a float32 copy of the tokens (so a token's gradients sum
+    in float32 and round once) and rounded to the tokens' type."""
+    rows = torch.cat([xt.float(), xt.new_zeros((1, xt.shape[1]),
+                                               dtype=torch.float32)])
+    return rows[plan.tok_of_slot.long()].to(xt.dtype)
+
+
+def _combine_plain(yb: torch.Tensor, gate: torch.Tensor,
+                   plan: TokenPlan) -> torch.Tensor:
+    """The plain version of :class:`_Combine`: f32 [T, d], each lane's
+    row scaled by its gate in float32, summed by token in float64 with
+    ``index_add``, rounded once."""
+    rows = torch.cat([yb, yb.new_zeros((1, yb.shape[1]))])
+    contrib = rows[plan.slot_of_lane.long()].float() * gate[:, None]
+    tok = torch.arange(plan.T, device=yb.device).repeat_interleave(plan.K)
+    return torch.zeros((plan.T, yb.shape[1]), dtype=torch.float64,
+                       device=yb.device).index_add(
+        0, tok, contrib.double()).float()
+
+
+def _moe(p: Params, cfg: LMConfig, x, impl: str, mesh=None,
+         ep: bool = False, probe: Optional[Dict] = None):
+    """The MoE, on one card (``mesh`` None) or over DTensors: route, plan,
+    fill the buckets, the experts' SwiGLU, combine, the shared expert.
+    Under a mesh with ``ep`` (:func:`apply_moe_ep`) each data shard routes
+    its own T / D tokens at ``capacity(cfg, T / D)``; without (the JAX
+    package's gather-based dispatch under ``act_shard_axes``) every rank
+    routes all T tokens at ``capacity(cfg, T)`` and the aux loss is kept.
+    Routing, the plan and the bucket fill run in ``local_map`` over the
+    routed tokens; the buckets [E, C, d] are pinned experts over
+    ``"model"`` for the experts' products (DTensor gathers the stacks'
+    FSDP dim); each rank's combine sums its E / M experts' lanes by token
+    into a float32 partial that leaves as ``Partial()`` on ``"model"`` and
+    is redistributed to a replica.  On one card the same bodies run on
+    the plain tensors, every expert this rank's.  ``probe``, when given,
+    gets this rank's expert ids, plan and expert rows (``eidx``,
+    ``plan``, ``yb`` [E / M * C, d])."""
+    B, S, d = x.shape
+    E, T = cfg.n_experts, B * S
+    MP, tok, T_loc, out_tok = 1, None, T, None
+    if mesh is not None:
+        MP = cfg.model_axis_size
+        if E % MP:
+            raise ValueError(f"{cfg.name}: {E} experts do not split over "
+                             f"model_axis_size={MP}")
+    if mesh is not None and ep:
+        D = cfg.data_axis_size
+        if T % D:
+            raise ValueError(
+                f"{cfg.name}: {T} tokens do not split over the {D} data "
+                f"shards of {tuple(cfg.act_shard_axes)}; the expert-parallel"
+                f" dispatch routes each shard's own tokens (the JAX "
+                f"package's shard_map refuses the same)")
+        tok, T_loc = tuple(cfg.act_shard_axes), T // D
+        out_tok = tok if B % D == 0 else None
+    E_per, C = E // MP, capacity(cfg, T_loc)
+    plain = resolve_impl(impl) == "torch"
+    mine: List[TokenPlan] = []
+
+    def dispatch(xt, router):
+        gate, eidx, aux = route({"router": router}, cfg, xt.float())
+        plan = token_plan(eidx, C, E)
+        mine.append(plan)
+        if probe is not None:
+            probe.update(eidx=eidx, plan=plan)
+        xb = (_dispatch_plain(xt, plan) if plain
+              else _Dispatch.apply(xt.contiguous(), plan))
+        return xb.view(E, C, d), gate.reshape(-1).contiguous(), aux
+
+    def combine(yb, gate):
+        e0 = 0 if mesh is None else mesh.get_local_rank("model") * E_per
+        plan = mine[-1].experts(e0, E_per)
+        yb = yb.reshape(E_per * C, d)
+        if probe is not None:
+            probe["yb"] = yb
+        return (_combine_plain(yb, gate, plan) if plain
+                else _Combine.apply(yb.contiguous(), gate, plan))
+
+    xt = x.reshape(T, d)
+    if mesh is None:
+        xb, gate, aux = dispatch(xt, p["router"])
+        y = combine(_experts(p, xb), gate)
+    else:
+        from torch.distributed.tensor.experimental import local_map
+        pl = functools.partial(_placements, mesh)
+        xt = _wsc(xt, (tok, None))
+        xb, gate, aux = local_map(
+            dispatch,
+            out_placements=(pl((None, tok, None)), pl((tok,)), pl(())),
+            in_placements=(pl((tok, None)), pl((None, None))),
+            in_grad_placements=(pl((tok, None)),
+                                _partial_over(mesh, (None, None), tok or ())),
+            device_mesh=mesh)(xt, _wsc(p["router"], (None, None)))
+        xb = _wsc(xb, ("model", tok, None))
+        yb = _wsc(_experts(p, xb), ("model", tok, None))
+        y = local_map(
+            combine,
+            out_placements=list(_partial_over(mesh, (tok, None), ("model",))),
+            in_placements=(pl(("model", tok, None)), pl((tok,))),
+            in_grad_placements=(pl(("model", tok, None)),
+                                _partial_over(mesh, (tok,), ("model",))),
+            device_mesh=mesh)(yb, gate)
+        y = _wsc(y, (out_tok, None))
+    y = y.to(x.dtype)
+    if cfg.n_shared_experts:
+        y = y + apply_mlp(p["shared"], xt)
+    return y.view(B, S, d), (torch.zeros((), device=x.device)
+                             if mesh is not None and ep else aux)
+
+
+def apply_moe_ep(p: Params, cfg: LMConfig, x, impl: str = "cuda",
+                 probe: Optional[Dict] = None):
+    """Expert-parallel MoE over DTensors, as the JAX package's
+    ``apply_moe_ep``: x [B, S, d] -> (y, aux loss 0).  The data shards of
+    ``act_shard_axes`` each route their own T / D tokens in float32 into
+    their own buckets at ``C = capacity(cfg, T / D)`` (the plan and the
+    bucket fill on ``block_gather`` with ``impl="cuda"``); the buckets
+    [E, D C, d] go experts over ``"model"`` for the SwiGLU products; each
+    (data, model) rank gathers its E / M experts' rows in token-major lane
+    order and sums them by token (``block_gather``, ``segment_sum`` in
+    float64), and the float32 partials add over ``"model"``, then the
+    shared expert.  Per data shard this is :func:`apply_moe` on its
+    tokens, less the aux loss.  Needs the ambient mesh of the config's
+    SPMD fields; T must split over the data shards (ValueError).
+    ``probe``: as :func:`_moe`'s."""
+    mesh = spmd_mesh(cfg)
+    if mesh is None or not cfg.ep_shard_map:
+        raise ValueError(f"{cfg.name}: apply_moe_ep runs with ep_shard_map "
+                         f"and act_shard_axes set")
+    return _moe(p, cfg, x, impl, mesh, True, probe)
+
+
 def apply_moe(p: Params, cfg: LMConfig, x: torch.Tensor,
-              impl: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+              impl: str = "cuda", probe: Optional[Dict] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux loss).  Float32 routing and the
     sorted capacity-bucket dispatch of the reference.  The combine scales
     each kept row by its gate in float32, sums by token in float64 (the
@@ -400,37 +723,14 @@ def apply_moe(p: Params, cfg: LMConfig, x: torch.Tensor,
     then the model's type, where the JAX package adds in the model's type.
     ``impl="torch"``: plain indexing and ``index_add``; ``"cuda"``: the
     dispatch and combine on the graph kernels over one
-    :class:`TokenPlan`."""
-    check_single_card(cfg)
-    B, S, d = x.shape
-    E, T = cfg.n_experts, B * S
-    C = capacity(cfg, T)
-    xt = x.reshape(T, d)
-    gate, eidx, aux = route(p, cfg, xt.float())
-    plan = token_plan(eidx, C, E)
-    if resolve_impl(impl) == "torch":
-        # on meta tensors (the dry run) a mask holds no count: every lane
-        # is taken, the padded capacity the JAX package compiles
-        keep = slice(None) if x.device.type == "meta" else plan.keep
-        st = plan.order[keep] // cfg.top_k
-        slots = plan.slot[keep].long()
-        # a token's bucket gradients sum in float32 and round once, as the
-        # kernel route's do, before they meet the router's
-        xb = x.new_zeros((E * C, d))
-        xb[slots] = xt.float()[st].to(x.dtype)
-        yb = _experts(p, xb.view(E, C, d)).reshape(E * C, d)
-        contrib = yb[slots].float() * gate.reshape(-1)[plan.order[keep],
-                                                       None]
-        y = torch.zeros((T, d), dtype=torch.float64, device=x.device) \
-            .index_add(0, st, contrib.double()).float()
-    else:
-        xb = _Dispatch.apply(xt.contiguous(), plan)
-        yb = _experts(p, xb.view(E, C, d)).reshape(E * C, d)
-        y = _Combine.apply(yb, gate.reshape(-1).contiguous(), plan)
-    y = y.to(x.dtype)
-    if cfg.n_shared_experts:
-        y = y + apply_mlp(p["shared"], xt)
-    return y.view(B, S, d), aux
+    :class:`TokenPlan`.  Under a mesh (the config's SPMD fields) the
+    expert-parallel :func:`apply_moe_ep` when ``ep_shard_map`` is set, as
+    in the JAX package, else the same dispatch over every token with the
+    buckets pinned experts over ``"model"``.  ``probe``: as
+    :func:`_moe`'s."""
+    mesh = spmd_mesh(cfg)
+    return _moe(p, cfg, x, impl, mesh, mesh is not None and cfg.ep_shard_map,
+                probe)
 
 
 def _ffn(p: Params, cfg: LMConfig, z: torch.Tensor, impl: str = "cuda"):
@@ -443,16 +743,27 @@ def _ffn(p: Params, cfg: LMConfig, z: torch.Tensor, impl: str = "cuda"):
 
 def apply_layer(p: Params, cfg: LMConfig, x: torch.Tensor,
                 positions: torch.Tensor, window: int, impl: str = "cuda",
-                attn_impl: Optional[str] = None):
+                attn_impl: Optional[str] = None, constrain: bool = True):
     """One pre-norm decoder layer over [B, S, d]: (x', k, v, aux).
-    Attention takes ``attn_impl`` (``impl`` when None), the MoE ``impl``."""
-    check_single_card(cfg)
+    Attention takes ``attn_impl`` (``impl`` when None), the MoE ``impl``;
+    under a mesh ``constrain`` pins attention's activations (the JAX
+    package's forward does, its prefill does not)."""
+    if spmd_mesh(cfg) is not None:
+        p = fsdp_gathered(p, cfg)
     h, k, v = attention_with_kv(p["attn"], cfg,
                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                positions, window, attn_impl or impl)
+                                positions, window, attn_impl or impl,
+                                constrain)
     x = x + h
     y, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), impl)
-    return x + y, k, v, aux
+    x = x + y
+    if constrain and spmd_mesh(cfg) is not None:
+        # the residual stream whole over "model", as GSPMD propagates it
+        # from the attention output's constraint; DTensor would keep the
+        # row-parallel product's sum partial and, in the backward, split
+        # the tokens over "model" as well
+        x = _wsc(x, (_batch_axes(cfg, x.shape[0]), None, None))
+    return x, k, v, aux
 
 
 # ---------------------------------------------------------------------------

@@ -38,10 +38,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.backend import resolve_device
+from repro_torch.launch.mesh import spmd_mesh
 from repro_torch.models.transformer import kvcache
-from repro_torch.models.transformer.layers import (LMConfig, Params, _ffn,
+from repro_torch.models.transformer.layers import (LMConfig, Params,
+                                                   _batch_axes, _ffn,
+                                                   _partial_over,
+                                                   _placements, _wsc,
                                                    apply_layer,
-                                                   check_single_card,
+                                                   fsdp_gathered,
                                                    init_attention, init_mlp,
                                                    init_moe, init_rmsnorm,
                                                    qkv_proj, rmsnorm, rope)
@@ -98,12 +102,19 @@ def embed(params: Params, cfg: LMConfig, tokens: torch.Tensor):
     # a token's rows in float32 and rounds once (an index's adds in the
     # table's type, one rounding per occurrence)
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
-    return F.embedding(tokens.long(), params["embed"]) * scale
+    x = F.embedding(tokens.long(), params["embed"])
+    if spmd_mesh(cfg) is not None:
+        # the table's columns lie over "model": the rows come out in blocks
+        # of d, gathered here so the residual stream is whole on "model"
+        x = _wsc(x, (_batch_axes(cfg, x.shape[0]), None, None))
+    return x * scale
 
 
 def _head(params: Params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    logits = (rmsnorm(params["ln_f"], x, cfg.norm_eps)
-              @ params["lm_head"]).float()
+    head = params["lm_head"]
+    if spmd_mesh(cfg) is not None:
+        head = fsdp_gathered(head, cfg)
+    logits = (rmsnorm(params["ln_f"], x, cfg.norm_eps) @ head).float()
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -137,12 +148,43 @@ def loss_fn(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     the float32 logits) plus 0.01 x the aux loss.  Attention is the plain
     version; ``impl`` picks the MoE route."""
     logits, aux = forward(params, cfg, tokens, impl=impl, attn_impl="torch")
+    mesh = spmd_mesh(cfg)
+    if mesh is not None:
+        # the rows over the batch axes, the vocabulary over "model"
+        logits = _wsc(logits, (_batch_axes(cfg, logits.shape[0]), None,
+                               "model"))
     logz = torch.logsumexp(logits, dim=-1)
     mask = labels >= 0
-    ll = logits.gather(-1, labels.long().clamp(min=0)[..., None])[..., 0]
+    ll = (_label_logits(logits, labels, cfg, mesh) if mesh is not None
+          else logits.gather(-1, labels.long().clamp(min=0)[..., None])
+          [..., 0])
     nll = torch.where(mask, logz - ll, 0.0).sum() \
         / mask.sum().clamp(min=1)
     return nll + 0.01 * aux
+
+
+def _label_logits(logits, labels, cfg: LMConfig, mesh):
+    """Each position's logit at its label (a negative label reads column
+    0) from vocabulary-parallel DTensor logits: every rank picks the
+    labels inside its block of columns in ``local_map`` and the picks add
+    over ``"model"``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def pick(lg, lab):
+        width = lg.shape[-1]
+        i = lab.long().clamp(min=0) - mesh.get_local_rank("model") * width
+        inside = (i >= 0) & (i < width)
+        got = lg.gather(-1, i.clamp(0, width - 1)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    ba = _batch_axes(cfg, logits.shape[0])
+    rows = _placements(mesh, (ba, None))
+    ll = local_map(pick, out_placements=list(_partial_over(
+                       mesh, (ba, None), ("model",))),
+                   in_placements=(logits.placements, rows),
+                   in_grad_placements=(logits.placements, rows),
+                   device_mesh=mesh)(logits, labels.redistribute(mesh, rows))
+    return ll.redistribute(mesh, rows)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
@@ -160,8 +202,22 @@ def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     """Run the prompt [B, S]: (logits at position S - 1 [B, vocab], dense
     cache {k, v [L, B, KVH, S, D], lengths = S})."""
     B, S = tokens.shape
+    mesh = spmd_mesh(cfg)
     positions = _positions(tokens)
     x = embed(params, cfg, tokens)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    if mesh is not None:
+        # DTensor entries, stacked at the end; no activation constraint,
+        # as in the JAX package's prefill
+        ks, vs = [], []
+        for lp, window in zip(params["layers"], cfg.layer_windows):
+            x, k, v, _ = apply_layer(lp, cfg, x, positions, window, impl,
+                                     constrain=False)
+            ks.append(k)
+            vs.append(v)
+        return _head(params, cfg, x[:, -1]), {
+            "k": torch.stack(ks), "v": torch.stack(vs),
+            "lengths": _replicated(lengths, mesh)}
     shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
     k_cache = torch.empty(shape, dtype=x.dtype, device=x.device)
     v_cache = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -172,9 +228,14 @@ def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     # the last position for every row, as in the reference: for a shorter,
     # padded prompt that is a pad position
     logits = _head(params, cfg, x[:, -1])
-    return logits, {"k": k_cache, "v": v_cache,
-                    "lengths": torch.full((B,), S, dtype=torch.int32,
-                                          device=x.device)}
+    return logits, {"k": k_cache, "v": v_cache, "lengths": lengths}
+
+
+def _replicated(x: torch.Tensor, mesh):
+    """A DTensor replica of ``x``, which every rank holds alike."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +286,12 @@ def serve_step(params: Params, cfg: LMConfig, cache: Dict[str, torch.Tensor],
                tokens: torch.Tensor):
     """One decode step over the dense cache (plain torch, the reference):
     tokens [B, 1] -> (logits [B, vocab], new cache).  The cache passed in is
-    not modified."""
-    check_single_card(cfg)
+    not modified.  Under a mesh the cache and the tokens are DTensors (the
+    registry's decode cells place the cache's batch over the batch axes
+    and its positions over ``"model"``): :func:`_decode_attention_spmd`."""
+    mesh = spmd_mesh(cfg)
+    if mesh is not None:
+        return _serve_step_spmd(params, cfg, cache, tokens, mesh)
     lengths = cache["lengths"]
     k_all, v_all = cache["k"].clone(), cache["v"].clone()
     b_idx = torch.arange(tokens.shape[0], device=tokens.device)
@@ -244,6 +309,104 @@ def serve_step(params: Params, cfg: LMConfig, cache: Dict[str, torch.Tensor],
                                          "lengths": lengths + 1}
 
 
+def _decode_attention_spmd(cfg: LMConfig, q, k, v, k_all, v_all,
+                           li: int, lengths, window: int, mesh):
+    """Layer ``li`` of a decode step over the DTensor cache k/v_all [L, B,
+    KVH, S, D], in place on each rank's block: the token's k, v [B, 1,
+    heads * D] written at position ``lengths``, then attention over the
+    block's keys.  Where the cache's positions lie over mesh axes, each
+    rank's softmax statistics are merged across them (a max, then sums of
+    the weights and the weighted values: the LSE merge).  Returns o [B,
+    H, D] as a DTensor with the cache's batch placement."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    cache_pl = k_all.placements
+    rows = [Shard(0) if p == Shard(1) else Replicate() for p in cache_pl]
+    seq_dims = [i for i, p in enumerate(cache_pl) if p == Shard(3)]
+    _, off = compute_local_shape_and_global_offset(k_all.shape, mesh,
+                                                   cache_pl)
+    s_off = off[3]
+
+    def local(t):
+        return t.redistribute(mesh, rows).to_local()
+
+    B = lengths.shape[0]
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lens = local(lengths).long()
+    Bl = lens.shape[0]
+    pos = lens[:, None, None]
+    q = rope(local(q).view(Bl, 1, H, D).transpose(1, 2), pos,
+             cfg.rope_theta)[:, :, 0]
+    k = rope(local(k).view(Bl, 1, KVH, D).transpose(1, 2), pos,
+             cfg.rope_theta)[:, :, 0]
+    v = local(v).view(Bl, KVH, D)
+    kl, vl = k_all.to_local()[li], v_all.to_local()[li]
+    S_loc = kl.shape[2]
+    at = (lens - s_off).clamp(0, S_loc - 1)
+    hit = ((lens >= s_off) & (lens < s_off + S_loc))[:, None, None]
+    b = torch.arange(Bl, device=lens.device)
+    kl[b, :, at] = torch.where(hit, k, kl[b, :, at])
+    vl[b, :, at] = torch.where(hit, v, vl[b, :, at])
+    qg = q.float().reshape(Bl, KVH, H // KVH, D)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, kl.float()) \
+        * cfg.head_dim ** -0.5
+    if cfg.attn_softcap > 0:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    ki = torch.arange(S_loc, device=lens.device)[None, :] + s_off
+    mask = ki < lens[:, None] + 1
+    if window > 0:
+        mask &= ki > lens[:, None] - window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    top = s.amax(dim=-1, keepdim=True)
+    for i in seq_dims:
+        top = funcol.all_reduce(top, "max", (mesh, i))
+    w = torch.exp(s - top)
+    den = w.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bhsd->bhgd", w, vl.float())
+    for i in seq_dims:
+        den = funcol.all_reduce(den, "sum", (mesh, i))
+        o = funcol.all_reduce(o, "sum", (mesh, i))
+    o = (o / den).reshape(Bl, H, D).to(kl.dtype)
+    return DTensor.from_local(o, mesh, rows, run_check=False,
+                              shape=(B, H, D),
+                              stride=(H * D, D, 1))
+
+
+def _serve_step_spmd(params: Params, cfg: LMConfig, cache, tokens, mesh):
+    """:func:`serve_step` on DTensors: the projections, the MoE and the
+    head in DTensor land, each layer's cache write and attention on the
+    ranks' blocks (:func:`_decode_attention_spmd`); no activation
+    constraint, as in the JAX package's decode."""
+    lengths = cache["lengths"]
+    k_all, v_all = cache["k"].clone(), cache["v"].clone()
+    x = embed(params, cfg, tokens)
+    for li, (lp, window) in enumerate(zip(params["layers"],
+                                          cfg.layer_windows)):
+        lp = fsdp_gathered(lp, cfg)
+        o = _decode_layer_attention_spmd(lp, cfg, x, k_all, v_all, li,
+                                         lengths, window, mesh)
+        x = _decode_out(lp, cfg, x, o, "torch")
+    return _head(params, cfg, x[:, 0]), {"k": k_all, "v": v_all,
+                                         "lengths": lengths + 1}
+
+
+def _decode_layer_attention_spmd(lp: Params, cfg: LMConfig, x, k_all, v_all,
+                                 li: int, lengths, window: int, mesh):
+    """Layer ``li``'s attention of a decode step on DTensors, before its
+    output projection: the normed x [B, 1, d] projected, then
+    :func:`_decode_attention_spmd` (the cache written in place).  ``lp``
+    is the layer's parameters with their FSDP dims gathered."""
+    z = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    p = lp["attn"]
+    q, k, v = z @ p["wq"], z @ p["wk"], z @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return _decode_attention_spmd(cfg, q, k, v, k_all, v_all, li, lengths,
+                                  window, mesh)
+
+
 def serve_step_paged(params: Params, cfg: LMConfig,
                      caches: List[kvcache.PagedKVCache], tokens: torch.Tensor,
                      *, impl: str = "cuda", inplace: bool = False):
@@ -254,8 +417,14 @@ def serve_step_paged(params: Params, cfg: LMConfig,
     layer's dispatch and combine take the same ``impl``.  With ``inplace``
     the caches' pools are written in place.  On the kernel route the step
     reads nothing back from the device, so it can be captured in a CUDA
-    graph."""
-    check_single_card(cfg)
+    graph.  It runs on one card: the JAX package decodes over pages on one
+    device only, so a config with SPMD fields is refused."""
+    if cfg.act_shard_axes is not None or cfg.ep_shard_map:
+        raise ValueError(
+            f"{cfg.name}: the paged route runs on one card (the JAX "
+            f"package has no paged decode under a mesh); act_shard_axes="
+            f"{cfg.act_shard_axes!r} / ep_shard_map={cfg.ep_shard_map} ask "
+            f"for one: decode it with serve_step over the dense cache")
     x = embed(params, cfg, tokens)
     out = []
     for lp, window, cache in zip(params["layers"], cfg.layer_windows,

@@ -5,9 +5,10 @@
 ``dryrun.main`` sets up the fake process group in this process, places the
 cells on both production meshes and destroys the group: gin-tu
 ``molecule`` and sasrec ``serve_p99`` give FLOPs and argument bytes above 0
-(tests/test_sharding_dryrun.py's cells); an LM ``opt`` cell, whose step
-refuses to run on one card, records ``null`` FLOPs with the reason, never
-0.  FLOPs a step grow linearly with depth: 8 layers of ``tanh(x @ w)``
+(tests/test_sharding_dryrun.py's cells), with collective bytes null and
+the reason; an LM ``opt`` cell's step runs on meta DTensors under the
+mesh, with rank 0's FLOPs and its collective bytes by kind; a step that
+raises records ``null`` FLOPs with the error, never 0.  FLOPs a step grow linearly with depth: 8 layers of ``tanh(x @ w)``
 count exactly ``2 * 128 * 256 * 256 * 8`` (tests/test_data_and_hlo.py's
 calibration, where a Python loop needs no trip count), and a dense LM's
 train step is affine in its layers.  On small dense LM train steps the
@@ -56,21 +57,52 @@ def test_dryrun_cell_both_meshes(arch, shape, tmp_path):
         assert rec["argument_bytes_per_device"] > 0
         assert rec["output_bytes_per_device"] > 0
         assert rec["argument_bytes_fit_h100_80gb"] is True
-        # unknown is null with its reason, never 0
+        # unknown is null with its reason, never 0: a step on plain
+        # tensors issues no collective to count
         assert rec["collective_bytes"] is None and rec["temp_bytes"] is None
-        assert "8.4" in rec["not_counted"]
+        assert rec["not_counted"] == step_cost.NOT_COUNTED
 
 
-def test_dryrun_records_a_refused_step_as_null(tmp_path):
+def test_dryrun_records_a_refused_step_as_null(tmp_path, monkeypatch):
+    """A step that raises on meta leaves FLOPs and output bytes null with
+    the exception's text, never 0; the argument bytes are still placed."""
+    cb = registry.build_cell("gin-tu", "molecule")
+
+    def refuses(*args):
+        raise ValueError("this step does not run on meta")
+
+    monkeypatch.setattr(registry, "build_cell",
+                        lambda *a, **k: cb._replace(step_fn=refuses))
+    dryrun.main(["--arch", "gin-tu", "--shape", "molecule", "--mesh", "pod",
+                 "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "gin-tu__molecule__pod.json").read_text())
+    assert rec["flops_per_step"] is None
+    assert rec["output_bytes_per_device"] is None
+    assert rec["flops_error"] == "ValueError: this step does not run on meta"
+    assert rec["collective_bytes"] is None
+    assert rec["argument_bytes_per_device"] > 0
+
+
+def test_dryrun_lm_opt_record_counts_flops_and_collectives(tmp_path):
+    """An LM ``opt`` cell's step runs on meta DTensors under the pod mesh
+    of the fake group: rank 0's FLOPs above 0 and below the whole step's
+    (the baseline cell's), no ``flops_error``, and its collective bytes by
+    kind, each above 0."""
     dryrun.main(["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k",
                  "--mesh", "pod", "--opt", "--out", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
     rec = json.loads((tmp_path / "qwen3-moe-30b-a3b__train_4k__pod__opt.json")
                      .read_text())
-    assert rec["opt"] and rec["flops_per_step"] is None
-    assert rec["output_bytes_per_device"] is None
-    assert rec["flops_error"].startswith("NotImplementedError")
-    assert "queue 1 item 8.4" in rec["flops_error"]
-    assert rec["argument_bytes_per_device"] > 0
+    assert rec["opt"] and rec["flops_error"] is None
+    whole = step_cost.step_flops(registry.build_cell("qwen3-moe-30b-a3b",
+                                                     "train_4k"))["flops"]
+    assert 0 < rec["flops_per_step"] < whole
+    assert set(rec["collective_bytes"]) >= {"all_gather_into_tensor",
+                                            "all_reduce",
+                                            "reduce_scatter_tensor"}
+    assert all(n > 0 for n in rec["collective_bytes"].values())
+    assert rec["output_bytes_per_device"] > 0
+    assert rec["not_counted"] == step_cost.NOT_COUNTED_TEMP
 
 
 class _Cell:

@@ -2,9 +2,12 @@
 cells with the same kinds and 3 skips, each LM arch's parameter count from
 ``device="meta"`` tensors equal to JAX's ``eval_shape`` count with no byte
 allocated, every live cell built, and the SPMD variants: an LM's with
-JAX's SPMD fields and a step that refuses them (it needs cards), Equiformer-
-v2's with JAX's flags and a step that runs on the CPU."""
+JAX's SPMD fields and a step that runs on DTensors under the production
+mesh they name (and refuses without it), Equiformer-v2's with JAX's flags
+and a step that runs on the CPU."""
 import torch_parity  # noqa: F401,E402  (first: one torch thread a worker)
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -63,22 +66,54 @@ def test_every_live_cell_builds():
         assert len(cb.arg_specs) == (3 if c.kind == "train" else 2)
 
 
+@pytest.fixture(scope="module")
+def fake_group():
+    """The fake process group of the production meshes (512 ranks, this
+    process rank 0), destroyed at the module's end."""
+    from repro_torch.launch import dryrun
+    dryrun.init_fake_group(512)
+    yield
+    torch.distributed.destroy_process_group()
+
+
+def _one_layer(cb):
+    """The cell with its config cut to one layer: the same step, mesh and
+    shardings, fewer ops to place on meta."""
+    import types
+    cfg = dataclasses.replace(cb.cfg, n_layers=1)
+    m = types.SimpleNamespace(full_config=lambda: dataclasses.replace(
+        cfg, act_shard_axes=None, data_axis_size=16, ep_shard_map=False))
+    _, _, step, specs = registry._lm_cell(
+        m, cb.shape, AdamWConfig(quantized_state=cb.quantized_opt), cb.opt)
+    return cb._replace(cfg=cfg, step_fn=step, arg_specs=specs)
+
+
 @pytest.mark.parametrize("arch,shape", [("qwen3-moe-30b-a3b", "train_4k"),
                                         ("equiformer-v2", "molecule")])
 @pytest.mark.parametrize("opt", ["pod", "multipod"])
-def test_spmd_variants_name_the_roadmap(arch, shape, opt):
-    """The JAX registry's beyond-paper variants build.  An LM's step shards
-    activations and the MoE dispatch across cards: it refuses, naming the
-    roadmap item it waits for, and runs nothing of the one-card path.
-    Equiformer-v2's variant (truncated rotation, bf16 edges) runs here."""
+def test_spmd_variants_name_the_roadmap(arch, shape, opt, request):
+    """The JAX registry's beyond-paper variants build.  An LM's step runs
+    on DTensors under the production mesh its SPMD fields name (the cell
+    at one layer, on meta tensors placed by its shardings on the fake
+    group: FLOPs and collective bytes counted), and without that mesh
+    refuses with ValueError before any layer runs.  Equiformer-v2's
+    variant (truncated rotation, bf16 edges) runs here."""
+    from repro_torch.launch import step_cost
+    from repro_torch.launch.mesh import make_production_mesh
     cb = registry.build_cell(arch, shape, opt)
     assert cb.opt == opt
-    if cb.family == "lm":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1 item 8.4"):
-            cb.step_fn(*cb.arg_specs)
-    else:
+    if cb.family != "lm":
         assert cb.cfg.truncate_rotation and cb.cfg.edge_bf16
+        return
+    with pytest.raises(ValueError, match="none is ambient"):
+        cb.step_fn(*cb.arg_specs)
+    request.getfixturevalue("fake_group")
+    mesh = make_production_mesh(multi_pod=(opt == "multipod"),
+                                device_type="cpu")
+    rec = step_cost.step_flops(_one_layer(cb), mesh)
+    assert rec["flops_error"] is None and rec["flops"] > 0
+    assert rec["collective_bytes"] and all(
+        n > 0 for n in rec["collective_bytes"].values())
 
 
 _SPMD_FIELDS = ("act_shard_axes", "model_axis_size", "data_axis_size",
@@ -100,11 +135,15 @@ def test_lm_opt_cells_carry_jax_spmd_fields(arch, shape, opt):
 
 
 def test_lm_step_refuses_spmd_fields_on_any_path():
-    """A config with the SPMD fields is refused by every LM entry point
-    before any layer runs (item 8.4), the decode paths included."""
+    """A config with the SPMD fields and no ambient mesh is refused by
+    every LM entry point before any layer runs (ValueError naming the
+    missing mesh), the dense decode included; the paged route refuses it
+    under a mesh too: it runs on one card, as the JAX package's paged
+    decode does."""
     import dataclasses
 
     from repro_torch.configs import qwen3_moe_30b_a3b as qm
+    from repro_torch.launch.mesh import use_mesh
     cfg = dataclasses.replace(qm.smoke_config(), act_shard_axes=("data",),
                               ep_shard_map=True)
     params = M.init_params(cfg, device="meta")
@@ -113,8 +152,11 @@ def test_lm_step_refuses_spmd_fields_on_any_path():
     for call in (lambda: M.loss_fn(params, cfg, tokens, tokens),
                  lambda: M.prefill(params, cfg, tokens),
                  lambda: M.serve_step(params, cfg, cache, tokens[:, :1])):
-        with pytest.raises(NotImplementedError, match="item 8.4"):
+        with pytest.raises(ValueError, match="none is ambient"):
             call()
+    with use_mesh(object()):
+        with pytest.raises(ValueError, match="paged route runs on one card"):
+            M.serve_step_paged(params, cfg, [], tokens[:, :1])
 
 
 @pytest.mark.parametrize("opt", ["pod", "multipod"])
