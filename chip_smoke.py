@@ -121,6 +121,30 @@ Phases, one report line each:
    memory -- the code path on one card, not a multi-card speed.  Every
    group has a 60 s timeout and the spawned leg a join limit; a rank that
    fails or outlives it fails the phase;
+5f. ``ServeFrontend`` over the shard axis across ranks, phase 5e's state
+   freed: the same graph behind ``GraphService.from_coo(...,
+   n_shards=SERVE_MESH_S, log_capacity=SERVE_LOG_CAPACITY)`` and
+   ``serve_frontend``'s plan and two tenants on every rank, on (a) a
+   one-rank NCCL group in this process and (b) SHARD_MESH_RANKS gloo ranks
+   spawned on the card, each submitted the same requests in the same
+   order.  First the serve phase's warm trace on a virtual clock that
+   rank r reads r * 0.5 ms ahead (a poll of the shadow flush waits for the
+   device: on a virtual clock device work takes no time); every ticket is
+   held to the one-process frontend's over the unsharded service on rank
+   0's timeline: point reads, degrees, receipts, k-hop draws (each rank
+   draws from a generator in the same state), versions and times bit for
+   bit, PageRank within rtol 1e-5.  Then the serve phase's trace open loop
+   at 2,000 a second on each rank's ``perf_counter``, the loop timed by
+   the frontend's agreed clock, with the launch counters at 0: every
+   ticket completes, none is shed, versions never go back per (tenant,
+   kind), both ranks' values (as digests), versions and times are equal,
+   one agreement a step and a submit, and ``chain_walk_locate``,
+   ``chain_walk_rank``, ``segment_sum`` and ``block_gather`` launched on
+   every rank.  One ``[serve.mesh]`` line a rank and leg: backend, world,
+   S, mesh axis, requests, QPS, p50 / p99 by kind and tenant, flushes,
+   epoch advances, agreements a step and a submit and their ms, launches,
+   peak memory, beside the serve phase's QPS and p99 -- the code path on
+   one card, not a multi-card speed;
 6. LM serving, once the graph state is freed: Gemma-2 27B at full width
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
@@ -389,6 +413,16 @@ SERVE_KHOP_EVERY, SERVE_PAGERANK_EVERY = 100, 2_000
 SERVE_KHOP_SEEDS, SERVE_FANOUT = 8, (15, 10)
 SERVE_LOG_CAPACITY = 8192
 SERVE_PROFILE_REQUESTS = 2_000
+# phase 5f: ServeFrontend over the shard axis across ranks, phase 5e's
+# graph behind GraphService(n_shards=SERVE_MESH_S); rank r's virtual clock
+# reads r * SERVE_MESH_SKEW_S ahead of rank 0's; leg (b)'s wall-clock
+# trace, cut because over gloo the two ranks serve 112-169 a second
+# (NVIDIA H100 80GB HBM3, 700 W): the whole trace took them 179 s (the
+# phase 230 s), 12,000 requests 94 s (the phase 139 s); 8,000 keep 4
+# PageRanks and 80 k-hop draws; the kernels every rank must launch on it
+SERVE_MESH_S, SERVE_MESH_SKEW_S = 2, 0.5e-3
+SERVE_MESH_GLOO_REQUESTS = 8_000
+SERVE_MESH_KERNELS = WALK_KERNELS + GRAPH_KERNELS
 WALK_QUERIES = 1 << 20
 # the least time of one dependent step of a chain walk: an L2 hit's round
 # trip on an H100 (~ 260-300 SM cycles at 1.755-1.98 GHz); a DRAM miss
@@ -4107,8 +4141,8 @@ def ep_mesh_phase(torch, timer, dev, seed, report) -> None:
 
 
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
-    """Phases 1-5e: the GraphService at LiveJournal size, its serve, tier
-    and shard phases, the last on a process group."""
+    """Phases 1-5f: the GraphService at LiveJournal size, its serve, tier
+    and shard phases, the last two on a process group."""
     from repro_torch import backend
     from repro_torch.core.engine import sweep_plan
     from repro_torch.data.synthetic import rmat_edges
@@ -4235,6 +4269,14 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
         torch, timer, dev, (src, dst, w), nv, untiered, shard_ref, report,
         seed)
     report["shard_mesh_seconds"] = time.perf_counter() - t0
+
+    # phase 5f, phase 5e's state freed: ServeFrontend on every rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["serve_mesh"] = serve_mesh_phase(
+        torch, timer, dev, (src, dst, w), nv, report, seed)
+    report["serve_mesh_seconds"] = time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -5155,6 +5197,347 @@ def shard_mesh_phase(torch, timer, dev, coo, nv, untiered, shard_ref,
 
 
 # ---------------------------------------------------------------------------
+# phase 5f: the serving frontend over the shard axis across ranks
+# ---------------------------------------------------------------------------
+
+def fresh_ticket_ids() -> None:
+    """Number the next replay's tickets from 0: a k-hop draw's salt reads
+    ticket ids, so two replays of one trace draw alike only from the same
+    ids."""
+    import itertools
+
+    from repro_torch.serve import request
+    request._ticket_ids = itertools.count()
+
+
+def settle_flushes(torch, svc) -> None:
+    """On a virtual clock device work takes no time: each poll of the
+    shadow flush waits for the device first and finds the flush done, on
+    every rank and in the reference alike (the wall-clock replay polls the
+    event as it stands: ``del svc.flush_ready`` restores it)."""
+    poll = svc.flush_ready
+
+    def flush_ready():
+        torch.cuda.synchronize()
+        return poll()
+
+    svc.flush_ready = flush_ready
+
+
+def ticket_rows(torch, tickets, digest: bool) -> list:
+    """(kind, tenant, done, shed, version, value, arrival, completion) a
+    ticket, values on the host; with ``digest`` each value as the SHA-256
+    of its pickled bytes (bit for bit across ranks without holding every
+    PageRank vector)."""
+    import hashlib
+    import pickle
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu().numpy()
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        return v
+
+    rows = []
+    for t in tickets:
+        value = host(t.value)
+        if digest:
+            value = hashlib.sha256(pickle.dumps(value, protocol=4)).hexdigest()
+        rows.append((t.request.kind, t.request.tenant, t.done, t.shed,
+                     t.version, value, t.t_arrival, t.t_done))
+    return rows
+
+
+def mesh_virtual_replay(svc, trace, skew: float):
+    """The warm trace on a virtual clock that reads ``skew`` s ahead of
+    rank 0's timeline, every ticket numbered from 0, drained and flushed:
+    (frontend, tickets)."""
+    from repro_torch.serve import ManualClock
+    base = ManualClock()
+    fresh_ticket_ids()
+    front = serve_frontend(svc, lambda: base.t + skew)
+    tickets = []
+    for arr, req in trace:
+        base.advance(max(arr - base.t, 0.0))
+        tickets.append(front.submit(req))
+        front.step()
+    front.drain(flush=True)
+    return front, tickets
+
+
+def serve_mesh_run(torch, timer, dev, inputs: dict, coo=None) -> dict:
+    """One rank of phase 5f on the process group this process is in: the
+    graph cell's graph (made again from the seed unless ``coo`` is given)
+    behind ``GraphService.from_coo(..., n_shards=SERVE_MESH_S,
+    log_capacity=SERVE_LOG_CAPACITY)`` on ``shard_mesh``; the warm trace on
+    a virtual clock (rank r's reads r * SERVE_MESH_SKEW_S ahead), then the
+    timed open-loop replay of the trace on this rank's ``perf_counter``
+    with the launch counters at 0.  Everything the checks read comes back
+    on the host."""
+    import torch.distributed as dist
+
+    from repro_torch import backend
+    from repro_torch.data.synthetic import rmat_edges
+    from repro_torch.stream.service import GraphService
+    nv, seed = inputs["nv"], inputs["seed"]
+    if coo is None:
+        src, dst = rmat_edges(nv, inputs["ne"], seed=seed, device=dev)
+        wgen = torch.Generator(device=dev).manual_seed(seed + 3)
+        w = 0.1 + 0.9 * torch.rand(inputs["ne"], generator=wgen, device=dev)
+    else:
+        src, dst, w = coo
+    check(coo_checksum(torch, src, dst, w) == inputs["checksum"],
+          "serve mesh: the regenerated graph differs from the graph cell's")
+    rank = dist.get_rank()
+    svc, build_s = timer.wall(lambda: GraphService.from_coo(
+        src, dst, w, num_vertices=nv, log_capacity=SERVE_LOG_CAPACITY,
+        n_shards=SERVE_MESH_S, device=dev))
+    del src, dst, w
+    mesh = svc.snapshot.cbl.mesh
+    check(mesh is not None and svc.snapshot.cbl.n_shards == SERVE_MESH_S,
+          "serve mesh: the service's shards are not on the mesh")
+    settle_flushes(torch, svc)
+    (vfront, vtickets), virtual_s = timer.wall(lambda: mesh_virtual_replay(
+        svc, inputs["warm"], rank * SERVE_MESH_SKEW_S))
+    del svc.flush_ready
+    virtual = ticket_rows(torch, vtickets, digest=False)
+    virtual_agreement = vfront.report()["agreement"]
+    del vfront, vtickets
+
+    trace = inputs["trace"]
+    fresh_ticket_ids()
+    front = serve_frontend(svc, time.perf_counter)
+    epoch0, flushes0 = svc.epoch, svc.stats.flushes
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    done, wall = serve_replay(torch, front, trace, agreed=True)
+    launches = {k: backend.LAUNCHES[k] for k in SERVE_MESH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    rep = front.report()
+    lat_kind, lat_tenant = {}, {}
+    for _, t, lat in done:
+        lat_kind.setdefault(t.request.kind, []).append(lat)
+        lat_tenant.setdefault(t.request.tenant, []).append(lat)
+    agr = rep["agreement"]
+    n_agree = sum(agr["collectives"].values())
+    return dict(
+        backend=dist.get_backend(), world=dist.get_world_size(), rank=rank,
+        n_shards=SERVE_MESH_S, mesh_axis=mesh.size(), build_s=build_s,
+        virtual_s=virtual_s, requests=len(trace), wall_s=wall,
+        qps=len(trace) / wall,
+        latency_by_kind={k: _pcts(v) for k, v in sorted(lat_kind.items())},
+        latency_by_tenant={k: _pcts(v) for k, v in
+                           sorted(lat_tenant.items())},
+        flushes=svc.stats.flushes - flushes0,
+        epoch_advances=svc.epoch - epoch0,
+        agreement=agr, virtual_agreement=virtual_agreement,
+        agreement_ms=agr["seconds"] * 1e3 / max(n_agree, 1),
+        agreement_s=agr["seconds"],
+        launches=launches, max_memory_allocated=peak, virtual=virtual,
+        wall=ticket_rows(torch, sorted((t for _, t, _ in done),
+                                       key=lambda t: t.id), digest=True))
+
+
+def serve_mesh_child(rank: int, world: int, port: int, backend_name: str,
+                     work_dir: str) -> None:
+    """One spawned rank of phase 5f's leg (b): it loads the kernels phase 1
+    built, joins the group, runs :func:`serve_mesh_run` and leaves its
+    results in ``work_dir``."""
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import backend
+    torch.cuda.set_device(0)
+    backend.load_kernels()
+    init_s = init_group(torch, backend_name, rank, world, port)
+    try:
+        with open(f"{work_dir}/inputs.pkl", "rb") as f:
+            inputs = pickle.load(f)
+        out = serve_mesh_run(torch, Timer(torch), torch.device("cuda"),
+                             inputs)
+        out["group_init_s"] = init_s
+        with open(f"{work_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def same_ticket(g, r, rtol: float = 0.0) -> bool:
+    """One ticket row equal to another: all but the value exactly, the
+    value bit for bit (an analytics vector within ``rtol``)."""
+    import numpy as np
+    if g[:5] != r[:5] or g[6:] != r[6:]:
+        return False
+    gv, rv = g[5], r[5]
+    if isinstance(rv, dict):
+        return gv.keys() == rv.keys() and all(
+            np.array_equal(gv[k], rv[k]) for k in rv)
+    if isinstance(rv, np.ndarray):
+        return gv.shape == rv.shape and bool(np.allclose(
+            gv, rv, rtol=rtol, atol=0.0))
+    return gv == rv
+
+
+def check_serve_mesh(out: dict, ref_virtual: list, tag: str) -> None:
+    """One rank's run: every virtual-clock ticket against the one-process
+    frontend's over the unsharded service (reads, degrees, receipts,
+    k-hop draws, versions and times bit for bit, PageRank within
+    SEG_RTOL), the wall-clock replay's tickets complete, none shed,
+    versions never back per (tenant, kind), one agreement a step and a
+    submit, and the path's four kernels launched."""
+    check(len(out["virtual"]) == len(ref_virtual),
+          f"{tag}: {len(out['virtual'])} virtual-clock tickets, not "
+          f"{len(ref_virtual)}")
+    bad = [i for i, (g, r) in enumerate(zip(out["virtual"], ref_virtual))
+           if not same_ticket(g, r, SEG_RTOL)]
+    check(not bad, f"{tag}: {len(bad)} virtual-clock tickets differ from "
+          f"the one-process frontend's, the first #{bad[:1]}")
+    rows = out["wall"]
+    check(len(rows) == out["requests"] and all(r[2] for r in rows),
+          f"{tag}: a ticket did not complete")
+    check(not any(r[3] for r in rows), f"{tag}: a ticket was shed")
+    last = {}
+    for kind, tenant, _, _, version, *_ in rows:
+        key = (tenant, kind)
+        check(last.get(key, (-1, -1)) <= version,
+              f"{tag}: {key} versions went from {last.get(key)} to "
+              f"{version}")
+        last[key] = version
+    for agr in (out["agreement"], out["virtual_agreement"]):
+        check(agr["mesh"] and agr["per_step"] == 1.0
+              and agr["per_submit"] == 1.0,
+              f"{tag}: agreements a step {agr['per_step']}, a submit "
+              f"{agr['per_submit']}, not 1")
+    for name in SERVE_MESH_KERNELS:
+        check(out["launches"][name] > 0,
+              f"{tag}: {name} never launched on this rank's serve path")
+
+
+def serve_mesh_line(out: dict, leg: str, one: dict, cut: int) -> dict:
+    row = {k: out[k] for k in (
+        "backend", "world", "rank", "n_shards", "mesh_axis", "requests",
+        "qps", "wall_s", "flushes", "epoch_advances", "agreement_ms",
+        "agreement_s",
+        "build_s", "virtual_s", "group_init_s", "launches",
+        "max_memory_allocated")}
+    agr = out["agreement"]
+    row.update(leg=leg, mesh="shard", cut_from=cut or None,
+               agreements_per_step=agr["per_step"],
+               agreements_per_submit=agr["per_submit"],
+               agreements=agr["collectives"],
+               one_process_qps=one["qps"])
+    lat = {f"{k}_p50_p99_ms": f"{v['p50_ms']:.3g}/{v['p99_ms']:.3g}"
+           for part in ("latency_by_kind", "latency_by_tenant")
+           for k, v in out[part].items()}
+    one_lat = {f"one_process_{k}_p99_ms": f"{v['p99_ms']:.3g}"
+               for k, v in one["latency_by_tenant"].items()}
+    say("serve.mesh", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                         for k, v in row.items()}, **lat, **one_lat,
+        note="the code path on one card, not a multi-card speed")
+    row.update(latency_by_kind=out["latency_by_kind"],
+               latency_by_tenant=out["latency_by_tenant"])
+    return row
+
+
+def serve_mesh_phase(torch, timer, dev, coo, nv, report, seed) -> dict:
+    """Phase 5f: the graph cell's graph behind ``GraphService(...,
+    n_shards=SERVE_MESH_S)`` on a process group and ``ServeFrontend`` on
+    every rank, leg (a) a one-rank NCCL group in this process, leg (b)
+    SHARD_MESH_RANKS ranks spawned on the one card over gloo; the
+    virtual-clock tickets held to the one-process frontend over the
+    unsharded service on rank 0's timeline, leg (b)'s ranks to each
+    other."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.stream.service import GraphService
+    check(not dist.is_initialized(), "serve mesh: a process group is up "
+          "before the phase")
+    src, dst, w = coo
+    ref_svc = GraphService.from_coo(src, dst, w, num_vertices=nv,
+                                    log_capacity=SERVE_LOG_CAPACITY,
+                                    device=dev)
+    cbl = ref_svc.snapshot.cbl
+    (trace, warm), gen_s = timer.wall(lambda: (
+        serve_trace(torch, dev, cbl, SERVE_REQUESTS, seed + 23),
+        serve_trace(torch, dev, cbl, SERVE_WARM, seed + 29)))
+    del cbl
+    settle_flushes(torch, ref_svc)
+    (_, tickets), ref_s = timer.wall(lambda: mesh_virtual_replay(
+        ref_svc, warm, 0.0))
+    ref_virtual = ticket_rows(torch, tickets, digest=False)
+    del ref_svc, tickets
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = dict(nv=nv, ne=src.numel(), seed=seed, warm=warm, trace=trace,
+                  checksum=coo_checksum(torch, src, dst, w))
+    one = report["serve"]
+    rows, launches = [], {}
+
+    t0 = time.perf_counter()
+    init_s = init_group(torch, "nccl", 0, 1, free_port())
+    try:
+        out = serve_mesh_run(torch, timer, dev, inputs, coo=coo)
+        out["group_init_s"] = init_s
+    finally:
+        dist.destroy_process_group()
+    tag = "serve mesh nccl rank 0"
+    check(out["backend"] == "nccl" and out["mesh_axis"] == 1,
+          f"{tag}: not a one-rank NCCL mesh")
+    check_serve_mesh(out, ref_virtual, tag)
+    rows.append(serve_mesh_line(out, "nccl", one, 0))
+    launches["nccl rank 0"] = out["launches"]
+    nccl_s = time.perf_counter() - t0
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = len(trace) if SERVE_MESH_GLOO_REQUESTS < len(trace) else 0
+    inputs["trace"] = trace[:SERVE_MESH_GLOO_REQUESTS]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_mesh_") as d:
+        with open(f"{d}/inputs.pkl", "wb") as f:
+            pickle.dump(inputs, f)
+        spawn_s = spawn_ranks(torch, "gloo", d, child=serve_mesh_child,
+                              what="serve mesh")
+        outs = []
+        for r in range(SHARD_MESH_RANKS):
+            with open(f"{d}/rank{r}.pkl", "rb") as f:
+                outs.append(pickle.load(f))
+    for r, out in enumerate(outs):
+        tag = f"serve mesh gloo rank {r}"
+        check(out["backend"] == "gloo" and out["world"] == SHARD_MESH_RANKS
+              and out["mesh_axis"] == min(SERVE_MESH_S, SHARD_MESH_RANKS),
+              f"{tag}: not a {SHARD_MESH_RANKS}-rank gloo mesh")
+        check_serve_mesh(out, ref_virtual, tag)
+        if r:
+            check(all(same_ticket(g, h) for g, h in zip(
+                      out["virtual"], outs[0]["virtual"])),
+                  f"{tag}: virtual-clock tickets differ from rank 0's")
+            check(out["wall"] == outs[0]["wall"],
+                  f"{tag}: wall-clock tickets (values, versions, times) "
+                  "differ from rank 0's")
+        rows.append(serve_mesh_line(out, "gloo", one, cut))
+        launches[f"gloo rank {r}"] = out["launches"]
+    res = dict(rows=rows, launches=launches, nccl_seconds=nccl_s,
+               gloo_seconds=spawn_s, trace_seconds=gen_s,
+               reference_seconds=ref_s, warm_requests=len(warm),
+               gloo_requests=len(inputs["trace"]))
+    say("serve.mesh_phase", nccl_s=f"{nccl_s:.4g}", gloo_s=f"{spawn_s:.4g}",
+        reference_s=f"{ref_s:.4g}", trace_s=f"{gen_s:.4g}",
+        warm_requests=len(warm), requests=len(trace),
+        gloo_requests=len(inputs["trace"]), ranks=SHARD_MESH_RANKS,
+        n_shards=SERVE_MESH_S,
+        checks="virtual_vs_one_process,complete,no_shed,versions,"
+               "ranks_equal,launches")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the FindNeighbor chain walk against its plain version
 # ---------------------------------------------------------------------------
 
@@ -5381,13 +5764,18 @@ def serve_frontend(svc, clock=None):
     return front
 
 
-def serve_replay(torch, front, trace):
+def serve_replay(torch, front, trace, agreed: bool = False):
     """Open loop on the wall clock: each request submitted at its arrival
     time with ``step()`` pumped in between; a ticket's latency runs from
-    its arrival to the end of the step that completed it.  Returns
-    ([(arrival, ticket, latency s)], wall s)."""
+    its arrival to the end of the step that completed it.  ``agreed`` (a
+    frontend on a mesh): the loop waits on the time the frontend agreed at
+    its last step or submit (rank 0's clock), so every rank steps alike
+    with no collective of the loop's own, and a latency ends on this
+    rank's clock (``perf_counter``: one clock for the processes of a
+    host).  Returns ([(arrival, ticket, latency s)], wall s)."""
     clock = front.clock
-    t0 = clock()
+    t0 = front.now() if agreed else clock()
+    ticking = (lambda: front.agreed_time) if agreed else clock
     out, waiting = [], []
 
     def pump():
@@ -5399,14 +5787,14 @@ def serve_replay(torch, front, trace):
 
     for arr, req in trace:
         due = t0 + arr
-        while clock() < due:
+        while ticking() < due:
             pump()
         waiting.append((due, front.submit(req)))
         pump()
     while waiting:
         pump()
     torch.cuda.synchronize()
-    return out, clock() - t0
+    return out, (front.now() if agreed else clock()) - t0
 
 
 def warm_replay(svc, trace):
@@ -5818,10 +6206,13 @@ def kernels_line(report: dict) -> dict:
                 row["shard_launches"] = {
                     str(r["n_shards"]): r["launches"][name]
                     for r in report["shard"]["runs"]}
-                # phase 5e: each rank's launches on its own shards
+                # phases 5e and 5f: each rank's launches on its own shards
                 row["shard_launches"].update({
                     f"mesh {key}": counts[name] for key, counts in
                     report["shard_mesh"]["launches"].items()})
+                row["shard_launches"].update({
+                    f"serve mesh {key}": counts[name] for key, counts in
+                    report["serve_mesh"]["launches"].items()})
         if table is walk_meta:       # the bound's two terms, as measured
             for row, name in zip(out[-2:], walk_meta):
                 main = next(r for r in report[rows_key] if r["name"] == name)
@@ -5875,6 +6266,7 @@ def main(argv=None) -> int:
         shard_seconds=f"{report['shard_seconds']:.1f}",
         shard_max_memory_allocated=report["shard"]["max_memory_allocated"],
         shard_mesh_seconds=f"{report['shard_mesh_seconds']:.1f}",
+        serve_mesh_seconds=f"{report['serve_mesh_seconds']:.1f}",
         lm_seconds=f"{report['lm_seconds']:.1f}",
         moe_serve_seconds=f"{report['moe_serve_seconds']:.1f}",
         moe_serve_max_memory_allocated=report["moe_serve"][

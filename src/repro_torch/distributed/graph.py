@@ -52,6 +52,9 @@ On a mesh every function here, and every property of the global view
 in the same order.  Every host decision they make reads a value the ranks
 share (a replicated input or a reduced one), so the ranks take the same
 branches and a collective never waits on a rank that went elsewhere.
+Decisions read from a rank's own clock or device are agreed first:
+:func:`agree_step` and :func:`broadcast_host` carry the serving frontend's
+(:class:`repro_torch.serve.ServeFrontend`) on host tensors over gloo.
 """
 from __future__ import annotations
 
@@ -189,6 +192,49 @@ def agree(mesh, flag: bool) -> bool:
                      device=torch.device(mesh.device_type))
     dist.all_reduce(t, op=MAX)
     return bool(t.item())
+
+
+_CONTROL: dict = {}
+
+
+def _control_group():
+    """The group a host decision travels on: CPU tensors over gloo, so an
+    agreement never waits on the device's stream.  The world itself on a
+    gloo group; on another backend (NCCL) a gloo group over the world, made
+    once at the first agreement (every rank reaches it alike)."""
+    pg = dist.group.WORLD
+    if dist.get_backend() == "gloo":
+        return pg
+    hit = _CONTROL.get(id(pg))
+    if hit is None or hit[0] is not pg:
+        hit = _CONTROL[id(pg)] = (pg, dist.new_group(backend="gloo"))
+    return hit[1]
+
+
+def agree_step(mesh, now: float, not_ready: bool) -> Tuple[float, bool]:
+    """A serving step's host decisions, agreed in one float64 MAX over the
+    world (ranks outside the mesh included): rank 0's ``now`` (the other
+    ranks send -inf, so only rank 0's clock governs) and whether any rank's
+    ``not_ready`` holds (its shadow flush's device work is not done).  The
+    inputs themselves without a mesh, with no collective."""
+    if mesh is None:
+        return now, not_ready
+    lead = dist.get_rank() == 0
+    t = torch.tensor([now if lead else -math.inf, float(not_ready)],
+                     dtype=torch.float64)
+    dist.all_reduce(t, op=MAX, group=_control_group())
+    now, flag = t.tolist()
+    return now, bool(flag)
+
+
+def broadcast_host(mesh, obj):
+    """Rank 0's ``obj`` (a picklable host value) on every rank; ``obj``
+    itself without a mesh."""
+    if mesh is None:
+        return obj
+    box = [obj if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=_control_group())
+    return box[0]
 
 
 def _cross_shard_combine(local: torch.Tensor, combine: str,

@@ -10,7 +10,8 @@ the results afterwards with one synchronisation and host copy per batch
 Bit-identity is by construction: every replica holds the same tensors and
 runs the same read functions, so which replica served a batch shows only
 in the latency.  The replica count is clamped to the CUDA devices present
-(one on a one-card host; a host snapshot has one replica).
+(one on a one-card host; a host snapshot has one replica), and to one on
+a process-group mesh, where the ranks are the read fan-out.
 
 Epoch advance: the plane re-broadcasts when the service publishes a new
 snapshot (object identity).  A broadcast replaces whole replicas, and
@@ -25,16 +26,24 @@ import numpy as np
 import torch
 
 import repro_torch.obs as obs
+from repro_torch.distributed.graph import mesh_of
 from repro_torch.stream import snapshot as snap
 from repro_torch.stream.snapshot import Snapshot
 
 
 def read_replica_devices(n_replicas: int, home: torch.device,
-                         devices=None) -> List[torch.device]:
+                         devices=None, mesh=None) -> List[torch.device]:
     """Devices for the read plane's replicas: replica 0 on ``home`` (the
     snapshot's own device, served in place), then the other CUDA devices;
-    the count clamps to the devices present."""
-    if devices is None:
+    the count clamps to the devices present.
+
+    On a process-group ``mesh`` the plane holds ``home`` only: the ranks
+    are the read fan-out, each serving its own shards from the device it
+    owns, and a copy on another card would hold this rank's shards on a
+    device another rank owns and issue the read collectives from there."""
+    if mesh is not None:
+        devices = [home]
+    elif devices is None:
         devices = [home]
         if home.type == "cuda":
             devices += [torch.device("cuda", i)
@@ -51,7 +60,8 @@ def replicate_snapshot(snapshot: Snapshot, n_replicas: int,
     replica 0 is the snapshot itself, the others asynchronous copies of its
     tensors (:func:`repro_torch.stream.snapshot.device_replica`)."""
     home = snapshot.cbl.device
-    targets = read_replica_devices(n_replicas, home, devices)
+    targets = read_replica_devices(n_replicas, home, devices,
+                                   mesh=mesh_of(snapshot.cbl))
     return [snapshot if r == 0 else snap.device_replica(snapshot, dev)
             for r, dev in enumerate(targets)]
 

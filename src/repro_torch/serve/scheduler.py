@@ -49,18 +49,31 @@ Per step, in order:
 
 Every response is stamped with the ``(epoch, watermark)`` version it was
 served at.
+
+On a process group (a service whose shards lie on
+:func:`repro_torch.distributed.graph.shard_mesh`) one frontend runs on
+every rank, each submitted the same requests in the same order, and every
+read, sweep and flush ends in collectives that need every rank to call
+them alike.  So no rank decides from what only it can see: each step and
+each submit agrees its time and the flush's readiness in one collective
+(:func:`~repro_torch.distributed.graph.agree_step`), so rank 0's clock
+governs every rank and a shadow flush is published only when no rank
+reports it unready; a retune adopts rank 0's plan.
 """
 from __future__ import annotations
 
 import collections
+import math
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch.core.tuner import ServePlan, choose_serve_plan
+from repro_torch.distributed.graph import agree_step, broadcast_host, mesh_of
 from repro_torch.obs.metrics import LATENCY_BUCKETS_S, Registry
 from repro_torch.serve import overlay as ov
 from repro_torch.serve.admission import DEFER, SHED, AdmissionController
@@ -117,7 +130,17 @@ def _fetch(arrs: tuple) -> tuple:
 
 
 class ServeFrontend:
-    """Batched multi-tenant request frontend over a :class:`GraphService`."""
+    """Batched multi-tenant request frontend over a :class:`GraphService`.
+
+    Over a service on a process-group mesh, build one frontend on every
+    rank and submit every rank the same requests in the same order (there
+    is no network ingress: the caller replicates its traffic).  Only rank
+    0's ``clock`` is read: :meth:`submit`, :meth:`step`, :meth:`drain` and
+    :meth:`retune` run on its agreed reading (an explicit ``now`` is rank
+    0's too), so tickets, versions and flushes are the same on every rank.
+    ``report()["agreement"]`` counts the collectives that cost: one a step,
+    one a submit.
+    """
 
     def __init__(self, service: GraphService, plan: Optional[ServePlan] = None,
                  *, fanout: Tuple[int, ...] = (15, 10), clock=None,
@@ -183,6 +206,17 @@ class ServeFrontend:
                                  else float(retune_interval))
         self._last_retune: Optional[float] = None
         self._retunes = 0
+        # the process-group mesh the service's shards lie on (None: one
+        # process); agreements made by what asked for them, and their time
+        self.mesh = mesh_of(service.snapshot.cbl)
+        self._steps = 0
+        self._submits = 0
+        self._agreements = {"step": 0, "submit": 0, "now": 0, "retune": 0}
+        self._agree_s = 0.0
+        # the time the last step or submit ran at (rank 0's on a mesh,
+        # the same on every rank), for a caller's loop that every rank
+        # must run alike
+        self.agreed_time: Optional[float] = None
 
     # ---- tenancy ----------------------------------------------------------
 
@@ -227,7 +261,8 @@ class ServeFrontend:
         """
         if req.tenant not in self.tenants:
             self.register_tenant(req.tenant)
-        now = float(self.clock())
+        now, _ = self._agree("submit")
+        self._submits += 1
         ticket = Ticket(req, t_arrival=now)
         span = self._tenant_span.setdefault(req.tenant, [now, now])
         span[0] = min(span[0], now)
@@ -300,11 +335,50 @@ class ServeFrontend:
     def _queue_window(self, latency_class: str) -> float:
         return self.plan.windows[latency_class]
 
+    # ---- agreement across the ranks of a mesh -----------------------------
+
+    def _agree(self, what: str, now: Optional[float] = None,
+               not_ready: bool = False) -> Tuple[float, bool]:
+        """(time, any rank's flush not ready): ``now`` or the clock's
+        reading, rank 0's on a mesh, where one collective carries both (the
+        other ranks read no clock); the inputs themselves otherwise."""
+        if self.mesh is None:
+            out = (float(self.clock()) if now is None else float(now),
+                   not_ready)
+        else:
+            local = -math.inf
+            if dist.get_rank() == 0:
+                local = float(self.clock()) if now is None else float(now)
+            t0 = time.perf_counter()
+            out = agree_step(self.mesh, local, not_ready)
+            self._agree_s += time.perf_counter() - t0
+            self._agreements[what] += 1
+        self.agreed_time = out[0]
+        return out
+
+    def now(self) -> float:
+        """The time that governs this frontend: the clock's reading, rank
+        0's on a mesh (one collective).  A caller's loop that every rank
+        must run alike reads it, or ``agreed_time`` for free."""
+        return self._agree("now")[0]
+
+    def _flush_unready(self) -> bool:
+        """Polled once a step while a shadow flush is in flight: is its
+        device work still running on this rank?"""
+        return (self.service.flush_in_flight
+                and not self.service.flush_ready())
+
     # ---- the serving loop -------------------------------------------------
 
     def step(self, now: Optional[float] = None) -> int:
         """Dispatch everything due at ``now``; returns completions."""
-        now = float(self.clock()) if now is None else float(now)
+        now, unready = self._agree("step", now, self._flush_unready())
+        return self._step(now, unready)
+
+    def _step(self, now: float, flush_unready: bool) -> int:
+        """One step at an agreed ``now``; ``flush_unready``: a rank's
+        in-flight flush was still running when the step began."""
+        self._steps += 1
         done0 = self._completed
 
         # 1. re-offer admission-deferred requests (budgets refill with time)
@@ -320,8 +394,7 @@ class ServeFrontend:
         #    the upsert
         pressure = (self.service.pending_updates
                     >= self.plan.flush_pending_max)
-        if self.service.flush_in_flight and (pressure
-                                             or self.service.flush_ready()):
+        if self.service.flush_in_flight and (pressure or not flush_unready):
             self._finish_flush()
         if pressure:
             if self.plan.double_buffer:
@@ -368,13 +441,16 @@ class ServeFrontend:
         deadline, so a drain meters virtual time through budget waits too.
         """
         done0 = self._completed
-        now = float(self.clock())
+        now = -math.inf
         while any(len(q) for q in self._queues.values()) or self._deferred \
                 or self._inflight:
             # virtual time is monotone across rounds: budget refills meter
             # against the last *stepped* time, not the (possibly frozen)
-            # wall clock — else a parked request's retry ETA never arrives
-            now = max(now, float(self.clock()))
+            # wall clock — else a parked request's retry ETA never arrives;
+            # the round's clock reading is its step's agreement
+            read, unready = self._agree("step", None,
+                                        self._flush_unready())
+            now = max(now, read)
             deadlines = [q.next_deadline() for q in self._queues.values()
                          if len(q)]
             deadlines += [
@@ -383,7 +459,7 @@ class ServeFrontend:
                                          t.request.size, now)
                 for t in self._deferred]
             now = max(now, min(deadlines)) if deadlines else now
-            self.step(now)
+            self._step(now, unready)
         if flush:
             self._flush()
         return self._completed - done0
@@ -395,16 +471,29 @@ class ServeFrontend:
         log records the firing signal values).  Existing kind queues keep
         their bucket ladders — the batch shapes must stay bounded — so the
         ladder/window parts of the new plan apply to queues created later.
+
+        On a mesh rank 0 plans from its own signals and every rank adopts
+        that plan (a broadcast of its fields): no rank's own timings decide
+        anything elsewhere, and the plane keeps its one replica.
         """
-        now = float(self.clock()) if now is None else float(now)
-        self._last_retune = now
-        view = self.signals.view() if self.signals is not None else None
-        new_plan = choose_serve_plan(
-            self.plan.arrival_lanes_per_s / 8.0,
-            log_capacity=self.service._log.capacity,
-            high_watermark=self.service._high_watermark,
-            n_replicas=self.read_plane.n_replicas,
-            signals=view)
+        if now is None:
+            now, _ = self._agree("retune")
+        self._last_retune = float(now)
+        new_plan = None
+        if self.mesh is None or dist.get_rank() == 0:
+            view = self.signals.view() if self.signals is not None else None
+            new_plan = choose_serve_plan(
+                self.plan.arrival_lanes_per_s / 8.0,
+                log_capacity=self.service._log.capacity,
+                high_watermark=self.service._high_watermark,
+                n_replicas=self.read_plane.n_replicas,
+                signals=view,
+                max_replicas=None if self.mesh is None else 1)
+        if self.mesh is not None:
+            t0 = time.perf_counter()
+            new_plan = broadcast_host(self.mesh, new_plan)
+            self._agree_s += time.perf_counter() - t0
+            self._agreements["retune"] += 1
         if new_plan.n_replicas != self.read_plane.n_replicas:
             self.read_plane = ReadPlane(self.service.snapshot,
                                         new_plan.n_replicas)
@@ -797,4 +886,14 @@ class ServeFrontend:
             "slo": self.slo.summary() if self.slo is not None else {},
             "signals": (self.signals.report()
                         if self.signals is not None else {}),
+            "agreement": {
+                "mesh": self.mesh is not None,
+                "steps": self._steps,
+                "submits": self._submits,
+                "collectives": dict(self._agreements),
+                "per_step": self._agreements["step"] / max(self._steps, 1),
+                "per_submit": (self._agreements["submit"]
+                               / max(self._submits, 1)),
+                "seconds": self._agree_s,
+            },
         }

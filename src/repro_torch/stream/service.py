@@ -33,8 +33,10 @@ replicated, each rank's storage holds its own shards, and the flush's
 decisions read reduced values (the update stats, the reads of the delete
 keys, the maintenance statistics), so the ranks make the same
 collectives in the same order.  :meth:`GraphService.flush_ready` reads the
-rank's own device and may differ between ranks; callers on a group publish
-a shadow flush at points they agree on.
+rank's own device and may differ between ranks, so callers on a group
+publish a shadow flush at points they agree on:
+:class:`repro_torch.serve.ServeFrontend` polls it once a step on every rank
+and publishes only when no rank reports its flush unready.
 """
 from __future__ import annotations
 
