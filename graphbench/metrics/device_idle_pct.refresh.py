@@ -1,0 +1,7 @@
+"""device_idle_pct.refresh: the card's idle share of the traced window, in %
+(busy: union of kernels, copies and fills in the profiler's trace)."""
+from graphbench.metrics._common import idle_pct
+
+
+def read(rec):
+    return idle_pct(rec)
