@@ -42,6 +42,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+import repro_torch.obs as obs
 from repro_torch import backend
 from repro_torch.backend import resolve_impl
 from repro_torch.core.blockstore import NULL, I32, arange32
@@ -175,6 +176,11 @@ def sweep_plan(cbl: CBList, *, push: bool = True,
     """Lay ``cbl``'s lanes (``push``) and blocks (``pull``) out in
     destination order for the sum sweeps; counted in
     ``backend.PLAN_BUILDS``."""
+    with obs.span("engine.sweep_plan", cat="engine", push=push, pull=pull):
+        return _sweep_plan(cbl, push, pull)
+
+
+def _sweep_plan(cbl: CBList, push: bool, pull: bool) -> SweepPlan:
     backend.PLAN_BUILDS += 1
     st = cbl.store
     nv = cbl.capacity_vertices

@@ -242,7 +242,8 @@ def _fixpoint(ctx: ProgramContext, prog: VertexProgram, state, frontier,
     """The fixpoint loop every workload shares (a host loop)."""
     iters, cont = 0, True
     while iters < max_iters and cont:
-        state, frontier, cont = _step(ctx, prog, state, frontier, impl)
+        with obs.span("program.iter", cat="program"):
+            state, frontier, cont = _step(ctx, prog, state, frontier, impl)
         iters += 1
     return state, iters
 
@@ -253,15 +254,16 @@ def _retract_unsupported(ctx: ProgramContext, prog: VertexProgram, state,
     outside the anchor set that no in-neighbour's message reproduces is
     raised to +inf, to a true fixpoint (NV sweeps bound termination)."""
     sw = prog.sweeps[0]
-    anchor_mask, anchor_val = prog.anchor(ctx)
-    it, cont = 0, True
-    while it <= ctx.nv and cont:
-        cand = _run_sweep(ctx, sw, state, None, impl)
-        new = torch.where(anchor_mask, anchor_val,
-                          torch.where(state < cand, INF, state))
-        cont = _agreed(ctx, bool((new != state).any()))
-        state = new
-        it += 1
+    with obs.span("program.retract", cat="program"):
+        anchor_mask, anchor_val = prog.anchor(ctx)
+        it, cont = 0, True
+        while it <= ctx.nv and cont:
+            cand = _run_sweep(ctx, sw, state, None, impl)
+            new = torch.where(anchor_mask, anchor_val,
+                              torch.where(state < cand, INF, state))
+            cont = _agreed(ctx, bool((new != state).any()))
+            state = new
+            it += 1
     return state
 
 
@@ -290,25 +292,27 @@ def run_program(cbl, prog: VertexProgram, *, warm=None,
     # observability is off)
     obs.record_sweep(cbl, task=prog.task)
 
-    nv = cbl.capacity_vertices
-    live = arange32(nv, cbl.device) < cbl.n_vertices
-    ctx = ProgramContext(cbl=cbl, nv=nv, live=live, params=params, consts={},
-                         plan=_plan_for(cbl, prog, impl))
-    if prog.setup is not None:
-        ctx = ctx._replace(consts=prog.setup(ctx))
-    frontier_mode = prog.task == "frontier"
+    with obs.span("program.setup", cat="program", program=prog.name):
+        nv = cbl.capacity_vertices
+        live = arange32(nv, cbl.device) < cbl.n_vertices
+        ctx = ProgramContext(cbl=cbl, nv=nv, live=live, params=params,
+                             consts={}, plan=_plan_for(cbl, prog, impl))
+        if prog.setup is not None:
+            ctx = ctx._replace(consts=prog.setup(ctx))
+        frontier_mode = prog.task == "frontier"
 
-    if warm is None:
-        state = prog.init(ctx)
-        frontier = prog.frontier_init(ctx) if frontier_mode else None
-    else:
-        state = (prog.warm_init(ctx, warm)
-                 if prog.warm_init is not None else warm)
-        if prog.retract == "unsupported_min":
-            state = _retract_unsupported(ctx, prog, state, impl)
-        frontier = (prog.warm_frontier(ctx, state)
-                    if frontier_mode and prog.warm_frontier is not None
-                    else (prog.frontier_init(ctx) if frontier_mode else None))
+        if warm is None:
+            state = prog.init(ctx)
+            frontier = prog.frontier_init(ctx) if frontier_mode else None
+        else:
+            state = (prog.warm_init(ctx, warm)
+                     if prog.warm_init is not None else warm)
+            if prog.retract == "unsupported_min":
+                state = _retract_unsupported(ctx, prog, state, impl)
+            frontier = (prog.warm_frontier(ctx, state)
+                        if frontier_mode and prog.warm_frontier is not None
+                        else (prog.frontier_init(ctx) if frontier_mode
+                              else None))
 
     state, iters = _fixpoint(ctx, prog, state, frontier, int(max_iters), impl)
     out = prog.finalize(ctx, state) if prog.finalize is not None else state

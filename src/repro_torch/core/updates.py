@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import blockstore as bs
 from repro_torch.core.blockstore import I32, NULL, PAD, arange32, full32
 from repro_torch.core.cblist import CBList, exclusive_cumsum
@@ -52,8 +53,10 @@ def _locate(cbl: CBList, qsrc: torch.Tensor, qdst: torch.Tensor,
     absent: the ``chain_walk`` kernel on the card, its plain host loop on
     the CPU (first hit in chain order wins)."""
     st = cbl.store
-    return chain_walk.locate(st.keys, st.nxt, cbl.v_head, qsrc.contiguous(),
-                             qdst.contiguous(), active.contiguous())
+    with obs.span("updates.locate", cat="updates"):
+        return chain_walk.locate(st.keys, st.nxt, cbl.v_head,
+                                 qsrc.contiguous(), qdst.contiguous(),
+                                 active.contiguous())
 
 
 def read_edges(cbl: CBList, qsrc: torch.Tensor, qdst: torch.Tensor,
@@ -252,8 +255,10 @@ def batch_update_stats(cbl: CBList, src: torch.Tensor, dst: torch.Tensor,
         from repro_torch.distributed.graph import sharded_batch_update_stats
         return sharded_batch_update_stats(cbl, src, dst, w, op)
     w, op = _defaults(src, w, op)
-    cbl, n_del = _apply_deletes(cbl, src, dst, op == DELETE)
-    cbl, dropped = _apply_inserts(cbl, src, dst, w, op == INSERT)
+    with obs.span("updates.deletes", cat="updates"):
+        cbl, n_del = _apply_deletes(cbl, src, dst, op == DELETE)
+    with obs.span("updates.inserts", cat="updates"):
+        cbl, dropped = _apply_inserts(cbl, src, dst, w, op == INSERT)
     n_ins = (op == INSERT).sum().to(I32) - dropped
     return cbl, UpdateStats(dropped_edges=dropped, applied_inserts=n_ins,
                             applied_deletes=n_del)

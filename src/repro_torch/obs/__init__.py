@@ -25,9 +25,15 @@ Three pieces:
     costs a single flag check and a shared no-op object per call site.
 
 Enabling is dynamic (``enable()`` / ``disable()``), and ``REPRO_OBS=1``
-turns it on at import, the JAX package's switch.  ``REPRO_OBS_PROFILER=1``
-additionally mirrors every span into ``torch.profiler.record_function`` so
-host phase names appear inside device profiler captures.
+turns it on at import, the JAX package's switch.
+
+**Spans in a profiler capture.**  Any ``torch.profiler`` capture of a
+service shows its phases, with no switch: while a profiler records, every
+:func:`span` is a ``record_function`` range named ``repro.<name>``,
+whether this module is enabled or not, on the profiler's clock beside the
+kernels it launches.  With neither this module enabled nor a profiler
+recording, a span is the shared no-op and costs one more flag check (the
+profiler's own).
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ from repro_torch.obs.metrics import (LATENCY_BUCKETS_S, NULL, Registry,
 from repro_torch.obs.signals import (EMPTY_VIEW, SignalBus, SignalSummary,
                                SignalView)
 from repro_torch.obs.slo import Objective, SloTracker
-from repro_torch.obs.trace import NULL_SPAN, Tracer
+from repro_torch.obs.trace import (NULL_SPAN, ProfilerRange, Tracer,
+                                   profiling)
 
 __all__ = [
     "enabled", "enable", "disable", "registry", "tracer", "set_clock",
@@ -61,7 +68,7 @@ def _env_flag(name: str) -> bool:
 
 _enabled = _env_flag("REPRO_OBS")
 _registry = Registry()
-_tracer = Tracer(profiler_annotations=_env_flag("REPRO_OBS_PROFILER"))
+_tracer = Tracer()
 _signal_bus: Optional[SignalBus] = None
 
 
@@ -144,8 +151,11 @@ def series(name: str, maxlen: int = metrics_mod.DEFAULT_SERIES_WINDOW,
 # ---- tracing ---------------------------------------------------------------
 
 def span(name: str, cat: str = "host", **args):
-    """Span context manager; a shared no-op when disabled."""
-    return _tracer.span(name, cat=cat, **args) if _enabled else NULL_SPAN
+    """Span context manager: the tracer's when enabled, else the range
+    ``repro.<name>`` while a profiler records, else a shared no-op."""
+    if _enabled:
+        return _tracer.span(name, cat=cat, **args)
+    return ProfilerRange(name) if profiling() else NULL_SPAN
 
 
 def wait(x, name: str = "device.sync", **args):

@@ -18,9 +18,13 @@ device in its own span with ``cat="device"``, so device time is attributed
 explicitly, never smeared into whatever host phase happened to block
 first.
 
-When ``profiler_annotations`` is on, every span also enters a
-``torch.profiler.record_function`` so the same names show up inside a
-``torch.profiler`` capture (Perfetto device view).
+**On the profiler's clock.**  While a ``torch.profiler`` records, every
+span also enters ``torch.profiler.record_function("repro.<name>")``: the
+range sits in the profiler's trace beside the host operations and kernel
+launches it covers, on the profiler's own clock.  No switch of this module
+decides that; the profiler's own flag does (:func:`profiling`), so any
+capture of a service shows its phases.  Outside a capture nothing is
+entered.
 
 The clock is injectable (``Tracer(clock=...)``) so tests and trace replays
 run on a virtual timeline — the same pattern as the serve scheduler's
@@ -40,20 +44,29 @@ import time
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 # completed spans retained before new ones are dropped (a runaway loop must
 # not grow the trace without bound; drops are counted and reported)
 DEFAULT_CAPACITY = 65536
+# the profiler range of span ``name`` is ``PREFIX + name``
+PREFIX = "repro."
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records now (its own flag, one
+    attribute read)."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 class Tracer:
     """Records host spans on one logical track; exports Chrome JSON."""
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter,
-                 capacity: int = DEFAULT_CAPACITY,
-                 profiler_annotations: bool = False):
+                 capacity: int = DEFAULT_CAPACITY):
         self.clock = clock
         self.capacity = int(capacity)
-        self.profiler_annotations = bool(profiler_annotations)
         self.events: List[dict] = []      # completed spans + instants
         self.dropped = 0
         self._depth = 0
@@ -73,12 +86,11 @@ class Tracer:
 
         Yields a mutable record dict; ``record["dur"]`` holds the measured
         duration (seconds) after exit, so callers can feed the same number
-        into a metrics series without re-timing.
+        into a metrics series without re-timing.  While a profiler records
+        the span is also its :class:`ProfilerRange`.
         """
-        anno = None
-        if self.profiler_annotations:
-            import torch
-            anno = torch.profiler.record_function(name)
+        anno = ProfilerRange(name) if profiling() else None
+        if anno is not None:
             anno.__enter__()
         t0 = self.clock()
         if self._t0 is None:
@@ -117,7 +129,6 @@ class Tracer:
         """
         with self.span(name, cat="device", **args):
             for dev in _cuda_devices(x):
-                import torch
                 torch.cuda.synchronize(dev)
         return x
 
@@ -219,7 +230,6 @@ class Tracer:
 def _cuda_devices(x) -> set:
     """The CUDA devices of the tensors in ``x`` (nested tuples, lists and
     dicts; NamedTuples are tuples)."""
-    import torch
     found, stack = set(), [x]
     while stack:
         v = stack.pop()
@@ -255,3 +265,22 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+
+class ProfilerRange:
+    """A span as ``torch.profiler.record_function("repro.<name>")`` alone,
+    for a span taken while a profiler records and this module's tracer
+    does not; yields :data:`NULL_SPAN` as its record."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = torch.profiler.record_function(PREFIX + name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return NULL_SPAN
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False

@@ -374,15 +374,13 @@ class GraphService:
             return self._finish()
 
     def _begin(self) -> None:
-        with obs.span("flush.admission", cat="flush") as adm_rec:
+        with obs.span("flush.admission", cat="flush"):
             self._log, (s, d, w, op, valid) = ulog.drain(self._log)
             watermark = int(self._log.head)
             self._pending = 0
-        obs.histogram("flush.phase_s", obs.LATENCY_BUCKETS_S,
-                      phase="admission").observe(adm_rec.get("dur", 0.0))
         cbl = self._snap.cbl
 
-        with obs.span("flush.coalesce", cat="flush") as coal_rec:
+        with obs.span("flush.coalesce", cat="flush"):
             # cross-append coalescing: the drained stream is FIFO, the last
             # op per key is the net effect
             keep = ulog._coalesce_mask(s, d, valid)
@@ -397,8 +395,6 @@ class GraphService:
             if del_keys.numel():
                 found, _ = read_edges(cbl, s[del_keys], d[del_keys])
                 net_deletes = int(found.sum())
-        obs.histogram("flush.phase_s", obs.LATENCY_BUCKETS_S,
-                      phase="coalesce").observe(coal_rec.get("dur", 0.0))
         obs.counter("flush.pending_inserts").inc(n_ins)
         obs.counter("flush.net_deletes").inc(net_deletes)
 
@@ -436,7 +432,9 @@ class GraphService:
 
         grow_retries = 0
         while True:
-            dropped = int(obs.wait(ustats.dropped_edges, "flush.upsert.sync"))
+            with obs.span("flush.dropped_read", cat="flush"):
+                dropped = int(obs.wait(ustats.dropped_edges,
+                                       "flush.upsert.sync"))
             if dropped == 0:
                 break
             if grow_retries >= MAX_GROW_RETRIES:
@@ -469,7 +467,7 @@ class GraphService:
         # policy.stats_period > 1 runs the headroom-only decide on off-cycle
         # flushes; with a signal bus the policy is churn-adapted first, and
         # decide and apply run under the same adapted K
-        with obs.span("flush.maintenance", cat="flush") as maint_rec:
+        with obs.span("flush.maintenance", cat="flush"):
             policy = self._policy
             if self._signals is not None:
                 policy = policy.adapted(self._signals.view())
@@ -487,11 +485,11 @@ class GraphService:
                     self.stats.seals += 1
                 else:
                     self.stats.grows += 1
-        obs.histogram("flush.phase_s", obs.LATENCY_BUCKETS_S,
-                      phase="maintenance").observe(maint_rec.get("dur", 0.0))
 
-        self._snap = snap.advance(self._snap, cbl, sh.watermark)
-        applied_inserts = int(ustats.applied_inserts)
+        with obs.span("flush.publish", cat="flush"):
+            self._snap = snap.advance(self._snap, cbl, sh.watermark)
+            applied_inserts = int(ustats.applied_inserts)
+            epoch = int(self._snap.epoch)
         self.stats.flushes += 1
         self.stats.applied_inserts += applied_inserts
         self.stats.applied_deletes += sh.net_deletes
@@ -499,11 +497,11 @@ class GraphService:
         self._deletes_applied += sh.net_deletes
         obs.counter("flush.count").inc()
         obs.counter("flush.applied_inserts").inc(applied_inserts)
-        obs.gauge("service.epoch").set(int(self._snap.epoch))
+        obs.gauge("service.epoch").set(epoch)
         if self._signals is not None:
             # flush-cadence signals, after this flush's counters landed
             self._signals.tick_flush()
-        return FlushReport(epoch=int(self._snap.epoch),
+        return FlushReport(epoch=epoch,
                            watermark=sh.watermark,
                            applied_inserts=applied_inserts,
                            applied_deletes=sh.net_deletes,
@@ -552,17 +550,19 @@ class GraphService:
             return cached[3]
 
         impl = choose_engine_impl(cbl, prog)
-        warm = None
-        if cached is not None and prog.warm_validity != "never":
-            if not (prog.warm_validity == "inserts_only"
-                    and self._deletes_applied > cached[1]):
-                warm = _pad_warm(cached[3], cbl.capacity_vertices,
-                                 prog.warm_fill)
+        warm_start = (cached is not None and prog.warm_validity != "never"
+                      and not (prog.warm_validity == "inserts_only"
+                               and self._deletes_applied > cached[1]))
         call_kw = dict(kw)
         if prog.needs_source:
             call_kw["source"] = source
-        out, self.last_iterations = run_program(
-            cbl, prog, warm=warm, impl=impl, return_stats=True, **call_kw)
+        with obs.span("service.analytics", cat="analytics", program=name,
+                      warm=warm_start):
+            warm = (_pad_warm(cached[3], cbl.capacity_vertices,
+                              prog.warm_fill) if warm_start else None)
+            out, self.last_iterations = run_program(
+                cbl, prog, warm=warm, impl=impl, return_stats=True,
+                **call_kw)
 
         self._cache[key] = (epoch, self._deletes_applied, dict(kw), out)
         return out

@@ -172,7 +172,8 @@ def test_service_flush_counters_match_the_reference():
         got_counters["locality.sweeps{task=scan_all}"] == 1
     assert {"service.flush", "flush.admission", "flush.coalesce",
             "flush.upsert", "flush.maintenance", "maint.decide",
-            "service.apply"} <= got_spans <= ref_spans
+            "service.apply"} <= got_spans
+    assert got_spans - PORT_SPANS <= ref_spans
     assert got_gauges["service.epoch"] == ref_gauges["service.epoch"]
     for k in ("locality.chain_hops_mean", "locality.blocks_per_edge",
               "locality.contiguity"):
@@ -186,11 +187,102 @@ def test_observability_is_off_by_default():
     assert tobs.record_sweep(None) is None
 
 
+def _cpu_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
 def test_trace_spans_enter_profiler_annotations():
-    tr = tobs.Tracer(profiler_annotations=True)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]) as prof:
+    """While a profiler records, a tracer's span and an ``obs.span`` with
+    obs off are both ``repro.<name>`` ranges; with no profiler an
+    ``obs.span`` with obs off is the shared no-op."""
+    assert not tobs.enabled()
+    tr = tobs.Tracer()
+    with _cpu_profile() as prof:
         with tr.span("flush.upsert", cat="flush"):
             torch.ones(4).sum()
-    assert "flush.upsert" in {e.key for e in prof.key_averages()}
+        with tobs.span("flush.coalesce", cat="flush") as rec:
+            torch.ones(4).sum()
+    keys = {e.key for e in prof.key_averages()}
+    assert {"repro.flush.upsert", "repro.flush.coalesce"} <= keys
+    assert rec is tobs.NULL_SPAN
     assert [e["name"] for e in tr.events] == ["flush.upsert"]
+    assert tobs.span("flush.coalesce") is tobs.NULL_SPAN
+
+
+# the port's spans the JAX package does not have: the flush's dropped
+# read and publish, the upsert's parts and the analytics path
+PORT_SPANS = {"flush.dropped_read", "flush.publish", "updates.locate",
+              "updates.deletes", "updates.inserts", "service.analytics",
+              "program.setup", "program.iter", "program.retract",
+              "engine.sweep_plan"}
+
+
+def _service_round(svc):
+    """One apply + flush (inserts and deletes of present edges) and one
+    PageRank on ``svc``."""
+    src, dst, _ = graph(seed=2)
+    rng = np.random.default_rng(5)
+    i = rng.integers(0, len(src), 60)
+    us = np.concatenate([src[i], rng.integers(0, NV, 60)]).astype(np.int32)
+    ud = np.concatenate([dst[i], rng.integers(0, NV, 60)]).astype(np.int32)
+    op = np.repeat(np.array([-1, 1], np.int32), 60)
+    svc.apply(us, ud, None, op)
+    svc.flush()
+    svc.analytics("pagerank", max_iters=4)
+
+
+def _service(**kw):
+    src, dst, w = graph(seed=2)
+    return TService.from_coo(src, dst, w, num_vertices=NV, block_width=8,
+                             log_capacity=256, device="cpu", **kw)
+
+
+def _within(ranges, outer, inner):
+    """Some ``inner`` range lies inside some ``outer`` range."""
+    return any(o0 <= i0 and i1 <= o1
+               for on, o0, o1 in ranges if on == outer
+               for n, i0, i1 in ranges if n == inner)
+
+
+def test_service_ranges_under_a_cpu_profiler():
+    """A CPU profiler over one round of the service sees the flush's and
+    the analytics' ranges, nested where the work happens."""
+    from repro_torch.core.tuner import choose_engine_impl
+    svc = _service()
+    with _cpu_profile() as prof:
+        _service_round(svc)
+    ranges = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.name.startswith("repro.")]
+    names = [n for n, _, _ in ranges]
+    assert _within(ranges, "repro.service.flush", "repro.flush.coalesce")
+    assert _within(ranges, "repro.flush.coalesce", "repro.updates.locate")
+    assert _within(ranges, "repro.flush.upsert", "repro.updates.inserts")
+    assert _within(ranges, "repro.updates.deletes", "repro.updates.locate")
+    for name in ("flush.admission", "maint.decide", "flush.dropped_read",
+                 "flush.maintenance", "flush.publish"):
+        assert _within(ranges, "repro.service.flush", f"repro.{name}"), name
+    assert _within(ranges, "repro.service.analytics", "repro.program.iter")
+    planned = choose_engine_impl(svc.snapshot.cbl) == "cuda"
+    assert ("repro.engine.sweep_plan" in names) == planned
+    assert names.count("repro.program.iter") == svc.last_iterations
+    assert not tobs.tracer().events           # obs stayed off
+
+
+def test_no_record_function_without_a_switch(monkeypatch):
+    """With obs off and no profiler recording, no span enters a
+    ``record_function``."""
+    calls = []
+    real = torch.profiler.record_function
+
+    def counting(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    svc = _service()
+    _service_round(svc)
+    assert calls == []
+    with _cpu_profile():
+        _service_round(svc)
+    assert calls                              # the same patch counts
