@@ -53,6 +53,12 @@ Phases, one report line each:
    versions never decrease per tenant and kind in submission order, the
    walk and graph kernels launched, and once, with a pending window,
    overlay point and degree reads equal to flush-then-read bit for bit;
+5b2. the kept sweep plan on phase 4's service: three rounds of 10^5
+   updates (half deletes), each a flush and a warm PageRank.  Every job
+   patches the kept plan, each patch kernel launches at most once a patch,
+   and the plan after the last is bit for bit a fresh build.  (Phase 4's
+   first flush grows the vertex capacity, which drops the plan its cold
+   PageRank kept, so its warm PageRank builds one.)
 5c. the tier phase (sealed CSR runs under the CBList delta).  From
    ``tier_from_cbl`` of the service's final CBList, seal 0.5, 0.9 and 1.0
    of the edges (low-degree vertices first, ``benchmarks/bench_tier.py``'s
@@ -145,6 +151,17 @@ Phases, one report line each:
    epoch advances, agreements a step and a submit and their ms, launches,
    peak memory, beside the serve phase's QPS and p99 -- the code path on
    one card, not a multi-card speed;
+5g. the sweep plan's patch at Graph500 scale 24, the graph state freed: a
+   lanes stream sorted by (dst, src) of an R-MAT's 2^28 distinct edges over
+   2^24 vertices, and a flush's 10^5 records (half deletes of live edges,
+   half fresh R-MAT inserts).  ``plan_patch_locate`` and
+   ``plan_patch_merge`` each bit-identical to their plain versions (run on
+   the card) and to the stream sorted afresh, timed beside them, with the
+   merge's bytes bound (16 B a lane) and both kernels' launches; then a
+   CBList of that graph: the full build and the whole patch (records
+   joined, coalesced, sorted, located, merged) at 10^5 to 3 x 10^7 records
+   of one flush, host-synchronised ms, where the service's rule to drop
+   its kept plan comes from;
 6. LM serving, once the graph state is freed: Gemma-2 27B at full width
    (d_model 4608, 32 / 16 heads, d_ff 36864, vocab 256000), depth cut to 8
    layers, bf16 weights from ``--seed``.  With the attention launch counters
@@ -377,6 +394,8 @@ TF32_TENSOR_OPS_PER_S = 495e12                     # dense TF32 tensor cores
 # TF32 products (hi.hi + hi.lo + lo.hi) for each float32 one
 SPLIT_TF32_PASSES = 3
 UPDATES_PER_ROUND, ROUNDS, DELETE_FRAC = 1_000_000, 3, 0.2
+# the kept sweep plan's refreshes on the same service (kept_plan_phase)
+KEPT_PLAN_ROUNDS, KEPT_PLAN_UPDATES = 3, 100_000
 READ_PAIRS = 65_536
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
 # LM serving: Gemma-2 27B at full width, depth cut to 8 layers
@@ -432,6 +451,13 @@ WALK_STEP_NS = 150.0
 # sync a chain step (this script, NVIDIA H100 80GB HBM3, 700 W)
 HOST_LOOP_FLUSH_S_PER_1M, HOST_LOOP_READ_PAIRS_PER_S = ("1.97-2.52",
                                                         "0.5e5-1.5e5")
+# phase 5g: the sweep plan's patch at Graph500 scale 24 (2^24 vertices,
+# 2^28 edges) under a flush of the refresh cells' 10^5 records
+PLAN_PATCH_SCALE, PLAN_PATCH_EDGES, PLAN_PATCH_RECORDS = 24, 28, 100_000
+PLAN_PATCH_KERNELS = ("plan_patch_locate", "plan_patch_merge")
+# ... and the whole patch against a build over a store of that graph, at
+# these counts of one flush's records (the service's drop rule)
+PLAN_PATCH_SWEEP = (10**5, 10**6, 10**7, 3 * 10**7)
 # the bf16 serve path; the float32 kernel is driven by a float32 serve at
 # the smoke config
 LM_KERNELS = ("flash_attention_wgmma", "paged_attention")
@@ -1072,6 +1098,9 @@ def service_phase(torch, timer, dev, svc, coo, seed, report, profile=False):
     out["launches"] = {k: backend.LAUNCHES[k] for k in GRAPH_KERNELS}
     out["walk_launches"] = {k: backend.LAUNCHES[k] for k in WALK_KERNELS}
     out["plan_builds"] = backend.PLAN_BUILDS
+    out["plan_patches"] = backend.PLAN_PATCHES
+    out["patch_launches"] = {k: backend.LAUNCHES[k]
+                             for k in PLAN_PATCH_KERNELS}
     report["service"] = out
     return ranks, ranks_warm, record, shard_ref
 
@@ -4140,6 +4169,150 @@ def ep_mesh_phase(torch, timer, dev, seed, report) -> None:
         seconds=f"{report['mesh_ep']['seconds']:.4g}")
 
 
+def plan_patch_phase(torch, timer, dev, seed, report,
+                     scale_log2=PLAN_PATCH_SCALE,
+                     edges_log2=PLAN_PATCH_EDGES,
+                     records=PLAN_PATCH_RECORDS) -> None:
+    """Phase 5g (module docstring): the two plan-patch kernels at Graph500
+    scale 24's stream, each against its plain version and the stream sorted
+    afresh; rows in ``report["plan_patch"]``."""
+    from repro_torch import backend
+    from repro_torch.data.synthetic import rmat_edges
+    from repro_torch.kernels.plan_patch import (locate_lanes,
+                                                locate_lanes_ref, merge_lanes,
+                                                merge_lanes_ref)
+    nv, ne = 1 << scale_log2, 1 << edges_log2
+    src, dst = rmat_edges(nv, ne, seed=seed + 11, device=dev)
+    key = torch.sort(dst.long() * nv + src.long()).values
+    del src, dst
+    V = key.numel()
+    lanes_src = (key % nv).to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    w = 0.1 + 0.9 * torch.rand(V, generator=gen, device=dev)
+    row_ptr = torch.searchsorted(
+        key, torch.arange(nv + 1, device=dev) * nv, out_int32=True)
+    # half deletes of live keys, half fresh inserts (a live key among them
+    # is a re-insert), each key once, in (dst, src) order
+    half = records // 2
+    dels = key[torch.randperm(V, generator=gen, device=dev)[:half]]
+    ins_src, ins_dst = rmat_edges(nv, half, seed=seed + 13, device=dev)
+    ins_key = ins_dst.long() * nv + ins_src.long()
+    rkey = torch.unique(torch.cat([dels, ins_key]))      # sorted, each once
+    is_ins = torch.isin(rkey, ins_key)
+    del dels, ins_src, ins_dst, ins_key
+    rdst, rsrc = (rkey // nv).to(torch.int32), (rkey % nv).to(torch.int32)
+    rw = 0.1 + 0.9 * torch.rand(rkey.numel(), generator=gen, device=dev)
+
+    before = {k: backend.LAUNCHES[k] for k in PLAN_PATCH_KERNELS}
+    pos, found = locate_lanes(lanes_src, row_ptr, rdst, rsrc)
+    pos_ref, found_ref = locate_lanes_ref(lanes_src, row_ptr, rdst, rsrc)
+    check(torch.equal(pos, pos_ref) and torch.equal(found, found_ref),
+          "plan_patch_locate differs from its plain version")
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    cum_found = torch.cat([zero, torch.cumsum(found, 0, dtype=torch.int32)])
+    cum_ins = torch.cat([zero, torch.cumsum(is_ins, 0, dtype=torch.int32)])
+    n_found, n_ins = int(cum_found[-1]), int(cum_ins[-1])
+    lanes = V - n_found + n_ins
+    new_src, new_w = merge_lanes(lanes_src, w, pos, cum_found, cum_ins, rsrc,
+                                 rw, lanes)
+    ref_src, ref_w = merge_lanes_ref(lanes_src, w, pos, cum_found, cum_ins,
+                                     rsrc, rw, lanes)
+    check(torch.equal(new_src, ref_src) and torch.equal(new_w, ref_w),
+          "plan_patch_merge differs from its plain version")
+    del ref_src, ref_w
+    # the stream sorted afresh from the patched edge set
+    kept = torch.ones(V, dtype=torch.bool, device=dev)
+    kept[pos[found].long()] = False
+    fresh_key, order = torch.sort(torch.cat([key[kept], rkey[is_ins]]))
+    fresh_w = torch.cat([w[kept], rw[is_ins]])[order]
+    check(torch.equal(new_src, (fresh_key % nv).to(torch.int32))
+          and torch.equal(new_w, fresh_w),
+          "the patched stream differs from the stream sorted afresh")
+    del kept, fresh_key, order, fresh_w
+    launches = {k: backend.LAUNCHES[k] - before[k] for k in PLAN_PATCH_KERNELS}
+    check(launches == {k: 1 for k in PLAN_PATCH_KERNELS},
+          f"plan patch launches {launches}, not one a kernel")
+    K = rkey.numel()
+    # the locate: each record's key read, a position and a flag written;
+    # the lanes it searches are a few sectors each (not counted)
+    loc_ms, loc_by = bound_ms(K * 8 + K * 5, 0)
+    # the merge: the old stream read once and the new one written once
+    # (8 B a lane each), the records read once
+    mer_ms, mer_by = bound_ms(V * 8 + lanes * 8 + K * 20, 0)
+    rows = [
+        dict(name="plan_patch_locate", lanes=V, records=K, found=n_found,
+             ms=timer.ms(lambda: locate_lanes(lanes_src, row_ptr, rdst,
+                                              rsrc)),
+             plain_ms=timer.ms(lambda: locate_lanes_ref(lanes_src, row_ptr,
+                                                        rdst, rsrc), 3),
+             bound_ms=loc_ms, bound_by=loc_by),
+        dict(name="plan_patch_merge", lanes=V, new_lanes=lanes, records=K,
+             inserts=n_ins,
+             ms=timer.ms(lambda: merge_lanes(lanes_src, w, pos, cum_found,
+                                             cum_ins, rsrc, rw, lanes)),
+             plain_ms=timer.ms(lambda: merge_lanes_ref(
+                 lanes_src, w, pos, cum_found, cum_ins, rsrc, rw, lanes), 3),
+             bound_ms=mer_ms, bound_by=mer_by)]
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        say("plan_patch", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                             for k, v in row.items()})
+    report["plan_patch"] = rows
+    del (key, lanes_src, w, row_ptr, rkey, is_ins, rdst, rsrc, rw, pos,
+         found, new_src, new_w)
+    plan_patch_vs_build(torch, timer, dev, seed, report, nv, ne)
+
+
+def plan_patch_vs_build(torch, timer, dev, seed, report, nv, ne,
+                        counts=PLAN_PATCH_SWEEP) -> None:
+    """Phase 5g's second half: on a CBList of an R-MAT of ``ne`` edges over
+    ``nv`` vertices, the full lanes build and the whole patch of its plan
+    (``engine.patch_plan``) at each count of one flush's records (half
+    deletes of live edges, half fresh R-MAT inserts), each the best of 3
+    host-synchronised calls; in ``report["plan_patch_vs_build"]``."""
+    from repro_torch import backend
+    from repro_torch.core.cblist import blocks_needed, build_from_coo
+    from repro_torch.core.engine import patch_plan, sweep_plan
+    from repro_torch.core.updates import DELETE, INSERT
+    from repro_torch.data.synthetic import rmat_edges
+    src, dst = rmat_edges(nv, ne, seed=seed + 11, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    demand = blocks_needed(src, nv, 32)
+    cbl = build_from_coo(src, dst, torch.rand(src.numel(), generator=gen,
+                                              device=dev),
+                         num_vertices=nv, block_width=32,
+                         num_blocks=demand + demand // 2 + nv // 8)
+
+    def best_ms(fn):
+        fn()
+        return min(timer.wall(fn)[1] for _ in range(3)) * 1e3
+
+    plan = sweep_plan(cbl, pull=False)
+    out = dict(lanes=plan.src.numel(),
+               build_ms=best_ms(lambda: sweep_plan(cbl, pull=False)))
+    patch_ms = {}
+    i32 = dict(dtype=torch.int32, device=dev)
+    for n in counts:
+        half = n // 2
+        pick = torch.randint(0, src.numel(), (half,), generator=gen,
+                             device=dev)
+        fs, fd = rmat_edges(nv, n - half, seed=seed + 15 + n, device=dev)
+        rec = (torch.cat([src[pick], fs]), torch.cat([dst[pick], fd]),
+               torch.rand(half + fs.numel(), generator=gen, device=dev),
+               torch.cat([torch.full((half,), DELETE, **i32),
+                          torch.full((fs.numel(),), INSERT, **i32)]))
+        b0, p0 = backend.PLAN_BUILDS, backend.PLAN_PATCHES
+        patch_ms[n] = best_ms(lambda: patch_plan(cbl, plan, [rec]))
+        check(backend.PLAN_BUILDS == b0 and backend.PLAN_PATCHES == p0 + 4,
+              f"the patch of {n} records built its plan")
+        del pick, fs, fd, rec
+    out["patch_ms"] = patch_ms
+    report["plan_patch_vs_build"] = out
+    say("plan_patch.vs_build", lanes=out["lanes"],
+        build_ms=f"{out['build_ms']:.4g}",
+        **{f"patch_ms_{n}": f"{v:.4g}" for n, v in patch_ms.items()})
+
+
 def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     """Phases 1-5f: the GraphService at LiveJournal size, its serve, tier
     and shard phases, the last two on a process group."""
@@ -4209,6 +4382,11 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
         check(n > 0, f"kernel {name} never launched on the main path")
     check(report["service"]["walk_launches"]["chain_walk_locate"] > 0,
           "chain_walk never launched on the service's flushes and reads")
+    # a patch launches each patch kernel at most once (none without records)
+    patches = report["service"]["plan_patches"]
+    for name, n in report["service"]["patch_launches"].items():
+        check(n <= patches, f"kernel {name} launched {n} times in "
+              f"{patches} plan patches on the main path")
     report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     rounds = report["service"]["rounds"]
     vs = dict(
@@ -4224,7 +4402,9 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
         host_loop_read_pairs_per_s=HOST_LOOP_READ_PAIRS_PER_S,
         walk_launches=vs["walk_launches"])
     say("checks", ranks_sum=f"{total:.6f}", torch_vs_cuda_max_rel=f"{rel:.3e}",
-        launches=launches, plan_builds=report["service"]["plan_builds"])
+        launches=launches, plan_builds=report["service"]["plan_builds"],
+        plan_patches=report["service"]["plan_patches"],
+        patch_launches=report["service"]["patch_launches"])
     say("pagerank.routes",
         **{f"{k}_ms_per_it": f"{v['ms_per_iteration']:.4g}"
            for k, v in per_it.items()},
@@ -4238,6 +4418,7 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     report["walk_kernels"] = walk_kernel_checks(torch, timer, dev,
                                                 svc.snapshot.cbl, seed)
     serve_phase(torch, timer, dev, svc, seed, report, profile)
+    kept_plan_phase(torch, timer, dev, svc, seed, report)
 
     # the tier phase: sealed fractions of the final CBList, then (with the
     # untiered service freed) the tiered twin of the service
@@ -4277,6 +4458,61 @@ def graph_phases(torch, timer, dev, scale, seed, profile, report) -> None:
     report["serve_mesh"] = serve_mesh_phase(
         torch, timer, dev, (src, dst, w), nv, report, seed)
     report["serve_mesh_seconds"] = time.perf_counter() - t0
+
+
+def kept_plan_phase(torch, timer, dev, svc, seed, report) -> None:
+    """Phase 5b2 (module docstring): on the service after its rounds and
+    the serve phase, KEPT_PLAN_ROUNDS rounds of KEPT_PLAN_UPDATES updates (half fresh
+    inserts, half deletes of live edges, as the benchmark's refresh cells
+    send), a flush and a warm PageRank each.  Every round's job patches
+    the kept sweep plan, each patch kernel launches at most once a patch,
+    and the plan after the last is bit for bit a fresh build; in
+    ``report["service"]["kept_plan"]``."""
+    from repro_torch import backend
+    from repro_torch.core.cblist import to_coo
+    from repro_torch.core.engine import sweep_plan
+    from repro_torch.data.synthetic import update_stream
+    cbl = svc.snapshot.cbl
+    ls, ld, _, valid = to_coo(cbl)
+    b0, p0 = backend.PLAN_BUILDS, backend.PLAN_PATCHES
+    l0 = {k: backend.LAUNCHES[k] for k in PLAN_PATCH_KERNELS}
+    svc.analytics("pagerank")            # keeps a plan of this epoch
+    jobs = []
+    for s, d, w, op in update_stream(int(cbl.n_vertices), (ls[valid],
+                                                           ld[valid]),
+                                     KEPT_PLAN_UPDATES, KEPT_PLAN_ROUNDS,
+                                     delete_frac=0.5, seed=seed + 21,
+                                     device=dev):
+        svc.apply(s, d, w, op)
+        svc.flush()
+        b, p = backend.PLAN_BUILDS, backend.PLAN_PATCHES
+        _, sec = timer.wall(lambda: svc.analytics("pagerank"))
+        jobs.append(dict(seconds=sec, iterations=svc.last_iterations,
+                         builds=backend.PLAN_BUILDS - b,
+                         patches=backend.PLAN_PATCHES - p))
+    del ls, ld, valid
+    out = dict(builds=backend.PLAN_BUILDS - b0,
+               patches=backend.PLAN_PATCHES - p0,
+               launches={k: backend.LAUNCHES[k] - l0[k]
+                         for k in PLAN_PATCH_KERNELS}, jobs=jobs)
+    check(all(j["patches"] == 1 and j["builds"] == 0 for j in jobs),
+          f"the refreshes' jobs did not each patch the kept plan: {jobs}")
+    for name, n in out["launches"].items():
+        check(0 < n <= out["patches"], f"kernel {name} launched {n} times "
+              f"in {out['patches']} plan patches on the main path")
+    held, fresh = svc._held, sweep_plan(svc.snapshot.cbl, pull=False)
+    check(held is not None and all(
+        torch.equal(getattr(held, k).view(torch.int32),
+                    getattr(fresh, k).view(torch.int32))
+        for k in ("src", "w", "row_ptr")),
+        "the kept plan differs from a fresh build of its store")
+    del held, fresh
+    report["service"]["kept_plan"] = out
+    say("service.kept_plan", builds=out["builds"], patches=out["patches"],
+        patch_launches=out["launches"],
+        job_ms="/".join(f"{j['seconds'] * 1e3:.4g}" for j in jobs),
+        iterations="/".join(str(j["iterations"]) for j in jobs),
+        equals_fresh_build=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5974,7 +6210,12 @@ def run(report: dict, scale: float = 1.0, seed: int = 0,
     t0 = time.perf_counter()
     graph_phases(torch, timer, dev, scale, seed, profile, report)
     report["graph_seconds"] = time.perf_counter() - t0
-    gc.collect()                       # the graph state goes before the LM's
+    gc.collect()                       # the graph state goes before 5g's
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plan_patch_phase(torch, timer, dev, seed, report)
+    report["plan_patch_seconds"] = time.perf_counter() - t0
+    gc.collect()                       # 5g's state goes before the LM's
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lm_phase(torch, timer, dev, seed, report, clock_mhz, profile)

@@ -16,8 +16,8 @@
 * :data:`LAUNCHES` — one integer per kernel, bumped by its wrapper where it
   launches, so a run can show that its main path went through the kernel
   (a replayed CUDA graph, ``launch.serve.DecodeGraph``, adds the launches
-  its capture counted); :data:`PLAN_BUILDS` counts the engine's sweep plans
-  the same way.
+  its capture counted); :data:`PLAN_BUILDS` and :data:`PLAN_PATCHES` count
+  the engine's sweep plans built and patched the same way.
 """
 from __future__ import annotations
 
@@ -50,6 +50,10 @@ _SIGNATURES = {
                                                           _VP)),
     "block_gather": ("block_gather_f32", (_VP, _VP, _VP, _I64, _I64, _I64,
                                           _VP)),
+    # the same entry point for the sweep plan's copy of the blocks in owner
+    # order (``core.engine``), counted apart from the sweeps' gathers
+    "plan_block_gather": ("block_gather_f32", (_VP, _VP, _VP, _I64, _I64,
+                                               _I64, _VP)),
     # float32 on the tensor cores (split TF32): q, k, v, o, workspace,
     # workspace floats, B, H, KVH, S, D, (batch, head, row) strides of q, k
     # and v, scale, causal, window, softcap, stream
@@ -78,10 +82,20 @@ _SIGNATURES = {
     # keys, count, nxt, heads, ranks, out, V, k, width, stream
     "chain_walk_rank": ("chain_walk_rank",
                         (_VP,) * 6 + (_I64, _I32, _I32, _VP)),
+    # src, row_ptr, rdst, rsrc, pos, found, n, stream
+    "plan_patch_locate": ("plan_patch_locate", (_VP,) * 6 + (_I64, _VP)),
+    # src, w, V, pos, cum_found, cum_ins, rsrc, rw, n, tile_lo, new_src,
+    # new_w, stream
+    "plan_patch_merge": ("plan_patch_merge",
+                         (_VP, _VP, _I64) + (_VP,) * 5
+                         + (_I64,) + (_VP,) * 4),
 }
 # the source of a kernel whose name is not its source's stem
-_SOURCES = {"chain_walk_locate": "chain_walk",
-            "chain_walk_rank": "chain_walk"}
+_SOURCES = {"plan_block_gather": "block_gather",
+            "chain_walk_locate": "chain_walk",
+            "chain_walk_rank": "chain_walk",
+            "plan_patch_locate": "plan_patch",
+            "plan_patch_merge": "plan_patch"}
 
 # C functions that size a kernel's buffers and launch nothing: name ->
 # (source, symbol, argument types), each returning a 64-bit count
@@ -90,6 +104,9 @@ _QUERIES = {
     "flash_attention_workspace": ("flash_attention",
                                   "flash_attention_workspace_floats",
                                   (_I32,) * 5),
+    # tiles of the plan patch's merge over V old lanes (its scratch holds
+    # one int more): V
+    "plan_patch_tiles": ("plan_patch", "plan_patch_tiles", (_I64,)),
 }
 
 # the element-type flag of the attention kernels' entry points
@@ -97,8 +114,10 @@ DTYPE_FLAGS = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 # sweep plans built (``core.engine.sweep_plan``): one per ``run_program`` of
-# a program with a sum sweep on the kernel route
+# a program with a sum sweep on the kernel route, save where a plan kept
+# across snapshots is patched instead (``PLAN_PATCHES``)
 PLAN_BUILDS = 0
+PLAN_PATCHES = 0
 
 _kernels: Dict[str, ctypes._CFuncPtr] = {}
 _queries: Dict[str, ctypes._CFuncPtr] = {}
@@ -108,11 +127,11 @@ last_build_seconds_by_source: Dict[str, float] = {}
 
 
 def reset_launch_counts() -> None:
-    """Every kernel's launch count and the plan-build count back to 0."""
-    global PLAN_BUILDS
+    """Every kernel's launch count and the plan counts back to 0."""
+    global PLAN_BUILDS, PLAN_PATCHES
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    PLAN_BUILDS = 0
+    PLAN_BUILDS = PLAN_PATCHES = 0
 
 
 def resolve_device(device=None) -> torch.device:

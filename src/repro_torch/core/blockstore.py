@@ -64,6 +64,21 @@ def composite_key(major: torch.Tensor, minor: torch.Tensor) -> torch.Tensor:
     return major.long() * (1 << 32) + minor.long()
 
 
+def keep_last(src: torch.Tensor, dst: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """bool mask of the LAST occurrence of each (src, dst) among valid
+    entries (a stable sort keeps arrival order within a key)."""
+    pad = torch.full_like(src, PAD)
+    key = composite_key(torch.where(valid, src, pad),
+                        torch.where(valid, dst, pad))
+    skey, order = torch.sort(key, stable=True)
+    is_last = torch.ones_like(valid)
+    is_last[:-1] = skey[:-1] != skey[1:]
+    keep = torch.zeros_like(valid)
+    keep[order] = is_last
+    return keep & valid
+
+
 def stable_argsort(key: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, stable=True)[1]
 

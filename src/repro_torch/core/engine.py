@@ -16,10 +16,13 @@ and pull mode gathers ``x[v_dst]`` per lane instead.  Every sweep takes
     plain versions when the tensors lie on the CPU).
 
 A :class:`SweepPlan` (:func:`sweep_plan`) lays a CBList snapshot's lanes out
-in destination order once, so that a ``"cuda"`` sum sweep handed one sorts
-nothing: push gathers ``x[src]`` in that order (the vertex vector is the
-random side, small enough for L2) and the segment sum reads one contiguous
-stream.  Without a plan each sum sweep sorts its segment ids itself.
+in (destination, source) order once, so that a ``"cuda"`` sum sweep handed
+one sorts nothing: push gathers ``x[src]`` in that order (the vertex vector
+is the random side, small enough for L2) and the segment sum reads one
+contiguous stream.  Without a plan each sum sweep sorts its segment ids
+itself.  The order is a function of the edge set alone, so a plan kept
+across snapshots is patched with the net changes between them
+(:func:`patch_plan`) into the plan a build would give.
 
 ``min``/``max`` combines always use ``scatter_reduce`` (the sum kernel is
 additive), as the JAX package keeps them off its kernels.
@@ -37,7 +40,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+import weakref
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -45,10 +49,12 @@ import torch.distributed as dist
 import repro_torch.obs as obs
 from repro_torch import backend
 from repro_torch.backend import resolve_impl
+from repro_torch.core import blockstore as bs
 from repro_torch.core.blockstore import NULL, I32, arange32
 from repro_torch.core.cblist import CBList
 from repro_torch.core.traversal import lane_mask
-from repro_torch.kernels import gather_rows, segment_matmul
+from repro_torch.core.updates import INSERT, NOP
+from repro_torch.kernels import gather_rows, plan_patch, segment_matmul
 from repro_torch.kernels.segment_matmul.ops import (INT32_MAX,
                                                     csr_items_per_cta,
                                                     merge_path_partition,
@@ -130,16 +136,18 @@ class SweepPlan:
     """One CBList snapshot's sum sweeps in destination order.
 
     ``lanes`` (push, push_feat): the live lanes whose destination is in
-    range, stable-sorted by destination, as each lane's source vertex
-    ``src`` (its block's owner) and weight ``w``, with ``row_ptr`` the span
-    of each destination.  ``blocks`` (pull): the owned blocks stable-sorted
-    by owner, with ``block_row_ptr``.  Either is None when not built.  The
-    merge-path partitions of both streams are made once per feature width.
-    The plan holds the store arrays it was built from and refuses another
-    store (:meth:`check`).
+    range, sorted by (destination, source) (parallel edges in store order),
+    as each lane's source vertex ``src`` (its block's owner) and weight
+    ``w``, with ``row_ptr`` the span of each destination.  ``blocks``
+    (pull): the owned blocks stable-sorted by owner, with
+    ``block_row_ptr``.  Either is None when not built.  The merge-path
+    partitions of both streams are made once per feature width.  The plan
+    names the store arrays it was built (or patched) for and refuses
+    another store (:meth:`check`); it refers to them weakly, so a plan kept
+    across snapshots never keeps an old store alive.
     """
     nv: int
-    built_from: tuple                    # (keys, vals, count, owner)
+    built_from: tuple      # weak references to (keys, vals, count, owner)
     src: Optional[torch.Tensor] = None   # i32[V]
     w: Optional[torch.Tensor] = None     # f32[V]
     row_ptr: Optional[torch.Tensor] = None         # i32[nv + 1]
@@ -151,7 +159,7 @@ class SweepPlan:
         st = cbl.store
         now = (st.keys, st.vals, st.count, st.owner)
         if cbl.capacity_vertices != self.nv or any(
-                a is not b for a, b in zip(self.built_from, now)):
+                ref() is not a for ref, a in zip(self.built_from, now)):
             raise ValueError("sweep plan was built for another CBList store; "
                              "build one for this graph with sweep_plan(cbl)")
 
@@ -167,37 +175,73 @@ class SweepPlan:
         """The merge-path partition of stream ``name`` at width ``F``."""
         key = (name, csr_items_per_cta(F))
         if key not in self._parts:
-            self._parts[key] = merge_path_partition(self.stream(name), key[1])
+            items = self.src if name == "lanes" else self.blocks
+            self._parts[key] = merge_path_partition(
+                self.stream(name), key[1], num_items=items.numel())
         return self._parts[key]
 
 
 def sweep_plan(cbl: CBList, *, push: bool = True,
                pull: bool = True) -> SweepPlan:
-    """Lay ``cbl``'s lanes (``push``) and blocks (``pull``) out in
-    destination order for the sum sweeps; counted in
+    """Lay ``cbl``'s lanes (``push``, in (destination, source) order) and
+    blocks (``pull``, in owner order) out for the sum sweeps; counted in
     ``backend.PLAN_BUILDS``."""
     with obs.span("engine.sweep_plan", cat="engine", push=push, pull=pull):
         return _sweep_plan(cbl, push, pull)
+
+
+def patch_plan(cbl: CBList, held: SweepPlan,
+               pending: Sequence[tuple]) -> SweepPlan:
+    """The lanes plan of ``cbl``, patched from ``held``, a lanes plan of an
+    earlier snapshot of this graph with no parallel edges
+    (:func:`has_parallel_lanes`) at the same vertex capacity, with
+    ``pending``, the ``(src, dst, w, op)`` records of every flush since
+    (``op`` NOP where the flush did not keep a record; a later flush's op
+    on a key replaces an earlier one's): bit for bit the plan a build
+    gives; counted in ``backend.PLAN_PATCHES``.  Records whose source lies
+    outside ``[0, capacity)`` or whose destination is the empty-lane key
+    ``PAD`` clear lanes their keys do not name (the store clamps the source
+    of a delete, and finds ``PAD`` in an empty lane), so with any of them
+    kept the plan is built.
+    """
+    with obs.span("engine.sweep_plan", cat="engine", push=True, pull=False):
+        with obs.span("engine.plan_patch", cat="engine"):
+            plan = _patch_plan(cbl, held, pending)
+        return _sweep_plan(cbl, True, False) if plan is None else plan
+
+
+def _refs(st) -> tuple:
+    return tuple(weakref.ref(a) for a in (st.keys, st.vals, st.count,
+                                          st.owner))
 
 
 def _sweep_plan(cbl: CBList, push: bool, pull: bool) -> SweepPlan:
     backend.PLAN_BUILDS += 1
     st = cbl.store
     nv = cbl.capacity_vertices
-    plan = SweepPlan(nv=nv, built_from=(st.keys, st.vals, st.count,
-                                        st.owner))
+    plan = SweepPlan(nv=nv, built_from=_refs(st))
     bounds = arange32(nv + 1, cbl.device)
     if push:
-        mask = lane_mask(st) & (st.keys >= 0) & (st.keys < nv)
-        lanes = torch.nonzero(mask.reshape(-1)).squeeze(1)   # GTChain order
+        # the blocks copied in owner order (a vertex's blocks in store
+        # order), so the live lanes come out by source; one stable sort by
+        # destination then gives (dst, src) order, parallel edges in store
+        # order.  The copies go through the row-gather kernel: PyTorch's
+        # row gathers take 6x as long at Graph500 scale 24 (H100)
+        owner, by_owner = torch.sort(st.owner, stable=True)
+        count = torch.where(owner != NULL, st.count[by_owner], 0)
+        by_owner = by_owner.to(I32)
+        keys = _blocks(st.keys.view(torch.float32), by_owner).view(I32)
+        mask = ((arange32(st.block_width, cbl.device)[None, :]
+                 < count[:, None]) & (keys >= 0) & (keys < nv))
+        lanes = torch.nonzero(mask.reshape(-1)).squeeze(1)
         if lanes.numel() > INT32_MAX:
             raise ValueError(f"sweep_plan: {lanes.numel()} lanes do not fit "
                              "an int32 stream")
-        sorted_dst, order = torch.sort(st.keys.reshape(-1)[lanes],
-                                       stable=True)
+        sorted_dst, order = torch.sort(keys.reshape(-1)[lanes], stable=True)
+        del keys, mask
         lanes = lanes[order]
-        plan.src = st.owner[lanes // st.block_width]
-        plan.w = st.vals.reshape(-1)[lanes]
+        plan.src = owner[lanes // st.block_width]
+        plan.w = _blocks(st.vals, by_owner).reshape(-1)[lanes]
         plan.row_ptr = torch.searchsorted(sorted_dst, bounds, out_int32=True)
         plan.partition("lanes", 1)
     if pull:
@@ -208,6 +252,83 @@ def _sweep_plan(cbl: CBList, push: bool, pull: bool) -> SweepPlan:
                                                 out_int32=True)
         plan.partition("blocks", 1)
     return plan
+
+
+def _blocks(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The float32 rows ``table[ids]`` (the plan build's block copies)."""
+    if table.device.type != "cuda" or not table.numel():
+        return table[ids.long()]
+    return gather_rows(table, ids, rows_per_step=1,
+                       launch_name="plan_block_gather")
+
+
+def _patch_plan(cbl: CBList, held: SweepPlan,
+                pending: Sequence[tuple]) -> SweepPlan:
+    """``held``'s lanes stream with ``pending``'s net changes: every kept
+    key present in the old stream loses its lane (the flush's upsert
+    framing deletes it), every final insert gains one at its place in
+    (destination, source) order.  The records are sorted and located with
+    plain tensor ops and the ``plan_patch`` locate kernel; the stream is
+    merged by the ``plan_patch`` merge kernel.  None when a record refuses
+    the patch (see :func:`patch_plan`)."""
+    st = cbl.store
+    nv = cbl.capacity_vertices
+    if held.nv != nv or held.row_ptr is None:
+        raise ValueError("a held sweep plan patches a lanes plan of the same "
+                         "vertex capacity only")
+    plan = SweepPlan(nv=nv, built_from=_refs(st), src=held.src, w=held.w,
+                     row_ptr=held.row_ptr, _parts=held._parts)
+    if not pending:
+        backend.PLAN_PATCHES += 1
+        return plan
+    s, d, w, op = (torch.cat(col) for col in zip(*pending))
+    kept = op != NOP
+    refuse = (kept & ((s < 0) | (s >= nv) | (d == bs.PAD))).any()
+    # the last op on each key whose lane the plan can hold
+    ok = kept & (s >= 0) & (s < nv) & (d >= 0) & (d < nv)
+    idx = torch.nonzero(bs.keep_last(s, d, ok)).squeeze(1)   # a host sync
+    if not idx.numel():
+        if bool(refuse):
+            return None
+        backend.PLAN_PATCHES += 1
+        return plan
+    _, order = torch.sort(bs.composite_key(d[idx], s[idx]))
+    idx = idx[order]
+    rs, rd, rw = s[idx], d[idx], w[idx]
+    ins = op[idx] == INSERT
+    pos, found = plan_patch.locate_lanes(held.src, held.row_ptr, rd, rs)
+    zero = torch.zeros(1, dtype=I32, device=cbl.device)
+    cum_found = torch.cat([zero, torch.cumsum(found, 0, dtype=I32)])
+    cum_ins = torch.cat([zero, torch.cumsum(ins, 0, dtype=I32)])
+    n_found, n_ins, refused = torch.stack(
+        [cum_found[-1], cum_ins[-1], refuse.to(I32)]).tolist()   # a host sync
+    if refused:
+        return None
+    lanes = held.src.numel() - n_found + n_ins
+    if lanes > INT32_MAX:
+        raise ValueError(f"sweep_plan: {lanes} lanes do not fit an int32 "
+                         "stream")
+    plan.src, plan.w = plan_patch.merge_lanes(held.src, held.w, pos,
+                                              cum_found, cum_ins, rs, rw,
+                                              lanes)
+    net = torch.zeros(nv + 1, dtype=I32, device=cbl.device)
+    net.index_add_(0, rd.long() + 1, ins.to(I32) - found.to(I32))
+    plan.row_ptr = held.row_ptr + torch.cumsum(net, 0, dtype=I32)
+    plan._parts = {}
+    plan.partition("lanes", 1)
+    backend.PLAN_PATCHES += 1
+    return plan
+
+
+def has_parallel_lanes(plan: SweepPlan) -> bool:
+    """Whether two lanes of ``plan``'s lanes stream hold one (source,
+    destination) key (a host read).  The patch cannot tell which of them a
+    flush's delete removes, so such a plan is rebuilt, never patched."""
+    V = plan.src.numel()
+    starts = torch.zeros(V + 1, dtype=torch.bool, device=plan.src.device)
+    starts[plan.row_ptr.long()] = True
+    same = plan.src[1:] == plan.src[:-1]
+    return bool((same & ~starts[1:V]).any())
 
 
 def _planned_sum(plan: SweepPlan, name: str,

@@ -13,7 +13,8 @@ across the ranks (one MAX an iteration), so every rank runs the same
 iterations and makes the same collectives.
 On the kernel route (``impl="cuda"``) a program with a sum sweep lays the
 graph out once per run in a :class:`~repro_torch.core.engine.SweepPlan`
-that every iteration's sweeps reuse.
+that every iteration's sweeps reuse, unless the caller hands it one it
+keeps across snapshots (:class:`~repro_torch.stream.GraphService` does).
 """
 from __future__ import annotations
 
@@ -269,13 +270,15 @@ def _retract_unsupported(ctx: ProgramContext, prog: VertexProgram, state,
 
 def run_program(cbl, prog: VertexProgram, *, warm=None,
                 impl: Optional[str] = None, max_iters: Optional[int] = None,
-                return_stats: bool = False, **params):
+                return_stats: bool = False, plan=None, **params):
     """Execute ``prog`` on ``cbl`` to fixpoint.
 
     ``warm`` is a previous *output* of the same program (``"never"``
-    programs ignore it).  ``impl=None`` asks the tuner.  ``**params`` reach
-    the hooks through ``ctx.params``.  With ``return_stats`` the executor
-    also returns the iteration count the fixpoint took.
+    programs ignore it).  ``impl=None`` asks the tuner.  ``plan`` is a
+    sweep plan of ``cbl`` that the caller keeps; without one the kernel
+    route builds the run's own.  ``**params`` reach the hooks through
+    ``ctx.params``.  With ``return_stats`` the executor also returns the
+    iteration count the fixpoint took.
     """
     if impl is None:
         from repro_torch.core.tuner import choose_engine_impl
@@ -296,7 +299,8 @@ def run_program(cbl, prog: VertexProgram, *, warm=None,
         nv = cbl.capacity_vertices
         live = arange32(nv, cbl.device) < cbl.n_vertices
         ctx = ProgramContext(cbl=cbl, nv=nv, live=live, params=params,
-                             consts={}, plan=_plan_for(cbl, prog, impl))
+                             consts={}, plan=(_plan_for(cbl, prog, impl)
+                                              if plan is None else plan))
         if prog.setup is not None:
             ctx = ctx._replace(consts=prog.setup(ctx))
         frontier_mode = prog.task == "frontier"

@@ -4,8 +4,9 @@ Each wrapper checks its inputs, runs the plain version for a CPU tensor and
 launches its CUDA kernel (``repro_torch/csrc``) for a CUDA tensor: the
 GTChain segment sum and block gather of the graph path, flash (prefill) and
 paged (decode) attention of the LM serving path, EmbeddingBag (the
-SASRec item lookup), and the FindNeighbor chain walks (point reads,
-deletes and the sampler's draws).
+SASRec item lookup), the FindNeighbor chain walks (point reads,
+deletes and the sampler's draws), and the sweep plan's patch
+(``plan_patch``: a kept plan brought to the next snapshot).
 """
 from repro_torch.kernels.block_gather import block_gather_ref, gather_rows
 from repro_torch.kernels.chain_walk import (locate, locate_ref, rank_walk,

@@ -26,12 +26,17 @@ def _check(table: torch.Tensor, ids: torch.Tensor, rows_per_step: int) -> None:
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor, *,
-                rows_per_step: int = 8) -> torch.Tensor:
+                rows_per_step: int = 8,
+                launch_name: str = "block_gather") -> torch.Tensor:
     """out[i*G:(i+1)*G] = table[ids[i]*G:(ids[i]+1)*G] with G = rows_per_step.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel;
-    a meta tensor gives the output's shape and nothing else (the dry run).
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    counted in ``backend.LAUNCHES[launch_name]`` (``"plan_block_gather"``
+    for the sweep plan's build); a meta tensor gives the output's shape and
+    nothing else (the dry run).
     """
+    if launch_name not in ("block_gather", "plan_block_gather"):
+        raise ValueError(f"gather_rows: no launch count {launch_name!r}")
     _check(table, ids, rows_per_step)
     if table.device.type == "cpu":
         return block_gather_ref(table, ids, rows_per_step)
@@ -44,7 +49,7 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, *,
     n = ids.shape[0]
     out = torch.empty((n * rows_per_step, F), dtype=torch.float32,
                       device=table.device)
-    backend.launch("block_gather", table.data_ptr(), ids.data_ptr(),
+    backend.launch(launch_name, table.data_ptr(), ids.data_ptr(),
                    out.data_ptr(), n, rows_per_step * F,
                    table.shape[0] // rows_per_step)
     return out

@@ -58,18 +58,20 @@ def merge_path_partition(row_ptr: torch.Tensor, items_per_cta: int,
     Diagonal ``d`` of the merge splits at ``x`` rows and ``d - x`` items,
     where ``x`` counts the rows whose end comes before it:
     ``row_ptr[r + 1] + r + 1 <= d`` (a row's end follows its last item).
-    A meta ``row_ptr`` holds no count: the caller names ``num_items`` and
-    gets the partition's shape alone.
+    ``num_items`` is ``row_ptr[-1]`` where the caller knows it; without it
+    the count is read from ``row_ptr`` (a host sync).  A meta ``row_ptr``
+    holds no count: the caller names ``num_items`` and gets the
+    partition's shape alone.
     """
     if items_per_cta < 1:
         raise ValueError(f"items_per_cta must be >= 1, got {items_per_cta}")
     num_rows = row_ptr.numel() - 1
     dev = row_ptr.device
-    if dev.type != "meta":
+    if num_items is None:
+        if dev.type == "meta":
+            raise ValueError("merge_path_partition: a meta row_ptr needs "
+                             "num_items")
         num_items = int(row_ptr[-1])
-    elif num_items is None:
-        raise ValueError("merge_path_partition: a meta row_ptr needs "
-                         "num_items")
     _check_stream_size(num_items)
     total = num_rows + num_items
     n_ctas = -(-total // items_per_cta)

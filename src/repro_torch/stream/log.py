@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import blockstore as bs
-from repro_torch.core.blockstore import I32, PAD
+from repro_torch.core.blockstore import I32
 from repro_torch.core.updates import INSERT, NOP
 
 
@@ -71,21 +71,6 @@ def log_pending(log: UpdateLog) -> torch.Tensor:
     return log.tail - log.head
 
 
-def _coalesce_mask(src: torch.Tensor, dst: torch.Tensor,
-                   valid: torch.Tensor) -> torch.Tensor:
-    """Keep only the LAST occurrence of each (src, dst) among valid entries
-    (a stable sort keeps arrival order within a key)."""
-    pad = torch.full_like(src, PAD)
-    key = bs.composite_key(torch.where(valid, src, pad),
-                           torch.where(valid, dst, pad))
-    skey, order = torch.sort(key, stable=True)
-    is_last = torch.ones_like(valid)
-    is_last[:-1] = skey[:-1] != skey[1:]
-    keep = torch.zeros_like(valid)
-    keep[order] = is_last
-    return keep & valid
-
-
 def append(log: UpdateLog, src: torch.Tensor, dst: torch.Tensor,
            w: Optional[torch.Tensor] = None, op: Optional[torch.Tensor] = None,
            valid: Optional[torch.Tensor] = None,
@@ -102,7 +87,7 @@ def append(log: UpdateLog, src: torch.Tensor, dst: torch.Tensor,
         valid = torch.ones(src.shape, dtype=torch.bool, device=dev)
     valid = valid & (op != NOP)
 
-    keep = _coalesce_mask(src, dst, valid)
+    keep = bs.keep_last(src, dst, valid)
     n = keep.sum().to(I32)
     coalesced = valid.sum().to(I32) - n
 
@@ -163,7 +148,7 @@ def merge_views(shadow_src: torch.Tensor, shadow_dst: torch.Tensor,
     valid = torch.cat([shadow_valid, lvalid])
     return PendingView(src=src, dst=dst, w=torch.cat([shadow_w, w]),
                        op=torch.cat([shadow_op, op]),
-                       live=_coalesce_mask(src, dst, valid))
+                       live=bs.keep_last(src, dst, valid))
 
 
 def peek(log: UpdateLog) -> PendingView:
@@ -171,4 +156,4 @@ def peek(log: UpdateLog) -> PendingView:
     batches."""
     src, dst, w, op, valid = _window(log)
     return PendingView(src=src, dst=dst, w=w, op=op,
-                       live=_coalesce_mask(src, dst, valid))
+                       live=bs.keep_last(src, dst, valid))

@@ -23,7 +23,11 @@ compact/rebuild/grow, and on tiered storage seals the vertices unwritten
 for K flushes.  Analytics dispatch through the program registry with
 per-epoch caching and warm starts gated by each program's
 ``warm_validity``; :meth:`GraphService.register_program` opens
-user-defined workloads to the same loop.  Under :mod:`repro_torch.obs` a
+user-defined workloads to the same loop.  On the kernel route over a plain
+CBList the service keeps the lanes sweep plan of its push-summing programs
+(PageRank) across epochs, with each flush's kept records since, and has
+the engine patch it with their net changes instead of laying it out
+again for every job.  Under :mod:`repro_torch.obs` a
 flush is broken into phase spans (admission, coalesce, upsert, grow
 retries, maintenance) with matching counters.
 
@@ -47,9 +51,13 @@ import numpy as np
 import torch
 
 import repro_torch.obs as obs
+from repro_torch import backend
 from repro_torch.backend import resolve_device
+from repro_torch.core import blockstore as bs
 from repro_torch.core.blockstore import I32
 from repro_torch.core.cblist import CBList, blocks_needed, build_from_coo
+from repro_torch.core.engine import (SweepPlan, has_parallel_lanes,
+                                     patch_plan, sweep_plan)
 from repro_torch.core.program import (VertexProgram, get_program,
                                       has_program, run_program)
 from repro_torch.core.tiered import TieredGraph
@@ -66,6 +74,15 @@ from repro_torch.stream.maintenance import MaintenanceAction, MaintenancePolicy
 from repro_torch.stream.snapshot import Snapshot
 
 MAX_GROW_RETRIES = 6
+# The kept sweep plan is dropped, and built afresh at the next job, once the
+# records held for it pass one for every PLAN_LANES_PER_HELD_RECORD of its
+# lanes.  A patch's cost grows with its records, a build's with the lanes:
+# at Graph500 scale 24 (2^28 lanes; chip_smoke.py phase 5g, H100) a build
+# takes 42.7 ms, a patch 3.5 / 9.9 / 22.7 ms at 10^5 / 10^7 / 3 x 10^7
+# records, so the two meet near one record for 4.4 lanes.  At one for 8 a
+# patch costs at most ~60 % of a build, and the held records (16 B each)
+# stay under a quarter of the plan's 8 B a lane.
+PLAN_LANES_PER_HELD_RECORD = 8
 
 
 def _pad_warm(warm: torch.Tensor, capacity: int, fill) -> torch.Tensor:
@@ -129,6 +146,9 @@ class _ShadowFlush:
     net_deletes: int
     done: Optional[torch.cuda.Event]      # recorded after the upsert's launch
     sealed_before: Optional[torch.Tensor]  # tiered: sealed mask pre-update
+    # the kept sweep plan's copy of what the upsert applies (see _begin);
+    # None when no plan was kept
+    plan_records: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 @dataclasses.dataclass
@@ -222,6 +242,11 @@ class GraphService:
         self._deletes_applied = 0     # net topology removals (lattice-split signal)
         self.last_iterations = 0      # fixpoint iterations of the last analytics run
         self._programs: Dict[str, VertexProgram] = {}  # service-local registry
+        # the lanes sweep plan kept across epochs (_kept_plan), the records
+        # of the flushes since its epoch and their host count
+        self._held: Optional[SweepPlan] = None
+        self._held_records: list = []
+        self._held_count = 0
 
     @classmethod
     def from_coo(cls, src, dst, w=None, *, num_vertices: int,
@@ -377,13 +402,13 @@ class GraphService:
         with obs.span("flush.admission", cat="flush"):
             self._log, (s, d, w, op, valid) = ulog.drain(self._log)
             watermark = int(self._log.head)
-            self._pending = 0
+            n, self._pending = self._pending, 0     # the live prefix
         cbl = self._snap.cbl
 
         with obs.span("flush.coalesce", cat="flush"):
             # cross-append coalescing: the drained stream is FIFO, the last
             # op per key is the net effect
-            keep = ulog._coalesce_mask(s, d, valid)
+            keep = bs.keep_last(s, d, valid)
             n_ins = int((keep & (op == INSERT)).sum())
 
             # net topology removals = final-op DELETE keys that currently
@@ -413,6 +438,12 @@ class GraphService:
                             torch.where(keep & (op == INSERT), INSERT, nop)]))
         sealed_before = (cbl.sealed if isinstance(cbl, TieredGraph)
                          else None)
+        # the kept plan's records: the kept keys (a delete, then an insert
+        # for the final inserts), NOP elsewhere, copied out of the drain
+        plan_records = None
+        if self._held is not None:
+            plan_records = (s[:n].clone(), d[:n].clone(), w[:n].clone(),
+                            torch.where(keep[:n], op[:n], NOP))
         with obs.span("flush.upsert", cat="flush",
                       lanes=int(batch[0].shape[0]), retry=0):
             new_cbl, ustats = batch_update_stats(cbl, *batch)
@@ -423,7 +454,8 @@ class GraphService:
         self._shadow = _ShadowFlush(
             records=(s, d, w, op, valid), watermark=watermark, pre_cbl=cbl,
             new_cbl=new_cbl, ustats=ustats, batch=batch,
-            net_deletes=net_deletes, done=done, sealed_before=sealed_before)
+            net_deletes=net_deletes, done=done, sealed_before=sealed_before,
+            plan_records=plan_records)
 
     def _finish(self) -> FlushReport:
         sh = self._shadow
@@ -490,6 +522,8 @@ class GraphService:
             self._snap = snap.advance(self._snap, cbl, sh.watermark)
             applied_inserts = int(ustats.applied_inserts)
             epoch = int(self._snap.epoch)
+        if self._held is not None:
+            self._hold_records(cbl, sh.plan_records)
         self.stats.flushes += 1
         self.stats.applied_inserts += applied_inserts
         self.stats.applied_deletes += sh.net_deletes
@@ -506,6 +540,45 @@ class GraphService:
                            applied_inserts=applied_inserts,
                            applied_deletes=sh.net_deletes,
                            grow_retries=grow_retries, maintenance=action)
+
+    def _hold_records(self, cbl, records) -> None:
+        """Keep a published flush's records for the kept plan, or drop the
+        plan: when the flush began before the plan was kept (no records),
+        when the storage is no plain CBList or its vertex capacity moved,
+        or when the records since the plan's epoch pass their share of its
+        lanes (``PLAN_LANES_PER_HELD_RECORD``)."""
+        plan = self._held
+        if records is None or not isinstance(cbl, CBList) \
+                or cbl.capacity_vertices != plan.nv:
+            self._drop_plan()
+            return
+        self._held_records.append(records)
+        self._held_count += records[0].shape[0]
+        if self._held_count * PLAN_LANES_PER_HELD_RECORD > plan.src.shape[0]:
+            self._drop_plan()
+
+    def _drop_plan(self) -> None:
+        self._held, self._held_records, self._held_count = None, [], 0
+
+    def _kept_plan(self, cbl, prog: VertexProgram,
+                   impl: str) -> Optional[SweepPlan]:
+        """The lanes plan of this epoch, patched from the kept one (built
+        when none is kept), for a program whose sum sweeps push only
+        (push, push_feat), on the kernel route over a plain CBList; None
+        otherwise (``run_program`` then builds its own).  A built plan with
+        parallel edges is used, not kept."""
+        dirs = {sw.direction for sw in prog.sweeps if sw.combine == "sum"}
+        if impl != "cuda" or not isinstance(cbl, CBList) or not dirs \
+                or not dirs <= {"push", "push_feat"}:
+            return None
+        patches = backend.PLAN_PATCHES
+        plan = (sweep_plan(cbl, pull=False) if self._held is None
+                else patch_plan(cbl, self._held, self._held_records))
+        self._drop_plan()
+        # a patch keeps a plan free of parallel edges; a build is checked
+        if backend.PLAN_PATCHES > patches or not has_parallel_lanes(plan):
+            self._held = plan
+        return plan
 
     # ---- incremental analytics -------------------------------------------
 
@@ -562,7 +635,7 @@ class GraphService:
                               prog.warm_fill) if warm_start else None)
             out, self.last_iterations = run_program(
                 cbl, prog, warm=warm, impl=impl, return_stats=True,
-                **call_kw)
+                plan=self._kept_plan(cbl, prog, impl), **call_kw)
 
         self._cache[key] = (epoch, self._deletes_applied, dict(kw), out)
         return out

@@ -1452,3 +1452,133 @@ def test_moe_serve_graph_matches_the_eager_loop(gen):
     for c_graph, c_eager in zip(res[0].caches, res[1].caches):
         for name in ("block_table", "lengths", "free_top"):
             assert torch.equal(getattr(c_graph, name), getattr(c_eager, name))
+
+
+def _canonical_stream(gen, nv, V, hub=7, hub_lanes=100_000):
+    """A lanes stream sorted by (dst, src) of distinct keys, destination
+    ``hub`` holding about ``hub_lanes`` of them: (keys, src, w, row_ptr)."""
+    keys = torch.randint(0, nv * nv, (V,), generator=gen, device="cuda")
+    keys[:hub_lanes] = hub * nv + torch.randint(
+        0, nv, (hub_lanes,), generator=gen, device="cuda")
+    keys = torch.unique(keys)
+    w = torch.rand(keys.numel(), generator=gen, device="cuda")
+    row_ptr = torch.searchsorted(keys, torch.arange(nv + 1, device="cuda")
+                                 * nv, out_int32=True)
+    return keys, (keys % nv).to(torch.int32), w, row_ptr
+
+
+def test_plan_patch_kernels_match_their_plain_versions(gen):
+    """2^24 lanes, 10^5 records (deletes and re-inserts of live keys, fresh
+    inserts and deletes of absent keys, some on the hub): both kernels bit
+    for bit their plain versions on the host, and the patched stream the
+    stream sorted afresh."""
+    from repro_torch import backend
+    from repro_torch.kernels.plan_patch import (locate_lanes,
+                                                locate_lanes_ref, merge_lanes,
+                                                merge_lanes_ref)
+    nv = 1 << 20
+    keys, src, w, row_ptr = _canonical_stream(gen, nv, 1 << 24)
+    V = keys.numel()
+    live = keys[torch.randint(0, V, (50_000,), generator=gen, device="cuda")]
+    fresh = torch.randint(0, nv * nv, (49_000,), generator=gen,
+                          device="cuda")
+    on_hub = 7 * nv + torch.randint(0, nv, (1_000,), generator=gen,
+                                    device="cuda")
+    rkey = torch.unique(torch.cat([live, fresh, on_hub]))
+    ins = torch.rand(rkey.numel(), generator=gen, device="cuda") < 0.5
+    rdst, rsrc = (rkey // nv).to(torch.int32), (rkey % nv).to(torch.int32)
+    rw = torch.rand(rkey.numel(), generator=gen, device="cuda")
+    before = dict(backend.LAUNCHES)
+    pos, found = locate_lanes(src, row_ptr, rdst, rsrc)
+    ref = locate_lanes_ref(*(x.cpu() for x in (src, row_ptr, rdst, rsrc)))
+    assert torch.equal(pos.cpu(), ref[0]) and torch.equal(found.cpu(), ref[1])
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    cum_found = torch.cat([zero, torch.cumsum(found, 0, dtype=torch.int32)])
+    cum_ins = torch.cat([zero, torch.cumsum(ins, 0, dtype=torch.int32)])
+    lanes = V - int(cum_found[-1]) + int(cum_ins[-1])
+    args = (src, w, pos, cum_found, cum_ins, rsrc, rw)
+    new_src, new_w = merge_lanes(*args, lanes)
+    want_src, want_w = merge_lanes_ref(*(x.cpu() for x in args), lanes)
+    assert torch.equal(new_src.cpu(), want_src)
+    assert torch.equal(new_w.cpu(), want_w)
+    assert backend.LAUNCHES["plan_patch_locate"] == \
+        before["plan_patch_locate"] + 1
+    assert backend.LAUNCHES["plan_patch_merge"] == \
+        before["plan_patch_merge"] + 1
+    kept = torch.ones(V, dtype=torch.bool, device="cuda")
+    kept[pos[found].long()] = False
+    fresh_key, order = torch.sort(torch.cat([keys[kept], rkey[ins]]))
+    assert torch.equal(new_src, (fresh_key % nv).to(torch.int32))
+    assert torch.equal(new_w, torch.cat([w[kept], rw[ins]])[order])
+    torch.cuda.synchronize()
+
+
+def _to_host(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_host(v) for v in x))
+    return x
+
+
+def test_plan_build_on_the_card_equals_the_host_build(gen):
+    """The lanes build on the card (its block copies in owner order through
+    the row-gather kernel, counted apart from the sweeps' gathers) is bit
+    for bit the build of the same store on the host, with the blocks laid
+    out in another order."""
+    from repro_torch import backend
+    from repro_torch.core import engine as E
+    cbl = _card_graph()
+    st = cbl.store
+    perm = torch.randperm(st.owner.numel(), generator=gen, device="cuda")
+    cbl = cbl._replace(store=st._replace(
+        keys=st.keys[perm], vals=st.vals[perm], count=st.count[perm],
+        owner=st.owner[perm]))
+    before = dict(backend.LAUNCHES)
+    plan = E.sweep_plan(cbl, pull=False)
+    assert backend.LAUNCHES["plan_block_gather"] == \
+        before["plan_block_gather"] + 2
+    assert backend.LAUNCHES["block_gather"] == before["block_gather"]
+    host = E.sweep_plan(_to_host(cbl), pull=False)
+    for name in ("src", "w", "row_ptr"):
+        assert torch.equal(getattr(plan, name).cpu().view(torch.int32),
+                           getattr(host, name).view(torch.int32)), name
+
+
+def test_kept_plan_on_the_card_equals_a_fresh_build(gen):
+    """A GraphService on the card keeps its PageRank plan across flushes:
+    one build, then patches bit for bit the plan a build gives."""
+    from repro_torch import backend
+    from repro_torch.core import engine as E
+    from repro_torch.data.synthetic import rmat_edges
+    from repro_torch.stream.service import GraphService
+    nv, ne = 3_000, 40_000
+    src, dst = rmat_edges(nv, ne, seed=4, device="cuda")
+    svc = GraphService.from_coo(src, dst, torch.rand(ne, device="cuda"),
+                                num_vertices=nv, block_width=8,
+                                log_capacity=4096)
+    backend.reset_launch_counts()
+    for r in range(4):
+        n = 1_000
+        live = torch.randint(0, ne, (n,), generator=gen, device="cuda")
+        us = torch.cat([torch.randint(0, nv, (n,), generator=gen,
+                                      device="cuda", dtype=torch.int32),
+                        src[live]])
+        ud = torch.cat([torch.randint(0, nv, (n,), generator=gen,
+                                      device="cuda", dtype=torch.int32),
+                        dst[live]])
+        op = torch.cat([torch.ones(n, dtype=torch.int32, device="cuda"),
+                        torch.full((n,), -1, dtype=torch.int32,
+                                   device="cuda")])
+        svc.apply(us, ud, torch.rand(2 * n, generator=gen, device="cuda"), op)
+        svc.flush()
+        svc.analytics("pagerank")
+    assert (backend.PLAN_BUILDS, backend.PLAN_PATCHES) == (1, 3)
+    assert backend.LAUNCHES["plan_patch_merge"] == 3
+    held = svc._held
+    fresh = E.sweep_plan(svc.snapshot.cbl, pull=False)
+    for name in ("src", "w", "row_ptr"):
+        assert torch.equal(getattr(held, name).view(torch.int32),
+                           getattr(fresh, name).view(torch.int32)), name
+    assert torch.equal(held.partition("lanes", 1),
+                       fresh.partition("lanes", 1))

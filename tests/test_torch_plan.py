@@ -1,9 +1,10 @@
 """Port parity of the sweep-plan route: the engine's sum sweeps through a
 ``SweepPlan`` (``impl="cuda"``; on the CPU the kernels' plain versions)
 against the JAX engine (``impl="xla"`` and ``"pallas_interpret"``), the
-merge-path partition, the plain CSR sum, the plan's store check and the one
-plan a ``run_program`` builds.  Real-valued sums within rtol 1e-5
-(summation order), integer-valued sums bit for bit."""
+merge-path partition, the plain CSR sum, the plan's store check, the one
+plan a ``run_program`` builds, and a plan patched across flushes against a
+fresh build (bit for bit).  Real-valued sums within rtol 1e-5 (summation
+order), integer-valued sums bit for bit."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,15 +17,21 @@ import repro.core.engine as jeng  # noqa: E402
 import repro.graph.algorithms as jalg  # noqa: E402
 from repro.core import batch_update  # noqa: E402
 from repro_torch import backend, interop  # noqa: E402
+from repro_torch.core import blockstore as bs  # noqa: E402
+from repro_torch.core import cblist as tcb  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
-from repro_torch.core.updates import batch_update_stats  # noqa: E402
+from repro_torch.core.updates import (DELETE, INSERT, NOP,  # noqa: E402
+                                      batch_update_stats)
+from repro_torch.kernels.plan_patch import (locate_lanes,  # noqa: E402
+                                            merge_lanes)
 from repro_torch.graph import algorithms as talg  # noqa: E402
 from repro_torch.kernels.segment_matmul import (  # noqa: E402
     merge_path_partition, segment_sum_csr, segment_sum_csr_ref,
     sorted_layout)
 from repro_torch.kernels.segment_matmul.ops import csr_items_per_cta  # noqa: E402
 
-from torch_parity import (BW, NB, NV, assert_close, assert_exact, graph,  # noqa: E402
+from torch_parity import (BW, NB, NE, NV, assert_close, assert_exact,  # noqa: E402
+                          graph,
                           t)
 
 JIMPLS = ["xla", "pallas_interpret"]
@@ -142,6 +149,8 @@ def test_plan_lays_out_every_live_lane_in_destination_order(pair):
                        st.keys[mask].tolist(), st.vals[mask].tolist()))
     assert sorted(zip(plan.src.tolist(), dst.tolist(),
                       plan.w.tolist())) == pairs
+    # (dst, src) order: sources ascend inside each destination's segment
+    assert bool(((dst * NV + plan.src).diff() >= 0).all())
     owned = st.owner[plan.blocks.long()]
     assert bool((owned.diff() >= 0).all())
     assert plan.blocks.numel() == int((st.owner >= 0).sum())
@@ -326,3 +335,186 @@ def test_plan_builds_follow_the_sum_sweeps(built, name, kw, plans):
     backend.reset_launch_counts()
     talg.__dict__[name](p, impl="cuda", **kw)
     assert backend.PLAN_BUILDS == plans
+
+
+# ---------------------------------------------------------------------------
+# a plan kept across flushes and patched with their net changes
+# ---------------------------------------------------------------------------
+
+def _distinct_graph(seed, nv=NV, ne=NE):
+    """A CBList of distinct edges (no parallel edge), on the CPU."""
+    src, dst, w = graph(seed, nv, ne)
+    key, first = np.unique(src.astype(np.int64) * nv + dst, return_index=True)
+    src, dst, w = src[first], dst[first], w[first]
+    return tcb.build_from_coo(t(src), t(dst), t(w), num_vertices=nv,
+                              num_blocks=NB, block_width=BW)
+
+
+def _flush(cbl, s, d, w, op):
+    """One flush as the service frames it (the last op per key, a delete
+    of every kept key, an insert of each final insert); the store after it
+    and the flush's records as the service keeps them for its plan."""
+    keep = bs.keep_last(s, d, op != NOP)
+    nop = torch.full_like(op, NOP)
+    batch = (torch.cat([s, s]), torch.cat([d, d]), torch.cat([w, w]),
+             torch.cat([torch.where(keep, DELETE, nop),
+                        torch.where(keep & (op == INSERT), INSERT, nop)]))
+    cbl, stats = batch_update_stats(cbl, *batch)
+    assert int(stats.dropped_edges) == 0
+    return cbl, (s.clone(), d.clone(), w.clone(), torch.where(keep, op, nop))
+
+
+def _batch(rng, cbl, nv=NV):
+    """Re-inserts of present keys with new weights, deletes of present and
+    of absent keys, fresh inserts, destinations outside [0, nv), and keys
+    inserted and deleted in one batch, in both orders."""
+    ls, ld, _, valid = tcb.to_coo(cbl)
+    live = np.stack([ls[valid].numpy(), ld[valid].numpy()], 1)
+    pick = live[rng.choice(len(live), 40, replace=False)]
+    fresh = rng.integers(0, nv, (30, 2))
+    outside = np.array([[2, nv], [4, -2], [7, nv + 5], [2, nv]])
+    twice = np.concatenate([pick[:2], rng.integers(0, nv, (2, 2))])
+    keys = np.concatenate([pick, fresh, outside, twice, twice])
+    op = np.concatenate([np.full(20, INSERT), np.full(20, DELETE),
+                         np.where(rng.random(30) < 0.3, DELETE, INSERT),
+                         [INSERT, INSERT, DELETE, DELETE],
+                         [INSERT, DELETE, INSERT, DELETE],
+                         [DELETE, INSERT, DELETE, INSERT]])
+    w = rng.random(len(keys)).astype(np.float32)
+    return (t(keys[:, 0].astype(np.int32)), t(keys[:, 1].astype(np.int32)),
+            t(w), t(op.astype(np.int32)))
+
+
+def _maintain(cbl, what):
+    if what == "grow":
+        return tcb.grow(cbl, num_blocks=cbl.store.num_blocks * 2)
+    if what == "compact":
+        return tcb.compact_cbl(cbl)
+    if what == "rebuild":
+        return tcb.rebuild(cbl)
+    return cbl
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("flushes,between", [
+    (1, "none"), (3, "none"), (1, "grow"), (2, "compact"), (1, "rebuild")])
+def test_patched_plan_equals_a_fresh_build(seed, flushes, between):
+    """Over seeded flushes, with a grow, a compaction or a rebuild between
+    two patches and several flushes to a patch, the patched plan is the
+    plan ``sweep_plan`` builds for the resulting store, bit for bit."""
+    rng = np.random.default_rng(100 + seed)
+    cbl = _distinct_graph(seed)
+    plan = teng.sweep_plan(cbl, pull=False)
+    assert not teng.has_parallel_lanes(plan)
+    backend.reset_launch_counts()
+    for _ in range(3):
+        pending = []
+        for k in range(flushes):
+            cbl, rec = _flush(cbl, *_batch(rng, cbl))
+            pending.append(rec)
+            if k == 0:
+                cbl = _maintain(cbl, between)
+        plan = teng.patch_plan(cbl, plan, pending)
+        plan.check(cbl)
+        fresh = teng.sweep_plan(cbl, pull=False)
+        assert not teng.has_parallel_lanes(fresh)
+        for name in ("src", "w", "row_ptr"):
+            assert _same_bits(getattr(plan, name), getattr(fresh, name)), name
+        for F in (1, 16):
+            assert torch.equal(plan.partition("lanes", F),
+                               fresh.partition("lanes", F))
+    assert backend.PLAN_PATCHES == 3 and backend.PLAN_BUILDS == 3
+    assert backend.LAUNCHES["plan_patch_merge"] == 0       # CPU: no launch
+
+
+@pytest.mark.parametrize("key", [(-1, 3), (NV + 3, 1), (5, bs.PAD)])
+def test_records_the_patch_refuses_build_the_plan(key):
+    """A kept record with its source outside [0, nv) or the PAD destination
+    clears a lane its key does not name: the plan is built instead."""
+    rng = np.random.default_rng(7)
+    cbl = _distinct_graph(5)
+    plan = teng.sweep_plan(cbl, pull=False)
+    s, d, w, op = _batch(rng, cbl)
+    s = torch.cat([s, t(np.array([key[0]], np.int32))])
+    d = torch.cat([d, t(np.array([key[1]], np.int32))])
+    w = torch.cat([w, t(np.array([0.5], np.float32))])
+    op = torch.cat([op, t(np.array([DELETE], np.int32))])
+    cbl, rec = _flush(cbl, s, d, w, op)
+    backend.reset_launch_counts()
+    plan = teng.patch_plan(cbl, plan, [rec])
+    assert backend.PLAN_BUILDS == 1 and backend.PLAN_PATCHES == 0
+    fresh = teng.sweep_plan(cbl, pull=False)
+    for name in ("src", "w", "row_ptr"):
+        assert _same_bits(getattr(plan, name), getattr(fresh, name)), name
+
+
+def test_patch_without_records_keeps_the_streams():
+    cbl = _distinct_graph(3)
+    plan = teng.sweep_plan(cbl, pull=False)
+    after = cbl._replace(store=cbl.store._replace(
+        keys=cbl.store.keys.clone()))
+    with pytest.raises(ValueError, match="another CBList store"):
+        plan.check(after)
+    again = teng.patch_plan(after, plan, [])
+    again.check(after)
+    assert again.src is plan.src and again.row_ptr is plan.row_ptr
+    grown = tcb.grow(cbl, vertex_capacity=2 * NV)
+    with pytest.raises(ValueError, match="same vertex capacity"):
+        teng.patch_plan(grown, plan, [])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plan_is_a_function_of_the_edge_set(seed):
+    """The same edges in blocks laid out in another order (as flushes and
+    compactions leave them) give the same lanes plan, bit for bit."""
+    cbl = _distinct_graph(seed)
+    st = cbl.store
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        st.owner.numel()))
+    moved = cbl._replace(store=st._replace(
+        keys=st.keys[perm], vals=st.vals[perm], count=st.count[perm],
+        owner=st.owner[perm]))
+    plan, again = (teng.sweep_plan(c, pull=False) for c in (cbl, moved))
+    for name in ("src", "w", "row_ptr"):
+        assert _same_bits(getattr(plan, name), getattr(again, name)), name
+
+
+def test_parallel_lanes_are_found():
+    src = t(np.array([0, 0, 1, 2, 2], np.int32))
+    dst = t(np.array([1, 1, 1, 0, 1], np.int32))
+    cbl = tcb.build_from_coo(src, dst, None, num_vertices=4, num_blocks=8,
+                             block_width=2)
+    assert teng.has_parallel_lanes(teng.sweep_plan(cbl, pull=False))
+    assert not teng.has_parallel_lanes(teng.sweep_plan(
+        _distinct_graph(4), pull=False))
+
+
+def test_plan_patch_plain_versions():
+    """The kernels' plain versions on a hand-made stream: destination 0
+    holds sources 1, 4; destination 1 none; destination 2 sources 0, 3, 5.
+    Records: delete (0, 4), re-insert (2, 3), insert (1, 2) into the empty
+    segment and (2, 9) past the end."""
+    src = t(np.array([1, 4, 0, 3, 5], np.int32))
+    w = t(np.arange(5, dtype=np.float32))
+    row_ptr = t(np.array([0, 2, 2, 5], np.int32))
+    rdst = t(np.array([0, 1, 2, 2], np.int32))
+    rsrc = t(np.array([4, 2, 3, 9], np.int32))
+    pos, found = locate_lanes(src, row_ptr, rdst, rsrc)
+    assert pos.tolist() == [1, 2, 3, 5]
+    assert found.tolist() == [True, False, True, False]
+    cum_found = t(np.array([0, 1, 1, 2, 2], np.int32))
+    cum_ins = t(np.array([0, 0, 1, 2, 3], np.int32))
+    rw = t(np.array([-1, 10, 11, 12], np.float32))
+    new_src, new_w = merge_lanes(src, w, pos, cum_found, cum_ins, rsrc, rw,
+                                 6)
+    assert new_src.tolist() == [1, 2, 0, 3, 5, 9]
+    assert new_w.tolist() == [0, 10, 2, 11, 4, 12]
+    with pytest.raises(TypeError):
+        locate_lanes(src.long(), row_ptr, rdst, rsrc)
+    with pytest.raises(ValueError, match="inconsistent"):
+        merge_lanes(src, w, pos, cum_found[:-1], cum_ins, rsrc, rw, 6)

@@ -166,3 +166,178 @@ def test_entry_points_need_a_device_when_cuda_is_absent(monkeypatch):
     svc = TService.from_coo(src, dst, num_vertices=NV, device="cpu")
     assert svc.device.type == "cpu"
     assert interop.to_numpy(svc.snapshot.cbl.v_deg).sum() == len(src)
+
+
+# ---------------------------------------------------------------------------
+# the lanes sweep plan kept across epochs (the kernel route's plain versions
+# on CPU tensors)
+# ---------------------------------------------------------------------------
+
+from repro_torch import backend  # noqa: E402
+from repro_torch.core.program import get_program, run_program  # noqa: E402
+from repro_torch.stream import service as tservice  # noqa: E402
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """The service's analytics on the kernel route: on CPU tensors its
+    kernels run their plain versions."""
+    monkeypatch.setattr(tservice, "choose_engine_impl",
+                        lambda cbl, prog: "cuda")
+    backend.reset_launch_counts()
+
+
+def _kept_service(seed=0, **policy):
+    src, dst, w = graph(seed)
+    policy = {"vertex_headroom_floor": -1.0, **policy}
+    return TService.from_coo(src, dst, w, num_vertices=NV, block_width=BW,
+                             log_capacity=512, device="cpu",
+                             policy=tmaint.MaintenancePolicy(**policy)), src, dst
+
+
+def _per_flush(src, flushes):
+    """A batch size whose ``flushes`` flushes hold records well inside the
+    kept plan's share (``PLAN_LANES_PER_HELD_RECORD``)."""
+    return len(src) // (tservice.PLAN_LANES_PER_HELD_RECORD * (flushes + 1))
+
+
+def _counted(fn):
+    """``fn()`` and the plan builds and patches it made."""
+    b0, p0 = backend.PLAN_BUILDS, backend.PLAN_PATCHES
+    out = fn()
+    return out, backend.PLAN_BUILDS - b0, backend.PLAN_PATCHES - p0
+
+
+def test_kept_plan_pagerank_equals_a_fresh_plan(kernel_route):
+    """N refreshes make 1 build and N - 1 patches, and each PageRank is bit
+    for bit ``run_program``'s with a plan built for its epoch."""
+    svc, src, dst = _kept_service()
+    prog = get_program("pagerank")
+    prev, builds, patches = None, 0, 0
+    N = 4
+    for s, d, uw, op in update_stream(NV, (src, dst), _per_flush(src, 1), N,
+                                      seed=1):
+        svc.apply(s, d, uw, op)
+        svc.flush()
+        got, b, p = _counted(lambda: svc.analytics("pagerank"))
+        builds, patches = builds + b, patches + p
+        want = run_program(svc.snapshot.cbl, prog, warm=prev, impl="cuda")
+        assert torch.equal(got, want)
+        prev = got
+    assert (builds, patches) == (1, N - 1)
+
+
+def test_graphalytics_rotation_keeps_the_plan(kernel_route):
+    """BFS, SSSP and WCC between two PageRanks neither use nor drop the
+    plan: the second PageRank patches it with four flushes' records."""
+    svc, src, dst = _kept_service(seed=2)
+    rotation = [("pagerank", {}), ("bfs", {"source": 0}),
+                ("sssp", {"source": 0}), ("cc", {})]
+    stream = update_stream(NV, (src, dst), _per_flush(src, 4), 8, seed=3)
+    for j, (s, d, uw, op) in enumerate(stream):
+        svc.apply(s, d, uw, op)
+        svc.flush()
+        name, kw = rotation[j % 4]
+        out = svc.analytics(name, **kw)
+        if name == "pagerank":
+            prev = out
+    assert (backend.PLAN_BUILDS, backend.PLAN_PATCHES) == (1, 1)
+    # three flushes since the last PageRank's epoch: patched again
+    got = svc.analytics("pagerank")
+    assert (backend.PLAN_BUILDS, backend.PLAN_PATCHES) == (1, 2)
+    assert torch.equal(got, run_program(svc.snapshot.cbl,
+                                        get_program("pagerank"), warm=prev,
+                                        impl="cuda"))
+
+
+def test_vertex_capacity_change_drops_the_plan(kernel_route):
+    """A flush that grows the vertex capacity drops the kept plan; the next
+    PageRank builds, the one after patches."""
+    src, dst, w = graph(4)
+    svc = TService.from_coo(src, dst, w, num_vertices=NV, block_width=BW,
+                            log_capacity=512, device="cpu")
+    _, b, p = _counted(lambda: svc.analytics("pagerank"))
+    assert (b, p) == (1, 0)
+    batches = update_stream(NV, (src, dst), 80, 2, seed=5)
+    counts = []
+    for s, d, uw, op in batches:
+        svc.apply(s, d, uw, op)
+        svc.flush()
+        _, b, p = _counted(lambda: svc.analytics("pagerank"))
+        counts.append((b, p))
+    assert svc.snapshot.cbl.capacity_vertices > NV
+    assert counts == [(1, 0), (0, 1)]
+
+
+def test_held_records_past_their_share_drop_the_plan(kernel_route):
+    """Flushes whose records since the kept plan's epoch pass one for every
+    ``PLAN_LANES_PER_HELD_RECORD`` of its lanes drop it: the next PageRank
+    builds, and keeps the new plan."""
+    svc, src, dst = _kept_service(seed=12)
+    _, b, p = _counted(lambda: svc.analytics("pagerank"))
+    assert (b, p) == (1, 0)
+    lanes = svc._held.src.numel()
+    n = _per_flush(src, 2)
+    share = lanes // tservice.PLAN_LANES_PER_HELD_RECORD
+    counts, held = [], []
+    for s, d, uw, op in update_stream(NV, (src, dst), n, share // n + 2,
+                                      seed=13):
+        svc.apply(s, d, uw, op)
+        svc.flush()
+        held.append((svc._held is not None, svc._held_count))
+    assert held[0] == (True, n)
+    assert all(h == (c * n <= share) for c, (h, _) in
+               enumerate(held, start=1))
+    assert held[-1] == (False, 0)
+    _, b, p = _counted(lambda: svc.analytics("pagerank"))
+    assert (b, p) == (1, 0) and svc._held is not None
+
+
+def test_a_plan_with_parallel_edges_is_not_kept(kernel_route):
+    src, dst, w = graph(6)
+    src, dst, w = (np.concatenate([x, x[:5]]) for x in (src, dst, w))
+    svc = TService.from_coo(src, dst, w, num_vertices=NV, block_width=BW,
+                            log_capacity=512, device="cpu")
+    for s, d, uw, op in update_stream(NV, (src, dst), 40, 2, seed=7):
+        svc.apply(s, d, uw, op)
+        svc.flush()
+        _, b, p = _counted(lambda: svc.analytics("pagerank"))
+        assert (b, p) == (1, 0)
+
+
+def test_plan_kept_only_on_the_kernel_route():
+    svc, src, dst = _kept_service(seed=8)
+    backend.reset_launch_counts()
+    for s, d, uw, op in update_stream(NV, (src, dst), 40, 2, seed=9):
+        svc.apply(s, d, uw, op)
+        svc.flush()
+        svc.analytics("pagerank")
+    assert (backend.PLAN_BUILDS, backend.PLAN_PATCHES) == (0, 0)
+
+
+def test_kept_plan_across_a_shadow_flush(kernel_route):
+    """A PageRank between ``begin_flush`` and ``finish_flush`` runs on the
+    published epoch: a plan kept before the flush began patches without the
+    in-flight records and takes them at publish; a plan first built while
+    the flush is in flight cannot, and is dropped at publish."""
+    svc, src, dst = _kept_service(seed=10)
+    prog = get_program("pagerank")
+    batches = list(update_stream(NV, (src, dst), _per_flush(src, 2), 3,
+                                 seed=11))
+    svc.apply(*batches[0])
+    svc.begin_flush()
+    _, b, p = _counted(lambda: svc.analytics("pagerank"))    # epoch 0
+    assert (b, p) == (1, 0)
+    svc.finish_flush()                 # began with no plan kept: dropped
+    prev, b, p = _counted(lambda: svc.analytics("pagerank"))
+    assert (b, p) == (1, 0)
+    svc.apply(*batches[1])
+    svc.begin_flush()
+    svc.apply(*batches[2])
+    assert svc.analytics("pagerank") is prev                # epoch 1, cached
+    svc.finish_flush()
+    svc.flush()
+    got, b, p = _counted(lambda: svc.analytics("pagerank"))
+    assert (b, p) == (0, 1)
+    assert torch.equal(got, run_program(svc.snapshot.cbl, prog, warm=prev,
+                                        impl="cuda"))
