@@ -62,7 +62,8 @@ Phases, one report line each:
 5c. the tier phase (sealed CSR runs under the CBList delta).  From
    ``tier_from_cbl`` of the service's final CBList, seal 0.5, 0.9 and 1.0
    of the edges (low-degree vertices first, ``benchmarks/bench_tier.py``'s
-   rule) and print, beside the all-delta graph in the same call: the seal's
+   rule; a seal moves the chains into the run, the delta's capacity kept)
+   and print, beside the all-delta graph in the same call: the seal's
    wall time, the real sealed fraction, the run's lanes and the delta's
    blocks, the run's destination stream's build time, one push sweep
    through the kernels (the run tier's sweep launching each graph kernel
@@ -75,11 +76,12 @@ Phases, one report line each:
    tier rows.  Then, the untiered service freed, its tiered twin:
    ``GraphService.from_coo(..., seal_after_epochs=2)`` over the same graph
    with the counters at 0, a cold PageRank, the same three rounds of
-   1,000,000 updates (flush s per 1 M, seals / unseals, ``tier_version``,
-   sealed fraction, delta blocks), flush reports (epoch, watermark, applied
+   1,000,000 updates (flush s per 1 M, seals / unseals and the edges they
+   moved, ``tier_version``, sealed fraction, delta blocks), flush reports (epoch, watermark, applied
    inserts and deletes) and point reads bit for bit the untiered service's,
    the warm PageRank within rtol 1e-4 of its, both graph kernels and the
-   locate walk launched;
+   locate walk launched (the plan patch's kernels, which a seal into a
+   non-empty run launches, counted);
 5d. the shard phase, the tier phase's tensors released: the graph cell's
    graph behind ``GraphService.from_coo(..., n_shards=S)`` for S = 2 and 8
    (``benchmarks/bench_shard.py``'s sharded counts), every number beside
@@ -4730,6 +4732,8 @@ def tier_service(torch, timer, dev, coo, nv, untiered, untiered_warm, plain,
                    untiered_maintenance=ref_rep.maintenance.kind,
                    grow_retries=rep.grow_retries, seals=svc.stats.seals,
                    unseals=svc.stats.unseals,
+                   seal_edges=svc.stats.seal_edges,
+                   unseal_edges=svc.stats.unseal_edges,
                    tier_version=list(svc.snapshot.tier_version),
                    sealed_fraction=float(tg.sealed_fraction),
                    delta_blocks=tg.num_blocks, read_s=read_s)
@@ -4752,8 +4756,8 @@ def tier_service(torch, timer, dev, coo, nv, untiered, untiered_warm, plain,
                / max(plain_warm["iterations"], 1),
                pagerank_max_rel=rel, max_memory_allocated=(
                    torch.cuda.max_memory_allocated()),
-               launches={k: backend.LAUNCHES[k]
-                         for k in GRAPH_KERNELS + WALK_KERNELS})
+               launches={k: backend.LAUNCHES[k] for k in
+                         GRAPH_KERNELS + WALK_KERNELS + PLAN_PATCH_KERNELS})
     for name in GRAPH_KERNELS + ("chain_walk_locate",):
         check(out["launches"][name] > 0,
               f"tier: {name} never launched on the tiered service's path")

@@ -34,8 +34,8 @@ from repro_torch.core.tuner import (ExecPlan, RoutePlan, SystemProbe,
                                     choose_plan, choose_route_plan)
 from repro_torch.core.csr import (CSRGraph, csr_build, csr_build_counted,
                                   csr_degrees, csr_empty, csr_in_degrees,
-                                  csr_pagerank_sweep, csr_pull, csr_push,
-                                  csr_push_feat, csr_query,
+                                  csr_merge, csr_pagerank_sweep, csr_pull,
+                                  csr_push, csr_push_feat, csr_query,
                                   csr_sample_neighbors, csr_to_coo)
 from repro_torch.core.tiered import (TieredGraph, cold_mask, seal,
                                      tier_from_cbl, tiered_grow, unseal)

@@ -52,6 +52,7 @@ from repro_torch.core.blockstore import (I32, NULL, PAD, arange32,
                                          composite_key, segment_count)
 from repro_torch.core.engine import (SEMIRINGS, _default_edge_f,
                                      _gather_values)
+from repro_torch.kernels import plan_patch
 from repro_torch.kernels.segment_matmul.ops import (INT32_MAX,
                                                     csr_items_per_cta,
                                                     merge_path_partition,
@@ -199,14 +200,27 @@ def csr_build(src, dst, w=None, nv: Optional[int] = None, *,
     return g
 
 
-def csr_degrees(g: CSRGraph) -> torch.Tensor:
-    """Out-degrees (the vertex-table surface of the sealed tier)."""
-    return g.offsets[1:] - g.offsets[:-1]
+def csr_degrees(g: CSRGraph,
+                live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Out-degrees (the vertex-table surface of the sealed tier); with
+    ``live`` (bool[nv]) the rows of the vertices it leaves out read 0."""
+    deg = g.offsets[1:] - g.offsets[:-1]
+    return deg if live is None else torch.where(live, deg, 0)
 
 
-def csr_to_coo(g: CSRGraph):
-    """Live edges as padded COO ``(src, dst, w, valid)`` — already packed."""
+def _live_lanes(g: CSRGraph, live: Optional[torch.Tensor]) -> torch.Tensor:
+    """bool[E_cap]: the lanes that hold an edge, and with ``live`` only
+    those whose row it keeps."""
     ok = g.row != g.nv
+    if live is not None:
+        ok = ok & live[torch.where(ok, g.row, 0).long()]
+    return ok
+
+
+def csr_to_coo(g: CSRGraph, live: Optional[torch.Tensor] = None):
+    """Live edges as padded COO ``(src, dst, w, valid)`` — already packed
+    (with ``live``, the lanes of the rows it leaves out are not valid)."""
+    ok = _live_lanes(g, live)
     return (torch.where(ok, g.row, 0), torch.where(ok, g.indices, 0),
             torch.where(ok, g.weights, 0.0), ok)
 
@@ -342,10 +356,13 @@ def csr_push_feat(g: CSRGraph, x: torch.Tensor,
     return SEMIRINGS["sum"].segment_reduce(msg, seg, nv)
 
 
-def csr_in_degrees(g: CSRGraph) -> torch.Tensor:
+def csr_in_degrees(g: CSRGraph,
+                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In-degrees over the run's lanes (with ``live``, the lanes of its
+    rows only)."""
     if g.capacity == 0:
         return torch.zeros(g.nv, dtype=I32, device=g.device)
-    ok = g.row != g.nv
+    ok = _live_lanes(g, live)
     return segment_count(torch.where(ok, g.indices, g.nv), ok, g.nv)
 
 
@@ -402,6 +419,107 @@ def csr_sample_neighbors(g: CSRGraph, verts: torch.Tensor,
     if ranks is None:
         ranks = csr_draw_ranks(g, verts, generator, k)
     return csr_rank_neighbors(g, verts, ranks)
+
+
+# ---------------------------------------------------------------------------
+# Merge (a seal's move into the run: a pass over the run, no sort of it)
+# ---------------------------------------------------------------------------
+
+def csr_merge(g: CSRGraph, live: torch.Tensor, src: torch.Tensor,
+              dst: torch.Tensor, w: torch.Tensor) -> CSRGraph:
+    """The run of ``g``'s lanes whose row ``live`` (bool[nv]) keeps, and of
+    the edges ``(src, dst, w)``, in both of a run's orders.
+
+    The edges are sorted by (src, dst), their sources lie in ``[0, nv)``,
+    and none is a row ``live`` keeps (each vertex's edges lie in one of the
+    two).  Source order: a kept lane moves by its row's shift and a new
+    edge lands at its row's start plus its rank, so nothing of the run is
+    sorted again.  The push stream: the lanes of the rows left out are
+    dropped and the new edges with an in-range destination, stable-sorted
+    by destination, are placed by the sweep plan's patch kernels
+    (``plan_patch.locate_lanes`` and ``merge_lanes``), one pass over the
+    old stream.  The lanes left out go at the merge.
+    """
+    nv, dev = g.nv, g.device
+    n_old = g.n_live
+    row_o = g.row[:n_old].long()
+    keep = live[row_o]
+    deg_keep = csr_degrees(g, live)
+    moved = segment_count(src, torch.ones(src.shape, dtype=torch.bool,
+                                          device=dev), nv)
+    offsets = torch.zeros(nv + 1, dtype=I32, device=dev)
+    offsets[1:] = torch.cumsum(deg_keep + moved, 0)
+    n_new = int(offsets[-1])                                  # a host sync
+
+    # source order: kept lanes shifted by their row, new edges by rank
+    shift = (offsets[:-1] - g.offsets[:-1]).long()
+    pos_o = (torch.arange(n_old, device=dev) + shift[row_o])[keep]
+    first = torch.zeros(nv, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(moved[:-1], 0)
+    s64 = src.long()
+    pos_n = (offsets[:-1].long()[s64]
+             + torch.arange(src.numel(), device=dev) - first[s64])
+    indices = torch.empty(n_new, dtype=I32, device=dev)
+    weights = torch.empty(n_new, dtype=torch.float32, device=dev)
+    indices[pos_o] = g.indices[:n_old][keep]
+    weights[pos_o] = g.weights[:n_old][keep]
+    indices[pos_n] = dst.to(I32)
+    weights[pos_n] = w.to(torch.float32)
+    row = torch.repeat_interleave(arange32(nv, dev),
+                                  (deg_keep + moved).long(),
+                                  output_size=n_new)
+
+    # the push stream: (dst, src) order of the new edges to place
+    lanes = torch.nonzero((dst >= 0) & (dst < nv)).squeeze(1)
+    rd, order = torch.sort(dst[lanes].to(I32), stable=True)
+    lanes = lanes[order]
+    rs, rw = src[lanes].to(I32), w[lanes].to(torch.float32)
+    if g.push_src.numel() == 0:
+        push_src, push_w = rs.contiguous(), rw.contiguous()
+        push_ptr = torch.searchsorted(rd, arange32(nv + 1, dev),
+                                      out_int32=True)
+    else:
+        push_src, push_w, push_ptr = _merge_push(g, live, keep, rd, rs, rw)
+    return CSRGraph(offsets=offsets, indices=indices, weights=weights,
+                    row=row, nv=nv, push_src=push_src, push_w=push_w,
+                    push_ptr=push_ptr, n_live=n_new)
+
+
+def _merge_push(g: CSRGraph, live: torch.Tensor, keep: torch.Tensor,
+                rd: torch.Tensor, rs: torch.Tensor, rw: torch.Tensor):
+    """``g``'s push stream less the lanes of the rows ``live`` leaves out,
+    with the records ``(rd, rs, rw)`` (sorted by (dst, src)) placed: the
+    dropped lanes are records that delete the lane they name, the new
+    edges records that insert before the lane ``locate_lanes`` finds, all
+    sorted by that lane for ``merge_lanes``."""
+    nv, dev = g.nv, g.device
+    drop = torch.nonzero(~live[g.push_src.long()]).squeeze(1).to(I32)
+    ins_pos, _ = plan_patch.locate_lanes(g.push_src, g.push_ptr, rd, rs)
+    pos, order = torch.sort(torch.cat([drop, ins_pos]), stable=True)
+    is_ins = torch.cat([torch.zeros(drop.numel(), dtype=torch.bool,
+                                    device=dev),
+                        torch.ones(rd.numel(), dtype=torch.bool,
+                                   device=dev)])[order]
+    rsrc = torch.cat([torch.zeros(drop.numel(), dtype=I32, device=dev),
+                      rs])[order].contiguous()
+    rww = torch.cat([torch.zeros(drop.numel(), dtype=torch.float32,
+                                 device=dev), rw])[order].contiguous()
+    zero = torch.zeros(1, dtype=I32, device=dev)
+    cum_found = torch.cat([zero, torch.cumsum(~is_ins, 0, dtype=I32)])
+    cum_ins = torch.cat([zero, torch.cumsum(is_ins, 0, dtype=I32)])
+    n_lanes = g.push_src.numel() - drop.numel() + rd.numel()
+    push_src, push_w = plan_patch.merge_lanes(
+        g.push_src, g.push_w, pos.contiguous(), cum_found, cum_ins, rsrc,
+        rww, n_lanes)
+    # each destination's span: less its dropped lanes, plus its new edges
+    gone = g.indices[:g.n_live][~keep]
+    gone = gone[(gone >= 0) & (gone < nv)]
+    net = torch.zeros(nv + 1, dtype=I32, device=dev)
+    net.index_add_(0, gone.long() + 1,
+                   torch.full(gone.shape, -1, dtype=I32, device=dev))
+    net.index_add_(0, rd.long() + 1,
+                   torch.ones(rd.shape, dtype=I32, device=dev))
+    return push_src, push_w, g.push_ptr + torch.cumsum(net, 0, dtype=I32)
 
 
 # ---------------------------------------------------------------------------

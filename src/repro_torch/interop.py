@@ -23,7 +23,7 @@ from repro_torch.backend import resolve_device
 from repro_torch.checkpoint import Stacked
 from repro_torch.core.blockstore import BlockStore
 from repro_torch.core.cblist import CBList
-from repro_torch.core.csr import CSRGraph
+from repro_torch.core.csr import CSRGraph, csr_merge
 from repro_torch.core.tiered import TieredGraph
 from repro_torch.distributed.graph import ShardedCBList
 from repro_torch.stream.log import UpdateLog
@@ -179,7 +179,11 @@ def tiered_to_numpy(tg: TieredGraph) -> Dict[str, Any]:
             [getattr(g, k) for g in tg.run_list])))
             for k in _CSR_FIELDS if k != "nv"}
     else:
-        runs = {k: to_numpy(getattr(tg.runs, k))
+        run = tg.runs
+        if tg.run_retired:          # the JAX package keeps no retired lanes
+            none = torch.zeros(0, dtype=torch.int32, device=tg.device)
+            run = csr_merge(run, tg.sealed, none, none, none.float())
+        runs = {k: to_numpy(getattr(run, k))
                 for k in _CSR_FIELDS if k != "nv"}
     runs["nv"] = tg.run_list[0].nv
     return {"delta": (sharded_to_numpy(tg.delta) if tg.is_sharded

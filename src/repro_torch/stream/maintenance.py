@@ -21,7 +21,7 @@ grow > seal > rebuild > compact.
 Tiered storage (:class:`~repro_torch.core.tiered.TieredGraph`) adds the
 ``"seal"`` action: vertices with no writes for ``seal_after_epochs`` write
 generations move out of the delta into the immutable CSR run.  Sealing
-shrinks the delta, so it outranks the delta-local repairs (a rebuild of
+empties their chains, so it outranks the delta-local repairs (a rebuild of
 chains about to leave the delta would be wasted work); rebuild and compact
 stay local to the delta.  ``MaintenancePolicy.adapted`` raises the seal
 threshold from the measured unseal churn of a signal bus.
@@ -45,8 +45,8 @@ from repro_torch.core.cblist import (CBList, block_fences, compact_cbl, grow,
 
 # churn-adaptation knobs for MaintenancePolicy.adapted(): the seal threshold
 # K doubles while the measured unseal-churn ratio (unseals per seal: the
-# share of sealed vertices that writes pull straight back through a
-# repartition) exceeds the target, capped at CHURN_ADAPT_CAP x base K
+# share of sealed vertices that writes pull straight back into the
+# delta) exceeds the target, capped at CHURN_ADAPT_CAP x base K
 SEAL_CHURN_TARGET = 0.25
 CHURN_ADAPT_CAP = 8
 # windowed samples required before churn adaptation fires
@@ -75,7 +75,7 @@ class MaintenancePolicy:
 
         A high ``unseal_churn`` / ``seal_rate`` ratio means K is too eager:
         vertices get sealed and pulled straight back into the delta by
-        writes, a repartition each way.  K doubles per factor the ratio sits
+        writes, a move each way.  K doubles per factor the ratio sits
         above :data:`SEAL_CHURN_TARGET`, capped at :data:`CHURN_ADAPT_CAP` x
         base.  Stateless: each call reads the windowed signals afresh, so a
         subsiding churn window relaxes K back toward the base policy.
@@ -370,7 +370,9 @@ def _apply_action(cbl, action: MaintenanceAction,
 
 
 def _apply_tiered(tg, action: MaintenanceAction, policy: MaintenancePolicy):
-    """Tiered actions: seal repartitions the tiers, grow extends the tier
+    """Tiered actions: seal moves the cold vertices' chains into the run
+    (:func:`~repro_torch.core.tiered.seal`: the delta's capacity stays; a
+    sharded store repartitions), grow extends the tier
     bookkeeping with the delta, rebuild / compact stay local to the delta
     (the sealed run is sorted and contiguous by construction)."""
     from repro_torch.core.tiered import cold_mask, seal, tiered_grow

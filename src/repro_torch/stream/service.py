@@ -60,7 +60,7 @@ from repro_torch.core.engine import (SweepPlan, has_parallel_lanes,
                                      patch_plan, sweep_plan)
 from repro_torch.core.program import (VertexProgram, get_program,
                                       has_program, run_program)
-from repro_torch.core.tiered import TieredGraph
+from repro_torch.core.tiered import TieredGraph, unseal_blocks
 from repro_torch.core.tuner import (SystemProbe, choose_engine_impl,
                                     choose_plan)
 from repro_torch.core.updates import (DELETE, INSERT, NOP, UpdateStats,
@@ -145,7 +145,6 @@ class _ShadowFlush:
     batch: Tuple[torch.Tensor, ...]       # (src2, dst2, w2, op2)
     net_deletes: int
     done: Optional[torch.cuda.Event]      # recorded after the upsert's launch
-    sealed_before: Optional[torch.Tensor]  # tiered: sealed mask pre-update
     # the kept sweep plan's copy of what the upsert applies (see _begin);
     # None when no plan was kept
     plan_records: Optional[Tuple[torch.Tensor, ...]] = None
@@ -163,8 +162,11 @@ class ServiceStats:
     grows: int = 0
     compacts: int = 0
     rebuilds: int = 0
-    seals: int = 0                # cold-vertex seal repartitions (tiered)
+    seals: int = 0                # cold-vertex seals (tiered)
     unseals: int = 0              # vertices written back into the delta
+    seal_vertices: int = 0        # vertices moved into the run by seals
+    seal_edges: int = 0           # edges moved into the run by seals
+    unseal_edges: int = 0         # edges moved back into the delta by writes
 
 
 def _num_blocks(cbl) -> int:
@@ -423,7 +425,10 @@ class GraphService:
         obs.counter("flush.pending_inserts").inc(n_ins)
         obs.counter("flush.net_deletes").inc(net_deletes)
 
-        # proactive grow: worst case every pending insert opens a block
+        # proactive grow: worst case every pending insert opens a block;
+        # on tiered storage the chains its writes unseal take theirs too
+        if isinstance(cbl, TieredGraph):
+            n_ins += unseal_blocks(cbl, s, keep)
         action = maint.decide(cbl, pending_inserts=n_ins, policy=self._policy,
                               headroom_only=True)
         if action.kind == "grow":
@@ -436,8 +441,6 @@ class GraphService:
         batch = (torch.cat([s, s]), torch.cat([d, d]), torch.cat([w, w]),
                  torch.cat([torch.where(keep, DELETE, nop),
                             torch.where(keep & (op == INSERT), INSERT, nop)]))
-        sealed_before = (cbl.sealed if isinstance(cbl, TieredGraph)
-                         else None)
         # the kept plan's records: the kept keys (a delete, then an insert
         # for the final inserts), NOP elsewhere, copied out of the drain
         plan_records = None
@@ -454,8 +457,7 @@ class GraphService:
         self._shadow = _ShadowFlush(
             records=(s, d, w, op, valid), watermark=watermark, pre_cbl=cbl,
             new_cbl=new_cbl, ustats=ustats, batch=batch,
-            net_deletes=net_deletes, done=done, sealed_before=sealed_before,
-            plan_records=plan_records)
+            net_deletes=net_deletes, done=done, plan_records=plan_records)
 
     def _finish(self) -> FlushReport:
         sh = self._shadow
@@ -490,10 +492,12 @@ class GraphService:
                           retry=grow_retries):
                 new_cbl, ustats = batch_update_stats(cbl, *sh.batch)
         cbl = new_cbl
-        if sh.sealed_before is not None:
+        if isinstance(cbl, TieredGraph):
             # writes into the sealed tier moved their vertices back to the
             # delta inside batch_update_stats
-            self.stats.unseals += int((sh.sealed_before & ~cbl.sealed).sum())
+            v, e = self._moved(sh.pre_cbl, cbl)
+            self.stats.unseals += v
+            self.stats.unseal_edges += e
 
         # post-apply maintenance (fragmentation repair / cold-vertex seal);
         # policy.stats_period > 1 runs the headroom-only decide on off-cycle
@@ -508,13 +512,16 @@ class GraphService:
             action = maint.decide(cbl, pending_inserts=0, policy=policy,
                                   headroom_only=off_cycle)
             if action.kind in ("compact", "rebuild", "grow", "seal"):
-                cbl = maint.apply_action(cbl, action, policy)
+                before, cbl = cbl, maint.apply_action(cbl, action, policy)
                 if action.kind == "compact":
                     self.stats.compacts += 1
                 elif action.kind == "rebuild":
                     self.stats.rebuilds += 1
                 elif action.kind == "seal":
                     self.stats.seals += 1
+                    v, e = self._moved(before, cbl, into_run=True)
+                    self.stats.seal_vertices += v
+                    self.stats.seal_edges += e
                 else:
                     self.stats.grows += 1
 
@@ -540,6 +547,22 @@ class GraphService:
                            applied_inserts=applied_inserts,
                            applied_deletes=sh.net_deletes,
                            grow_retries=grow_retries, maintenance=action)
+
+    @staticmethod
+    def _moved(before: TieredGraph, after: TieredGraph,
+               into_run: bool = False) -> Tuple[int, int]:
+        """(vertices, edges) that moved between the tiers from ``before``
+        to ``after``: into the run, or back into the delta (one host
+        read)."""
+        if into_run:
+            moved = after.sealed & ~before.sealed
+            deg = after.run_degrees
+        else:
+            moved = before.sealed & ~after.sealed
+            deg = before.run_degrees
+        v, e = torch.stack([moved.sum(), torch.where(moved, deg, 0).sum()
+                            ]).tolist()
+        return int(v), int(e)
 
     def _hold_records(self, cbl, records) -> None:
         """Keep a published flush's records for the kept plan, or drop the

@@ -219,3 +219,50 @@ def test_insert_batch_rebuilds_like_the_reference():
     assert_csr_equal(jcsr.csr_insert_batch(j, jnp.asarray(s), jnp.asarray(d),
                                            jnp.asarray(w)),
                      tcsr.csr_insert_batch(p, t(s), t(d), t(w)))
+
+
+@pytest.mark.parametrize("kept,capacity", [(0.0, None), (0.5, None),
+                                           (1.0, None), (0.5, 2048),
+                                           (0.0, 0)])
+def test_merge_is_the_build_of_the_kept_and_moved_edges(kept, capacity):
+    """``csr_merge`` of a run (parallel edges, out-of-range destinations)
+    with a share of its rows kept and the other rows' edges moved in anew
+    (sorted by (src, dst), half of them new edges) gives, lane for lane,
+    the build of those edges: both orders, the point-read keys and the
+    push stream; and answers as the reference's build does."""
+    src, dst, w = _edges()
+    rng = np.random.default_rng(int(kept * 10) + 3)
+    if capacity == 0:
+        g = tcsr.csr_empty(NV, 0, "cpu")
+    else:
+        g = tcsr.csr_build(t(src), t(dst), t(w), NV, capacity=capacity)
+    live = t(rng.random(NV) < kept)
+    new_src = rng.integers(0, NV, 300).astype(np.int32)
+    new_src = new_src[~live.numpy()[new_src]]
+    ms = np.concatenate([src[~live.numpy()[src]], new_src])
+    md = np.concatenate([dst[~live.numpy()[src]],
+                         rng.integers(0, NV + 3, len(new_src))])
+    mw = np.concatenate([w[~live.numpy()[src]],
+                         rng.random(len(new_src)).astype(np.float32)])
+    order = np.lexsort((md, ms))        # (src, dst), stable
+    ms, md, mw = ms[order], md[order].astype(np.int32), mw[order]
+    got = tcsr.csr_merge(g, live, t(ms), t(md), t(mw))
+    ks, kd, kw, ok = tcsr.csr_to_coo(g, live)
+    all_s = np.concatenate([ks[ok].numpy(), ms])
+    all_d = np.concatenate([kd[ok].numpy(), md])
+    all_w = np.concatenate([kw[ok].numpy(), mw])
+    ref = tcsr.csr_build(t(all_s), t(all_d), t(all_w), NV)
+    assert got.capacity == got.n_live == ref.n_live == len(all_s)
+    for k in LANES + ("key", "push_src", "push_w", "push_ptr"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    j = jcsr.csr_build(jnp.asarray(all_s), jnp.asarray(all_d),
+                       jnp.asarray(all_w), NV)
+    qs = np.repeat(np.arange(NV, dtype=np.int32), NV)
+    qd = np.tile(np.arange(NV, dtype=np.int32), NV)
+    for a, b in zip(tcsr.csr_query(got, t(qs), t(qd)),
+                    jcsr.csr_query(j, jnp.asarray(qs), jnp.asarray(qd))):
+        assert_exact(a, b)
+    x = np.random.default_rng(4).random(NV).astype(np.float32)
+    for impl in ("torch", "cuda"):
+        assert_close(tcsr.csr_push(got, t(x), impl=impl),
+                     jcsr.csr_push(j, jnp.asarray(x)))

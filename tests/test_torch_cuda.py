@@ -257,7 +257,9 @@ def test_tiered_reads_and_pagerank_on_the_card_match_the_untiered(gen):
     cbl = _card_graph()
     nv = cbl.capacity_vertices
     tg = seal(tier_from_cbl(cbl), torch.arange(nv, device="cuda") % 2 == 0)
-    assert tg.runs.n_live > 0 and tg.num_blocks < cbl.store.num_blocks
+    # a move: the delta keeps its capacity, the sealed chains' blocks free
+    assert tg.runs.n_live > 0 and tg.num_blocks == cbl.store.num_blocks
+    assert int(tg.delta.store.free_top) > int(cbl.store.free_top)
     from repro_torch.core.cblist import to_coo
     qs, qd, _, _ = to_coo(cbl)
     qs = torch.cat([qs, torch.randint(0, nv, (5_000,), generator=gen,
@@ -277,6 +279,59 @@ def test_tiered_reads_and_pagerank_on_the_card_match_the_untiered(gen):
     for name in ("segment_sum", "block_gather"):
         assert backend.LAUNCHES[name] == 2 * iters, name
     torch.testing.assert_close(ranks, pagerank(cbl, impl="torch"),
+                               rtol=1e-4, atol=0.0)
+
+
+def test_tier_moves_on_the_card_match_the_host(gen):
+    """The tier moves on the card: a seal, an unseal that leaves retired
+    lanes, and a seal that merges over them (the run's push stream through
+    the plan patch's locate and merge kernels, one launch each), lane for
+    lane the same moves on the host; the push stream the one a fresh build
+    lays out; reads bit for bit and PageRank within rtol 1e-4 of the
+    all-delta graph's."""
+    from repro_torch import backend
+    from repro_torch.core import tiered as T
+    from repro_torch.core.csr import CSRGraph
+    from repro_torch.core.updates import read_edges
+    from repro_torch.graph.algorithms import pagerank
+    from repro_torch.stream.snapshot import _to
+    cbl = _card_graph()
+    nv = cbl.capacity_vertices
+    v = torch.arange(nv, device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tg = T.seal(T.tier_from_cbl(_to(cbl, dev)), (v % 2 == 0).to(dev))
+        tg = T.unseal(tg, (v % 4 == 0).to(dev))
+        assert tg.run_retired > 0
+        assert int(tg.num_edges) == int(cbl.num_edges)
+        before = dict(backend.LAUNCHES)
+        tg = T.seal(tg, (v % 3 == 0).to(dev))
+        if dev == "cuda":
+            for name in ("plan_patch_locate", "plan_patch_merge"):
+                assert backend.LAUNCHES[name] == before[name] + 1, name
+        out[dev] = tg
+    card, host = out["cuda"], out["cpu"]
+    assert card.run_retired == 0 and bool(card.sealed.any())
+    for k in ("offsets", "indices", "weights", "row", "key", "push_src",
+              "push_w", "push_ptr"):
+        assert torch.equal(getattr(card.runs, k).cpu(),
+                           getattr(host.runs, k)), k
+    for k, a in card.delta.store._asdict().items():
+        assert torch.equal(a.cpu(), getattr(host.delta.store, k)), k
+    fresh = CSRGraph(offsets=card.runs.offsets, indices=card.runs.indices,
+                     weights=card.runs.weights, row=card.runs.row, nv=nv)
+    for k in ("push_src", "push_w", "push_ptr"):
+        assert torch.equal(getattr(card.runs, k), getattr(fresh, k)), k
+    from repro_torch.core.cblist import to_coo
+    qs, qd, _, _ = to_coo(cbl)
+    qs = torch.cat([qs, torch.randint(0, nv, (5_000,), generator=gen,
+                                      device="cuda", dtype=torch.int32)])
+    qd = torch.cat([qd, torch.randint(0, nv, (5_000,), generator=gen,
+                                      device="cuda", dtype=torch.int32)])
+    for a, b in zip(read_edges(card, qs, qd), read_edges(cbl, qs, qd)):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(pagerank(card, impl="cuda"),
+                               pagerank(cbl, impl="torch"),
                                rtol=1e-4, atol=0.0)
 
 

@@ -17,9 +17,7 @@ from repro_torch.stream import maintenance as tmaint  # noqa: E402
 from repro_torch.stream.service import GraphService as TService  # noqa: E402
 
 from torch_parity import (BW, NV, assert_cbl_equal, assert_close,  # noqa: E402
-                          assert_exact, graph, t)
-
-import dataclasses  # noqa: E402
+                          assert_exact, assert_stats_equal, graph, t)
 
 
 def _services(src, dst, w=None, jpolicy=None, **kw):
@@ -38,9 +36,7 @@ def _report_equal(jr, pr):
 
 
 def _stats_equal(j, p):
-    jstats = dataclasses.asdict(j.stats)
-    for k, v in dataclasses.asdict(p.stats).items():
-        assert v == jstats[k], k
+    assert_stats_equal(j.stats, p.stats)
 
 
 def _analytics_equal(j, p):

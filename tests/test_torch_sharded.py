@@ -13,8 +13,6 @@ tiered service.  Sums of real values (push / pull / push_feat, PageRank,
 label propagation's mass) within rtol 1e-5: summation order.  A
 ``ServeFrontend`` replay over a sharded service against an unsharded one,
 both in the port."""
-import dataclasses
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -47,7 +45,7 @@ from repro_torch.stream import maintenance as tmaint  # noqa: E402
 from repro_torch.stream import snapshot as tsnap  # noqa: E402
 
 from torch_parity import (assert_cbl_equal, assert_close,  # noqa: E402
-                          assert_exact, t)
+                          assert_exact, assert_stats_equal, t)
 
 # the tests/test_sharded.py graph: unique random pairs over 60 vertices
 BW, NB = 8, 128
@@ -469,7 +467,7 @@ def test_sharded_service_matches_the_reference():
     for pkg in (jobs, tobs):
         pkg.disable()
     assert kinds & {"compact", "rebuild"}
-    assert dataclasses.asdict(p.stats) == dataclasses.asdict(j.stats)
+    assert_stats_equal(j.stats, p.stats)
     assert_sharded_equal(j.snapshot.cbl, p.snapshot.cbl)
     qs = np.concatenate([SRC, np.arange(NV)]).astype(np.int32)
     qd = np.concatenate([DST, np.arange(NV)[::-1]]).astype(np.int32)
@@ -505,7 +503,7 @@ def test_sharded_service_grow_retry_and_refusal():
     jr, pr = j.flush(), p.flush()
     assert pr._replace(maintenance=None) == jr._replace(maintenance=None)
     assert pr.grow_retries >= 1 or p.stats.grows >= 1
-    assert dataclasses.asdict(p.stats) == dataclasses.asdict(j.stats)
+    assert_stats_equal(j.stats, p.stats)
     assert_sharded_equal(j.snapshot.cbl, p.snapshot.cbl)
     found, _ = p.query_edges(us, ud)
     assert bool(found.all())
@@ -579,7 +577,7 @@ def test_sharded_tiered_service_matches_the_reference():
         assert tuple(pr.maintenance) == tuple(jr.maintenance)
         assert p.snapshot.tier_version == j.snapshot.tier_version
     assert p.stats.seals >= 1 and p.stats.unseals >= 1
-    assert dataclasses.asdict(p.stats) == dataclasses.asdict(j.stats)
+    assert_stats_equal(j.stats, p.stats)
     _tiered_state_equal(j.snapshot.cbl, p.snapshot.cbl)
     restored = interop.tiered_from_arrays(j.snapshot.cbl, device="cpu")
     _tiered_state_equal(j.snapshot.cbl, restored)

@@ -23,6 +23,7 @@ import repro.graph.algorithms as jalg  # noqa: E402
 import repro.obs as jobs  # noqa: E402
 import repro.stream.maintenance as jmaint  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
+import repro_torch.core.tiered as ttier  # noqa: E402
 import repro_torch.core.tuner as ttuner  # noqa: E402
 import repro_torch.distributed.graph as tdist  # noqa: E402
 import repro_torch.obs as tobs  # noqa: E402
@@ -153,7 +154,9 @@ def test_tiered_plan_matches_and_adapts_the_seal_threshold(graphs, sharded):
     _, j, p = graphs[3 if sharded else 1]
     half = np.arange(j.capacity_vertices) % 2 == 0
     jt = jcore.seal(jcore.tier_from_cbl(j), jnp.asarray(half))
-    pt = tcore.seal(tcore.tier_from_cbl(p), t(half))
+    # the repartition lays out the reference's delta (one store's seal is
+    # a move, which keeps the delta's capacity, and so its plan's lanes)
+    pt = ttier._repartition(tcore.tier_from_cbl(p), t(half))
     jp, tp = _probes({})
     for churn in (30.0, 0.1):
         for task in TASKS:

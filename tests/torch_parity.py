@@ -56,6 +56,15 @@ def assert_cbl_equal(jax_cbl, torch_cbl) -> None:
                 v, np.asarray(getattr(jax_cbl, k)), err_msg=k)
 
 
+def assert_stats_equal(jax_stats, torch_stats) -> None:
+    """Every counter of the JAX service's stats equals the port's (the
+    port's tier-move counters have no JAX counterpart)."""
+    import dataclasses
+    got = dataclasses.asdict(torch_stats)
+    for k, v in dataclasses.asdict(jax_stats).items():
+        assert got[k] == v, k
+
+
 def assert_close(got, ref) -> None:
     np.testing.assert_allclose(interop.to_numpy(got), np.asarray(ref),
                                rtol=RTOL, atol=ATOL)
